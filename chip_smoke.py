@@ -20,8 +20,22 @@ Phases; any failure ends the run with a nonzero exit code:
    default params, 512 slots.  The reads' sha256 must equal
    tests/data/ecoli_shape/dataset.sha256 and the merged records
    tests/data/ecoli_shape/jax_cpu.darwin (darwin_tpu's own output on a
-   CPU).  The kernels' launch counters are zeroed just before this
-   phase and must all be nonzero after it.
+   CPU), and the host stages must have run the port's native library
+   (--metrics-json's host_native), not their NumPy fallbacks.  The
+   kernels' launch counters are zeroed just before this phase and must
+   all be nonzero after it;
+5. the kernel lab (darwin_tpu_torch.lab): with the counters zeroed
+   again, its geometry sweep (every dir format and interleave 1, 2, 4,
+   each output checked bit-exact against the plain version), the `ilp`
+   experiment in every format, the plane-2 probe's emit at B = 2048,
+   T = 376 and the scan probe at TJP = 384 with its cross-check; every
+   DP variant, the plane-2 kernel and both scan lowerings must have
+   launched.  Then each of them against its plain version: the DP
+   variants and plane 2 at TILES x SCORINGS (B = 512, tiles with
+   rlen < T), plane 2 also at B = 2048, T = 376, the scans at
+   B = 2048, TJP = 384; with kernel and plain times (CUDA events,
+   median): the DP variants at B = 512, T = 320, plane 2 and the scans
+   at B = 2048.
 
 The last three lines are a JSON summary of the kernels, nvidia-smi's
 name and power limit, and {"ok": true, "device": {...}}.  Without a
@@ -104,24 +118,13 @@ def related_tiles(rng, B: int, T: int):
     return ref, query, rlen, qlen
 
 
-def max_abs_err(got: dict, want: dict) -> int:
-    err = 0
-    for k, w in want.items():
-        g = got[k]
-        if g.shape != w.shape or g.dtype != w.dtype:
-            raise AssertionError(f"{k}: {g.shape} {g.dtype} vs "
-                                 f"{w.shape} {w.dtype}")
-        err = max(err, int((g.long() - w.long()).abs().max()) if g.numel()
-                  else 0)
-    return err
-
-
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version on the card; returns
     {kernel: {max_abs_err, ms, plain_ms}}."""
     import numpy as np
     import torch
 
+    from darwin_tpu_torch.lab.geom_sweep import max_abs_err
     from darwin_tpu_torch.ops.common import PAD_REF
     from darwin_tpu_torch.ops.dp import align_tiles
     from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
@@ -198,17 +201,16 @@ def phase_kernels(dev) -> dict:
 
 def phase_fixtures(dev) -> None:
     from darwin_tpu.config import Params
-    from darwin_tpu.io.fasta import parse_fasta
-    from darwin_tpu_torch.pipeline import run_pipeline
+    from darwin_tpu_torch.pipeline import read_fasta, run_pipeline
 
     fixtures = sorted(p.parent for p in DATA.glob("*/out.darwin"))
     if not fixtures:
         raise AssertionError(f"no fixtures under {DATA}")
     for d in fixtures:
         params = Params.from_cfg(d / "params.cfg")
-        reads = parse_fasta(d / "reads.fasta")
+        reads = read_fasta(d / "reads.fasta")
         same_file = not (d / "ref.fasta").exists()
-        ref = reads if same_file else parse_fasta(d / "ref.fasta")
+        ref = reads if same_file else read_fasta(d / "ref.fasta")
         t0 = time.perf_counter()
         res = run_pipeline(ref, reads, params, same_file, batch_size=64,
                            device=dev)
@@ -272,7 +274,10 @@ def phase_ecoli(counters) -> dict:
         f"{m['engine_active_sum'] / max(1, m['engine_iters']):.1f}, "
         f"reads/s {m['reads_per_s']:.1f}, candidates "
         f"{m['num_candidates']}")
-    log(f"  launches: {launches}")
+    log(f"  launches: {launches}; host_native {m['host_native']}")
+    if m["host_native"] is not True:
+        raise AssertionError("the host stages ran their NumPy fallbacks: "
+                             "darwin_tpu_torch.native did not build")
     if got != want:
         w, g = set(want.splitlines()), set(got.splitlines())
         raise AssertionError(f"E.coli records differ: missing "
@@ -280,6 +285,148 @@ def phase_ecoli(counters) -> dict:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
     return launches
+
+
+def _dp_variant(fmt: str, il: int) -> tuple[str, str]:
+    """(JSON name, the TPU kernel it replaces) of one DP variant."""
+    if il == 1:
+        name = "align_tiles" if fmt == "bytes" else f"align_tiles[{fmt}]"
+        return name, "darwin_tpu/ops/pallas_dp.py:523"
+    return f"align_tiles[{fmt},il={il}]", "darwin_tpu/ops/pallas_dp.py:493"
+
+
+# The DP kernel's variants, by (dir_format, interleave).
+DP_VARIANTS = {(fmt, il): _dp_variant(fmt, il)
+               for fmt in ("bytes", "packed", "packed6") for il in (1, 2, 4)}
+LAB_KERNELS = {
+    "plane2": ("darwin_tpu_torch/csrc/dp.cu", "tools/plane2_probe.py:209"),
+    "scanshift_shfl": ("darwin_tpu_torch/csrc/scanshift.cu",
+                       "tools/scanshift_probe.py:97"),
+    "scanshift_smem": ("darwin_tpu_torch/csrc/scanshift.cu",
+                       "tools/scanshift_probe.py:97"),
+}
+
+
+def phase_lab(dev):
+    """The kernel lab's path with zeroed counters, then each lab kernel
+    against its plain version.  Returns ({name: {max_abs_err, ms,
+    plain_ms}}, {name: launches})."""
+    import numpy as np
+    import torch
+
+    from darwin_tpu_torch.lab import (SCORING, geom_sweep, kernel_lab,
+                                      plane2_probe, related_batches,
+                                      scanshift_probe)
+    from darwin_tpu_torch.lab.geom_sweep import max_abs_err
+    from darwin_tpu_torch.ops.dp import PACKERS, align_tiles, align_tiles_plain
+    from darwin_tpu_torch.ops.plane2 import plane2, plane2_torch
+    from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
+    from darwin_tpu_torch.ops.scanshift import (scanshift_shfl,
+                                                scanshift_smem,
+                                                scanshift_torch)
+
+    scans = {"scanshift_shfl": scanshift_shfl,
+             "scanshift_smem": scanshift_smem}
+    counters = (align_tiles, plane2, *scans.values())
+    for c in counters:
+        c.launches = 0
+    align_tiles.variant_launches.clear()
+    rows = geom_sweep.sweep(geom_sweep.DEFAULT_MATRIX, dev)
+    bad = [r[:4] for r in rows if r[4]["max_abs_err"]]
+    if bad:
+        raise AssertionError(f"geometry sweep mismatch: {bad}")
+    lab = kernel_lab.Lab(dev, B=2048, T=320, ET=200, V=2)
+    for fmt in PACKERS:
+        lab.run("ilp", fmt)
+    plane2_probe.probe_emit(376, dev, B=2048, V=2)
+    scanshift_probe.run(376, dev, B=2048, V=8)
+    launches = {name: align_tiles.variant_launches[v]
+                for v, (name, _) in DP_VARIANTS.items()}
+    launches["plane2"] = plane2.launches
+    launches.update({k: f.launches for k, f in scans.items()})
+    log(f"  lab launches: {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a lab kernel was not launched: {launches}")
+
+    res = {}
+    rng = np.random.default_rng(5)
+    for T, _ in TILES:
+        ref, query, rlen, qlen = (torch.from_numpy(x).to(dev) for x in
+                                  related_tiles(rng, B_MAIN, T))
+        for sc in SCORINGS:
+            kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                          sc))
+            plain_out = align_tiles_torch(ref, query, rlen, qlen, **kw)
+            for fmt, packer in PACKERS.items():
+                want = dict(plain_out)
+                if packer is not None:
+                    want["dir_words"] = packer(want.pop("dir"))
+                for il in (1, 2, 4):
+                    got = align_tiles(ref, query, rlen, qlen, dir_format=fmt,
+                                      interleave=il, **kw)
+                    name = DP_VARIANTS[(fmt, il)][0]
+                    e = max_abs_err(got, want)
+                    res.setdefault(name, {"max_abs_err": 0})
+                    res[name]["max_abs_err"] = max(
+                        res[name]["max_abs_err"], e)
+                    if e:
+                        raise AssertionError(f"{name} mismatch at T={T} {sc}")
+            p2 = plane2(ref, query, rlen, qlen, **kw)
+            e = max_abs_err(p2, plane2_torch(ref, query, rlen, qlen, **kw))
+            res.setdefault("plane2", {"max_abs_err": 0})
+            res["plane2"]["max_abs_err"] = max(res["plane2"]["max_abs_err"],
+                                               e)
+            if e:
+                raise AssertionError(f"plane2 mismatch at T={T} {sc}")
+            if (T, sc) == (T_MAIN, SCORINGS[0]):
+                main_dp = (ref, query, rlen, qlen, kw)
+        log(f"  T={T}: every DP variant and plane 2 exact under "
+            f"{len(SCORINGS)} scorings")
+
+    ref, query, rlen, qlen, kw = main_dp
+    for fmt in PACKERS:
+        plain_ms = median_ms(lambda: align_tiles_plain(
+            ref, query, rlen, qlen, dir_format=fmt, **kw), 5)
+        for il in (1, 2, 4):
+            name = DP_VARIANTS[(fmt, il)][0]
+            res[name]["ms"] = median_ms(
+                lambda: align_tiles(ref, query, rlen, qlen, dir_format=fmt,
+                                    interleave=il, **kw), 20)
+            res[name]["plain_ms"] = plain_ms
+            log(f"  {name} at B={B_MAIN} T={T_MAIN}: kernel "
+                f"{res[name]['ms']:.4f} ms, plain {plain_ms:.4f} ms")
+
+    # Plane 2 timed at the probe's shape, B = 2048, T = 376.
+    refs, queries = (torch.from_numpy(x[0]).to(dev) for x in
+                     related_batches(1, 2048, 376))
+    lens = torch.full((2048,), 376, dtype=torch.int32, device=dev)
+    kw = SCORING
+    e = max_abs_err(plane2(refs, queries, lens, lens, **kw),
+                    plane2_torch(refs, queries, lens, lens, **kw))
+    res["plane2"]["max_abs_err"] = max(res["plane2"]["max_abs_err"], e)
+    if e:
+        raise AssertionError("plane2 mismatch at B=2048 T=376")
+    res["plane2"]["ms"] = median_ms(
+        lambda: plane2(refs, queries, lens, lens, **kw), 10)
+    res["plane2"]["plain_ms"] = median_ms(
+        lambda: plane2_torch(refs, queries, lens, lens, **kw), 3)
+    log(f"  plane2 at B=2048 T=376: kernel {res['plane2']['ms']:.4f} ms, "
+        f"plain {res['plane2']['plain_ms']:.4f} ms")
+
+    # The scans at B = 2048, TJP = 384, 16 chained scans a row.
+    x = torch.from_numpy(scanshift_probe.probe_inputs(1, 2048, 376)[0][0]
+                         ).to(dev)
+    want = scanshift_torch(x)
+    plain_ms = median_ms(lambda: scanshift_torch(x), 5)
+    for name, fn in scans.items():
+        e = max_abs_err({0: fn(x)}, {0: want})
+        if e:
+            raise AssertionError(f"{name} mismatch at TJP=384")
+        res[name] = dict(max_abs_err=e, ms=median_ms(lambda: fn(x), 20),
+                         plain_ms=plain_ms)
+        log(f"  {name} at B=2048 TJP=384: kernel {res[name]['ms']:.4f} ms, "
+            f"plain {plain_ms:.4f} ms")
+    return res, launches
 
 
 def main() -> int:
@@ -297,7 +444,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/4] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
+    log(f"[1/5] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     report = _build.build()
@@ -307,13 +454,18 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log("  " + line.strip())
 
-    log("[2/4] kernels against their plain versions (tolerance 0)")
+    log("[2/5] kernels against their plain versions (tolerance 0)")
     kres = phase_kernels(dev)
-    log("[3/4] fixtures against the reference binary's out.darwin")
+    log("[3/5] fixtures against the reference binary's out.darwin")
     phase_fixtures(dev)
-    log("[4/4] E.coli-shaped slice through darwin_tpu_torch.cli")
+    log("[4/5] E.coli-shaped slice through darwin_tpu_torch.cli")
     counters = (align_tiles, traceback, fetch_tiles)
     launches = phase_ecoli(counters)
+    log("[5/5] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
+        "against its plain version")
+    t0 = time.perf_counter()
+    lres, llaunches = phase_lab(dev)
+    log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -328,6 +480,13 @@ def main() -> int:
     kernels = [dict(name=fn, route="cuda", source=src, replaces=rep,
                     launches=launches[fn], **kres[k])
                for k, (fn, src, rep) in meta.items()]
+    lab_meta = {name: ("darwin_tpu_torch/csrc/dp.cu", rep)
+                for name, rep in DP_VARIANTS.values()
+                if name != "align_tiles"}
+    lab_meta.update(LAB_KERNELS)
+    kernels += [dict(name=name, route="cuda", source=src, replaces=rep,
+                     launches=llaunches[name], **lres[name])
+                for name, (src, rep) in lab_meta.items()]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

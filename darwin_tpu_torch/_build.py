@@ -1,11 +1,12 @@
 """Build and bind the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by nvcc for sm_90a into one shared
-library, ``_build/libdtt_kernels.so``, with a plain C interface that is
-bound with ctypes.  The build happens at first use (never at import)
-and again whenever a source is newer than the library.  Each C entry
-launches on the stream it is given and returns ``cudaGetLastError()``;
-``launch`` raises if that is not 0.
+Every ``csrc/*.cu`` is compiled by nvcc for sm_90a, one nvcc process
+per source, all started together, and the objects are linked into one
+shared library, ``_build/libdtt_kernels.so``, with a plain C interface
+that is bound with ctypes.  The build happens at first use (never at
+import) and again whenever a source or header in csrc/ is newer than
+the library.  Each C entry launches on the stream it is given and
+returns ``cudaGetLastError()``; ``launch`` raises if that is not 0.
 """
 
 from __future__ import annotations
@@ -25,16 +26,17 @@ LIB = _DIR / "_build" / "libdtt_kernels.so"
 # -Xptxas -v reports registers / shared memory / spills per kernel;
 # build() returns that report.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures (see the csrc files); the last argument is the stream.
 _SIGNATURES = {
-    "dtt_align_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _P, _P, _P, _P, _P, _P],
+    "dtt_align_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P],
     "dtt_traceback": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _P, _P, _P, _P],
     "dtt_fetch_tiles": [_P, _L, _P, _P, _P, _I, _I, _I, _P, _P],
+    "dtt_scanshift": [_P, _I, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -50,25 +52,47 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile csrc/*.cu into LIB unless it is newer than every source.
+    """Compile csrc/*.cu into LIB unless it is newer than every source
+    and header.
 
     Returns nvcc's report (ptxas resource usage), or "" when the
     library was up to date.  Writes to a temporary name first, so a
     concurrent process never loads a half-written library."""
     sources = sorted(CSRC.glob("*.cu"))
-    newest = max(s.stat().st_mtime for s in sources)
+    newest = max(s.stat().st_mtime for s in CSRC.glob("*.cu*"))
     with _lock:
         if LIB.exists() and LIB.stat().st_mtime >= newest:
             return ""
         LIB.parent.mkdir(exist_ok=True)
-        tmp = LIB.with_name(f".{LIB.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, *map(str, sources), "-o", str(tmp)],
-            capture_output=True, text=True, timeout=900)
+        tag = f"{os.getpid()}.tmp"
+        objs = [LIB.with_name(f".{s.stem}.{tag}.o") for s in sources]
+        try:
+            procs = [subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for s, o in zip(sources, objs)]
+            try:
+                report = [p.communicate(timeout=900)[1] for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            for s, p, err in zip(sources, procs, report):
+                if p.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed on {s.name}:\n{err[-4000:]}")
+            tmp = LIB.with_name(f".{LIB.name}.{tag}")
+            proc = subprocess.run(
+                [_nvcc(), "-shared", *map(str, objs), "-o", str(tmp)],
+                capture_output=True, text=True, timeout=300)
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{proc.stderr[-4000:]}")
+            raise RuntimeError(f"nvcc link failed:\n{proc.stderr[-4000:]}")
         os.replace(tmp, LIB)
-        return proc.stderr
+        return "".join(report)
 
 
 def lib() -> ctypes.CDLL:

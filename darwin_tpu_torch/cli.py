@@ -26,9 +26,10 @@ import torch
 from darwin_tpu.config import Params
 from darwin_tpu.index.genome import Genome
 from darwin_tpu.index.seed_table import SeedTable
-from darwin_tpu.io.fasta import parse_fasta
-from darwin_tpu_torch.pipeline import (format_records, make_merged_engine,
-                                       read_banks, run_device_merged)
+from darwin_tpu_torch import native
+from darwin_tpu_torch.pipeline import (build_seed_table, format_records,
+                                       make_merged_engine, read_banks,
+                                       read_fasta, run_device_merged)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -84,13 +85,16 @@ def main(argv: list[str] | None = None) -> int:
           f" gap_open = {params.gap_open}, gap_extend = {params.gap_extend}")
     print(f"Batch size: {batch_size}, output ranges: {args.num_ranges}, "
           f"device: {device}")
-    metrics: dict = {"batch_size": batch_size, "device": str(device)}
+    # host_native: whether the host stages ran the native library or
+    # their NumPy fallbacks.
+    metrics: dict = {"batch_size": batch_size, "device": str(device),
+                     "host_native": native.available()}
 
     t_start = time.perf_counter()
-    ref_records = parse_fasta(args.reference)
+    ref_records = read_fasta(args.reference)
     genome = Genome(ref_records, params.bin_size)
     read_records = (ref_records if same_file
-                    else parse_fasta(args.reads))
+                    else read_fasta(args.reads))
     metrics["num_reads"] = len(read_records)
     print(f"Reference length: {genome.total_length}, "
           f"{len(ref_records)} pieces; number of reads: "
@@ -107,9 +111,9 @@ def main(argv: list[str] | None = None) -> int:
         table = SeedTable.load(args.seed_table)
         print(f"Seed table loaded from {args.seed_table}")
     else:
-        table = SeedTable.build(genome.concat, params.seed_size,
-                                params.seed_occurence_multiple,
-                                params.bin_size, params.window_size)
+        table = build_seed_table(genome.concat, params.seed_size,
+                                 params.seed_occurence_multiple,
+                                 params.bin_size, params.window_size)
         if args.seed_table:
             table.save(args.seed_table)
         print(f"Seed table built: {len(table.pos)} minimizers")

@@ -3,9 +3,11 @@
 The port of darwin_tpu/pipeline.py's device path.  Both strands run as
 ONE merged engine batch (run_device_merged): a multithreaded native
 D-SOFT pass over all forward + reverse-complement read-strands, then
-one engine run with the complement flag as per-call data.  D-SOFT, the
-seed table, the genome layout and record formatting are darwin_tpu's
-jax-free host modules, shared as they are.
+one engine run with the complement flag as per-call data.  The host
+stages (FASTA, seed table, D-SOFT) run the port's own build of the
+native library (darwin_tpu_torch.native) and fall back to darwin_tpu's
+NumPy code without it; the genome layout, the NumPy D-SOFT and record
+formatting are darwin_tpu's jax-free host modules, shared as they are.
 """
 
 from __future__ import annotations
@@ -16,14 +18,15 @@ import time
 import numpy as np
 import torch
 
-from darwin_tpu import native
-from darwin_tpu.coding import seq_to_bytes
+from darwin_tpu.coding import ref_minimizers, seq_to_bytes
 from darwin_tpu.config import Params
 from darwin_tpu.dsoft import dsoft
 from darwin_tpu.golden.gact import format_record
 from darwin_tpu.index.genome import Genome
 from darwin_tpu.index.seed_table import SeedTable
+from darwin_tpu.io import fasta
 from darwin_tpu.io.fasta import FastaRecord, revcomp
+from darwin_tpu_torch import native
 from darwin_tpu_torch.engine.batch import GactCalls
 from darwin_tpu_torch.engine.device_batch import DeviceGactEngine
 from darwin_tpu_torch.engine.seqbank import SeqBank
@@ -36,6 +39,45 @@ class PipelineResult:
     num_candidates_rev: int
 
 
+def read_fasta(path) -> list[FastaRecord]:
+    """FASTA records through the native loader, or darwin_tpu's pure
+    parser without it (or when the native loader rejects the file, so
+    that errors come from the reference-parity parser)."""
+    records = native.parse_fasta(path)
+    if records is None:
+        records = fasta.parse_fasta(path, native=False)
+    return records
+
+
+def build_seed_table(ref_seq: str | np.ndarray, kmer_size: int,
+                     seed_occurence_multiple: int, bin_size: int,
+                     window_size: int) -> SeedTable:
+    """darwin_tpu's SeedTable.build (seed_table.py:42-72) with the
+    port's native library: sorted (hash << 32) | pos minimizer keys,
+    native or NumPy, minus the keys at padding positions >= ref_size."""
+    if not 3 < kmer_size <= 15:
+        raise ValueError(f"seed size {kmer_size}: need 3 < k <= 15")
+    if not kmer_size > window_size:
+        raise ValueError(f"seed size {kmer_size} <= window {window_size}")
+    ref_size = len(ref_seq)
+    kmer_max_occurence = seed_occurence_multiple * (
+        1 + (ref_size >> (2 * kmer_size)))
+    if native.available():
+        b = seq_to_bytes(ref_seq) if isinstance(ref_seq, str) else ref_seq
+        keys = native.build_table_keys(b, kmer_size, window_size)
+    else:
+        keys = np.sort(ref_minimizers(ref_seq, kmer_size, window_size))
+    # For k + w < 16 the reference's scan range reaches past the end of
+    # the reference; SeedTable.build drops those positions, and so does
+    # this.
+    keys = keys[(keys & np.uint64(0xFFFFFFFF)) < ref_size]
+    return SeedTable(
+        (keys >> np.uint64(32)).astype(np.uint32),
+        (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+        kmer_size=kmer_size, window_size=window_size, bin_size=bin_size,
+        ref_size=ref_size, kmer_max_occurence=kmer_max_occurence)
+
+
 def _no_calls() -> GactCalls:
     z = np.empty(0, dtype=np.int64)
     return GactCalls(z, z, z, z)
@@ -46,8 +88,8 @@ def collect_calls(table: SeedTable, genome: Genome, queries: SeqBank,
                   num_threads: int | None = None) -> GactCalls:
     """Run D-SOFT for every query and decode hits to GACT anchors.
 
-    Uses the multithreaded native host engine when available; falls
-    back to the vectorized NumPy D-SOFT per read (as
+    Uses the port's multithreaded native D-SOFT when the library is
+    built; falls back to the vectorized NumPy D-SOFT per read (as
     darwin_tpu.pipeline.collect_calls does).
     """
     ids = range(len(queries.lengths)) if read_ids is None else read_ids
@@ -175,9 +217,9 @@ def run_pipeline(ref_records: list[FastaRecord],
     the reference's darwin.<i>.out format."""
     genome = Genome(ref_records, params.bin_size)
     if table is None:
-        table = SeedTable.build(genome.concat, params.seed_size,
-                                params.seed_occurence_multiple,
-                                params.bin_size, params.window_size)
+        table = build_seed_table(genome.concat, params.seed_size,
+                                 params.seed_occurence_multiple,
+                                 params.bin_size, params.window_size)
     fwd_bank, rev_bank = read_banks(read_records)
     recs, counts = run_device_merged(
         genome, table, fwd_bank, rev_bank, params, same_file=same_file,

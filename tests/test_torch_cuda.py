@@ -17,14 +17,13 @@ import pytest
 import torch
 
 from darwin_tpu.config import Params
-from darwin_tpu.io.fasta import parse_fasta
 from darwin_tpu_torch.engine.device_batch import DeviceGactEngine
-from darwin_tpu_torch.ops import dp, tile_fetch, traceback
+from darwin_tpu_torch.ops import dp, plane2, scanshift, tile_fetch, traceback
 from darwin_tpu_torch.ops.common import PAD_QUERY, PAD_REF
 from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
 from darwin_tpu_torch.ops.tile_fetch import fetch_tiles_torch
 from darwin_tpu_torch.ops.traceback import traceback_torch
-from darwin_tpu_torch.pipeline import run_pipeline
+from darwin_tpu_torch.pipeline import read_fasta, run_pipeline
 
 pytestmark = pytest.mark.cuda
 TINY = Path(__file__).resolve().parent / "data" / "tiny"
@@ -82,6 +81,54 @@ def test_dp_and_walker_kernels_match_plain(cuda, T, et):
             assert torch.equal(a, b), sc
 
 
+@pytest.mark.parametrize("T", [64, 320, 376])
+def test_dp_word_formats_and_interleave_match_plain(cuda, T):
+    """Every dir format at interleave 1, 2 and 4 equals the plain
+    version (byte DP, then the packer), with rlen < T tiles, whose rows
+    past rlen still carry bytes in their words."""
+    ref, query, rlen, qlen, _ = _tiles(T + 1, 64, T, cuda)
+    for sc in SCORINGS[:3]:
+        kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"), sc))
+        plain = align_tiles_torch(ref, query, rlen, qlen, **kw)
+        for fmt, packer in dp.PACKERS.items():
+            want = dict(plain)
+            if packer is not None:
+                want["dir_words"] = packer(want.pop("dir"))
+            for il in dp.INTERLEAVES:
+                n = dp.align_tiles.variant_launches[(fmt, il)]
+                got = dp.align_tiles(ref, query, rlen, qlen, dir_format=fmt,
+                                     interleave=il, **kw)
+                assert dp.align_tiles.variant_launches[(fmt, il)] == n + 1
+                assert got.keys() == want.keys()
+                for key in want:
+                    assert torch.equal(got[key], want[key]), (sc, fmt, il,
+                                                              key)
+
+
+@pytest.mark.parametrize("T", [24, 320, 376])
+def test_plane2_kernel_matches_plain(cuda, T):
+    ref, query, rlen, qlen, _ = _tiles(T + 2, 64, T, cuda)
+    kw = dict(match=1, mismatch=-1, gap_open=-1, gap_extend=-1)
+    n = plane2.plane2.launches
+    got = plane2.plane2(ref, query, rlen, qlen, **kw)
+    assert plane2.plane2.launches == n + 1
+    want = plane2.plane2_torch(ref, query, rlen, qlen, **kw)
+    assert got.keys() == want.keys()
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("C", [1, 40, 384, 1024])
+def test_scanshift_lowerings_match_cummax(cuda, C):
+    x = torch.from_numpy(np.random.default_rng(C).integers(
+        -1000, 1000, size=(96, C), dtype=np.int32)).to(cuda)
+    want = scanshift.scanshift_torch(x)
+    for fn in (scanshift.scanshift_shfl, scanshift.scanshift_smem):
+        n = fn.launches
+        assert torch.equal(fn(x), want), fn.__name__
+        assert fn.launches == n + 1
+
+
 @pytest.mark.parametrize("T", [64, 320])
 def test_fetch_kernel_matches_plain(cuda, T):
     rng = np.random.default_rng(T)
@@ -114,6 +161,18 @@ def test_wrappers_reject_bad_arguments(cuda):
     n2 = torch.zeros(2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         dp.align_tiles(big, big, n2, n2, **kw)
+    for bad in (dict(interleave=3), dict(dir_format="words")):
+        with pytest.raises(ValueError):
+            dp.align_tiles(ref, query, rlen, qlen, **bad, **kw)
+    with pytest.raises(ValueError):  # B = 6 does not divide by 4
+        dp.align_tiles(ref[:6], query[:6], rlen[:6], qlen[:6],
+                       interleave=4, **kw)
+    wide = torch.zeros((2, 512), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        dp.align_tiles(wide, wide, n2, n2, interleave=2, **kw)
+    with pytest.raises(ValueError):
+        scanshift.scanshift_smem(torch.zeros((2, 1025), dtype=torch.int32,
+                                             device=cuda))
     with pytest.raises(ValueError):
         tile_fetch.fetch_tiles(torch.zeros(0, dtype=torch.uint8,
                                            device=cuda),
@@ -126,22 +185,22 @@ def test_pipeline_on_card_matches_reference_with_one_sync_per_iteration(
     the engine loop waits for the device once per iteration (its
     termination check), plus its set-up copies and the final download."""
     params = Params.from_cfg(TINY / "params.cfg")
-    reads = parse_fasta(TINY / "reads.fasta")
+    reads = read_fasta(TINY / "reads.fasta")
     res = run_pipeline(reads, reads, params, True, batch_size=4,
                        device=cuda)
     assert set(res.records) == set((TINY / "out.darwin").read_text()
                                    .splitlines())
 
     from darwin_tpu.index.genome import Genome
-    from darwin_tpu.index.seed_table import SeedTable
     from darwin_tpu_torch.engine.batch import GactCalls
     from darwin_tpu_torch.engine.seqbank import SeqBank
-    from darwin_tpu_torch.pipeline import collect_calls, read_banks
+    from darwin_tpu_torch.pipeline import (build_seed_table, collect_calls,
+                                           read_banks)
 
     genome = Genome(reads, params.bin_size)
-    table = SeedTable.build(genome.concat, params.seed_size,
-                            params.seed_occurence_multiple,
-                            params.bin_size, params.window_size)
+    table = build_seed_table(genome.concat, params.seed_size,
+                             params.seed_occurence_multiple,
+                             params.bin_size, params.window_size)
     merged = SeqBank.concat(*read_banks(reads))
     calls = collect_calls(table, genome, merged, params)
     eng = DeviceGactEngine(
@@ -168,3 +227,30 @@ def test_pipeline_on_card_matches_reference_with_one_sync_per_iteration(
     # Besides the per-iteration check: 10 set-up uploads of the call
     # tables and 3 downloads in finish().
     assert eng.last_iters <= syncs <= eng.last_iters + 20, syncs
+
+
+def test_lab_entry_points_on_card(cuda, capsys):
+    """Each lab entry point at a small size on the card: the sweep's
+    checks pass, the interleaved sinks agree, and the gather probe's
+    CUDA graph gives the eager sink (it raises otherwise)."""
+    from darwin_tpu_torch.lab import (geom_sweep, kernel_lab, plane2_probe,
+                                      scanshift_probe)
+
+    assert geom_sweep.main(["--config", "64,320,packed6,4",
+                            "--config", "32,100,bytes,2"]) == 0
+    assert kernel_lab.main(["base", "ilp", "tbiters", "--batch", "64",
+                            "--variants", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "2/2 configs exact" in out
+    assert len({ln.split("sink ")[1] for ln in out.splitlines()
+                if "interleave=" in ln}) == 1
+    emit = plane2_probe.probe_emit(24, cuda, B=64, V=2, reps=1)
+    assert emit["packed6 base"][1] == plane2_probe.probe_emit(
+        24, torch.device("cpu"), B=64, V=2, reps=1)["packed6 base"][1]
+    gather = plane2_probe.probe_gather(24, cuda, B=64, V=2, reps=1)
+    cpu = plane2_probe.probe_gather(24, torch.device("cpu"), B=64, V=2,
+                                    reps=1)
+    for mode, (graph_ms, _, sink) in gather.items():
+        assert graph_ms is not None and sink == cpu[mode][2], mode
+    scan = scanshift_probe.run(376, cuda, B=64, V=2, reps=1)
+    assert scan["shfl"][1] == scan["smem"][1]

@@ -122,3 +122,43 @@ def test_align_tiles_dispatch():
     with pytest.raises(ValueError):
         dp.align_tiles(*(x.to("meta") for x in (ref, query, rlen, qlen)),
                        **kw)
+
+
+# The geometries of test_pallas_dp.py's ILP-stream test (B, T,
+# block_b, interleave), each in every dir format.  make_batch draws
+# lengths in 1..T, so most tiles have rlen < T, whose rows past rlen
+# carry bytes of the rows above in their words.
+@pytest.mark.parametrize("fmt", ["bytes", "packed", "packed6"])
+@pytest.mark.parametrize("B,T,block_b,interleave",
+                         [(16, 24, 16, 2), (32, 24, 32, 4)])
+def test_align_tiles_formats_and_interleave_match_pallas_interpret(
+        fmt, B, T, block_b, interleave):
+    rng = np.random.default_rng(100 + interleave)
+    ref, query, rlen, qlen = make_batch(rng, B, T)
+    assert (rlen < T).any()
+    kw = _scoring((MATCH, MISMATCH, GO, GE))
+    want = align_tiles_pallas(ref, query, rlen, qlen, block_b=block_b,
+                              interpret=True, dir_format=fmt,
+                              interleave=interleave, **kw)
+    got = dp.align_tiles(*map(torch.from_numpy, (ref, query, rlen, qlen)),
+                         dir_format=fmt, interleave=interleave, **kw)
+    key = "dir" if fmt == "bytes" else "dir_words"
+    assert got.keys() == set(KEYS[1:]) | {key}
+    for k in got:
+        w = np.asarray(want[k])
+        if k == key:
+            w = w[:, :, :T + 1]
+        assert got[k].numpy().dtype == w.dtype, k
+        np.testing.assert_array_equal(got[k].numpy(), w, err_msg=k)
+
+
+def test_align_tiles_rejects_bad_geometry():
+    """As align_tiles_pallas asserts B % interleave == 0; unknown
+    formats and interleaves raise too, on the CPU path as well."""
+    rng = np.random.default_rng(7)
+    args = [torch.from_numpy(x) for x in make_batch(rng, 6, 16)]
+    kw = _scoring((MATCH, MISMATCH, GO, GE))
+    for bad in (dict(interleave=4), dict(interleave=3),
+                dict(dir_format="words")):
+        with pytest.raises(ValueError):
+            dp.align_tiles(*args, **bad, **kw)
