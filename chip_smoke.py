@@ -8,34 +8,49 @@ Phases; any failure ends the run with a nonzero exit code:
 
 1. device: the card's name and power limit; the kernels are built from
    darwin_tpu_torch/csrc (nvcc, sm_90a) and the build time printed;
-2. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, bit-exact (every output is an integer), at B = 512 and
-   T = 320, 64, 376 under three scoring sets, with kernel and plain
-   times (CUDA events, median) at the main path's shape;
+2. kernels: each CUDA kernel of the main paths against its plain
+   PyTorch version on the card, bit-exact (every output is an integer):
+   the DP, the three walkers (dir bytes, packed and packed6 words) and
+   the span fetch at B = 512 and T = 320, 64, 376 under three scoring
+   sets, the score-only SW at B = 64 on 200-3000 base pairs; with
+   kernel and plain times (CUDA events, median) at B = 512, T = 320,
+   ET = 200, and for SW at B = 64 on 3 kb pairs;
 3. fixtures: darwin_tpu_torch.pipeline.run_pipeline on every
    tests/data fixture that has an out.darwin (the reference binary's
-   output); record sets must be equal;
-4. the E.coli-shaped slice through the port's CLI: a 4.6 Mb synthetic
-   genome, 460 x 10 kb reads at 12% error (seed 42), self-overlap,
-   default params, 512 slots.  The reads' sha256 must equal
-   tests/data/ecoli_shape/dataset.sha256 and the merged records
-   tests/data/ecoli_shape/jax_cpu.darwin (darwin_tpu's own output on a
-   CPU), and the host stages must have run the port's native library
-   (--metrics-json's host_native), not their NumPy fallbacks.  The
-   kernels' launch counters are zeroed just before this phase and must
-   all be nonzero after it;
+   output), under the device engine and under the host-stepped engine;
+   record sets must be equal;
+4. the E.coli-shaped slice: a 4.6 Mb synthetic genome, 460 x 10 kb
+   reads at 12% error (seed 42), self-overlap, default params, 512
+   slots, made once; its sha256 must equal
+   tests/data/ecoli_shape/dataset.sha256.  Four runs, each with the
+   launch counters zeroed just before it and read just after: the CLI
+   (device engine, dir bytes), the device engine with tb_format
+   "packed" and "packed6" through pipeline.run_device_merged, and the
+   CLI with --engine host --paf-out.  Every run's merged records must
+   equal tests/data/ecoli_shape/jax_cpu.darwin (darwin_tpu's own output
+   on a CPU), the host stages must have run the port's native library
+   (host_native), not their NumPy fallbacks, and every kernel a run
+   uses must have launched in it;
 5. the kernel lab (darwin_tpu_torch.lab): with the counters zeroed
    again, its geometry sweep (every dir format and interleave 1, 2, 4,
    each output checked bit-exact against the plain version), the `ilp`
-   experiment in every format, the plane-2 probe's emit at B = 2048,
-   T = 376 and the scan probe at TJP = 384 with its cross-check; every
-   DP variant, the plane-2 kernel and both scan lowerings must have
-   launched.  Then each of them against its plain version: the DP
-   variants and plane 2 at TILES x SCORINGS (B = 512, tiles with
-   rlen < T), plane 2 also at B = 2048, T = 376, the scans at
-   B = 2048, TJP = 384; with kernel and plain times (CUDA events,
-   median): the DP variants at B = 512, T = 320, plane 2 and the scans
-   at B = 2048.
+   experiment in every format, the full-step experiments (`byte_full`
+   and the word walkers' `packed`, `packed6`, `p6compact`, `tbunroll`)
+   at the tool's shape, the
+   plane-2 probe's emit at B = 2048, T = 376 and the scan probe at
+   TJP = 384 with its cross-check; every DP variant, both word walkers,
+   the plane-2 kernel and both scan lowerings must have launched.  Then
+   each lab kernel against its plain version: the DP variants and
+   plane 2 at TILES x SCORINGS (B = 512, tiles with rlen < T), plane 2
+   also at B = 2048, T = 376, the scans at B = 2048, TJP = 384; with
+   kernel and plain times (CUDA events, median): the DP variants at
+   B = 512, T = 320, plane 2 and the scans at B = 2048;
+6. the score evaluator: two read sets of 40 x 4 kb reads from a 100 kb
+   genome (seed 7; darwin_tpu.eval.datagen.two_readsets) overlapped by
+   the port's CLI, then darwin_tpu_torch.eval.score_eval's main on the
+   records, with the SW counter zeroed before and nonzero after; the
+   exact scores of every theoretical pair, both strands, from the SW
+   kernel must equal the plain version's.
 
 The last three lines are a JSON summary of the kernels, nvidia-smi's
 name and power limit, and {"ok": true, "device": {...}}.  Without a
@@ -60,6 +75,55 @@ B_MAIN, T_MAIN = 512, 320
 # configs/tpu.cfg.
 TILES = [(320, 200), (64, 40), (376, 256)]
 SCORINGS = [(1, -1, -1, -1), (2, -3, -4, -2), (3, -1, -2, -1)]
+SW_B, SW_LEN = 64, 3000
+
+
+def _dp_variant(fmt: str, il: int) -> str:
+    """JSON name of one DP variant."""
+    if il == 1:
+        return "align_tiles" if fmt == "bytes" else f"align_tiles[{fmt}]"
+    return f"align_tiles[{fmt},il={il}]"
+
+
+# The DP kernel's variants, by (dir_format, interleave).
+DP_VARIANTS = {(fmt, il): _dp_variant(fmt, il)
+               for fmt in ("bytes", "packed", "packed6") for il in (1, 2, 4)}
+# Every kernel of the kernels line: (its source, the TPU kernel or JAX
+# function it replaces as "path:line", and what that line holds:
+# "pallas_call" for a Pallas kernel, else the name of the function
+# defined there).  The main paths' kernels come first.
+DP_SRC = "darwin_tpu_torch/csrc/dp.cu"
+WALK_SRC = "darwin_tpu_torch/csrc/traceback_words.cu"
+KERNELS = {
+    "align_tiles": (DP_SRC, "darwin_tpu/ops/pallas_dp.py:523",
+                    "pallas_call"),
+    "traceback": ("darwin_tpu_torch/csrc/traceback.cu",
+                  "darwin_tpu/ops/traceback.py:29", "traceback_jax"),
+    "traceback_packed": (WALK_SRC, "darwin_tpu/ops/traceback.py:370",
+                         "traceback_packed_jax"),
+    "traceback_packed6": (WALK_SRC, "darwin_tpu/ops/traceback.py:158",
+                          "traceback_packed6_jax"),
+    "fetch_tiles": ("darwin_tpu_torch/csrc/tile_fetch.cu",
+                    "darwin_tpu/ops/tile_fetch.py:161", "pallas_call"),
+    "local_score_batch": ("darwin_tpu_torch/csrc/swscore.cu",
+                          "darwin_tpu/ops/swscore.py:33",
+                          "local_score_batch"),
+    **{name: (DP_SRC, "darwin_tpu/ops/pallas_dp.py:"
+              + ("523" if il == 1 else "493"), "pallas_call")
+       for (fmt, il), name in DP_VARIANTS.items() if name != "align_tiles"},
+    "plane2": (DP_SRC, "tools/plane2_probe.py:209", "pallas_call"),
+    "scanshift_shfl": ("darwin_tpu_torch/csrc/scanshift.cu",
+                       "tools/scanshift_probe.py:97", "pallas_call"),
+    "scanshift_smem": ("darwin_tpu_torch/csrc/scanshift.cu",
+                       "tools/scanshift_probe.py:97", "pallas_call"),
+}
+# The kernels each phase 4 run must launch.
+ECOLI_RUNS = {
+    "cli bytes": ("align_tiles", "fetch_tiles", "traceback"),
+    "packed": ("align_tiles", "fetch_tiles", "traceback_packed"),
+    "packed6": ("align_tiles", "fetch_tiles", "traceback_packed6"),
+    "cli host --paf-out": ("align_tiles", "traceback_packed6"),
+}
 
 
 def log(*a):
@@ -118,9 +182,43 @@ def related_tiles(rng, B: int, T: int):
     return ref, query, rlen, qlen
 
 
+def _walker_pairs(fmt: str, ET: int, args):
+    """(kernel, plain) closures of one walker on the same inputs."""
+    from darwin_tpu_torch.ops import traceback as tb
+
+    kernel = tb.WALKERS[fmt][1]
+    plain = {"bytes": tb.traceback_torch,
+             "packed": tb.traceback_packed_torch,
+             "packed6": tb.traceback_packed6_torch}[fmt]
+    return (lambda: kernel(*args, early_terminate=ET),
+            lambda: plain(*args, early_terminate=ET))
+
+
+def sw_pairs(rng, B: int, L: int):
+    """[B, L] ref/query of related ACGT (the query a window of the ref
+    with 10% of its bases redrawn), lengths 200..L, zero-padded; lanes 0
+    and 1 have an empty ref and an empty query."""
+    import numpy as np
+
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ref = np.zeros((B, L), np.uint8)
+    query = np.zeros((B, L), np.uint8)
+    rlen = rng.integers(200, L + 1, size=B).astype(np.int32)
+    qlen = rng.integers(200, L + 1, size=B).astype(np.int32)
+    rlen[0] = qlen[1] = 0
+    for b in range(B):
+        src = acgt[rng.integers(0, 4, size=2 * L)]
+        q = src[rng.integers(0, L // 2):].copy()
+        mut = rng.random(len(q)) < 0.1
+        q[mut] = acgt[rng.integers(0, 4, size=int(mut.sum()))]
+        ref[b, :rlen[b]] = src[:rlen[b]]
+        query[b, :qlen[b]] = q[:qlen[b]]
+    return ref, query, rlen, qlen
+
+
 def phase_kernels(dev) -> dict:
-    """Each kernel against its plain version on the card; returns
-    {kernel: {max_abs_err, ms, plain_ms}}."""
+    """Each main-path kernel against its plain version on the card;
+    returns {kernel: {max_abs_err, ms, plain_ms}}."""
     import numpy as np
     import torch
 
@@ -128,11 +226,17 @@ def phase_kernels(dev) -> dict:
     from darwin_tpu_torch.ops.common import PAD_REF
     from darwin_tpu_torch.ops.dp import align_tiles
     from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
+    from darwin_tpu_torch.ops.swscore import (local_score_batch,
+                                              local_score_batch_torch)
     from darwin_tpu_torch.ops.tile_fetch import fetch_tiles, fetch_tiles_torch
-    from darwin_tpu_torch.ops.traceback import traceback, traceback_torch
 
+    walkers = {"bytes": "traceback", "packed": "traceback_packed",
+               "packed6": "traceback_packed6"}
     rng = np.random.default_rng(0)
-    res = {k: {"max_abs_err": 0} for k in ("dp", "traceback", "fetch")}
+    res = {k: {"max_abs_err": 0} for k in
+           ("align_tiles", "fetch_tiles", "local_score_batch",
+            *walkers.values())}
+    timed = {}
     for T, ET in TILES:
         ref, query, rlen, qlen = (torch.from_numpy(x).to(dev) for x in
                                   related_tiles(rng, B_MAIN, T))
@@ -140,24 +244,35 @@ def phase_kernels(dev) -> dict:
         for sc in SCORINGS:
             kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
                           sc))
+            main = (T, sc) == (T_MAIN, SCORINGS[0])
             got = align_tiles(ref, query, rlen, qlen, **kw)
             want = align_tiles_torch(ref, query, rlen, qlen, **kw)
-            e_dp = max_abs_err(got, want)
-            tb_args = (got["dir"], rlen, qlen, first, got["max_i"],
-                       got["max_j"])
-            g_tb = traceback(*tb_args, early_terminate=ET)
-            w_tb = traceback_torch(*tb_args, early_terminate=ET)
-            e_tb = max_abs_err(dict(enumerate(g_tb)), dict(enumerate(w_tb)))
-            log(f"  T={T} ET={ET} scoring={sc}: dp err {e_dp}, "
-                f"traceback err {e_tb}, mean walk "
-                f"{float((g_tb[1] + g_tb[2]).float().mean()):.1f} steps")
-            if e_dp or e_tb:
+            errs = {"align_tiles": max_abs_err(got, want)}
+            if main:
+                a = (ref, query, rlen, qlen)
+                timed["align_tiles"] = (
+                    lambda a=a, kw=kw: align_tiles(*a, **kw),
+                    lambda a=a, kw=kw: align_tiles_torch(*a, **kw))
+            walks = []
+            for fmt, name in walkers.items():
+                out = (got if fmt == "bytes" else
+                       align_tiles(ref, query, rlen, qlen, dir_format=fmt,
+                                   **kw))
+                args = (out["dir" if fmt == "bytes" else "dir_words"], rlen,
+                        qlen, first, out["max_i"], out["max_j"])
+                kernel, plain = _walker_pairs(fmt, ET, args)
+                g, w = kernel(), plain()
+                errs[name] = max_abs_err(dict(enumerate(g)),
+                                         dict(enumerate(w)))
+                walks.append(float((g[1] + g[2]).float().mean()))
+                if main:
+                    timed[name] = (kernel, plain)
+            log(f"  T={T} ET={ET} scoring={sc}: errors {errs}, mean walk "
+                f"{walks[0]:.1f} steps")
+            if any(errs.values()):
                 raise AssertionError(f"kernel mismatch at T={T} {sc}")
-            res["dp"]["max_abs_err"] = max(res["dp"]["max_abs_err"], e_dp)
-            res["traceback"]["max_abs_err"] = max(
-                res["traceback"]["max_abs_err"], e_tb)
-            if (T, sc) == (T_MAIN, SCORINGS[0]):
-                main_dp = (ref, query, rlen, qlen, kw, tb_args, ET)
+            for k, e in errs.items():
+                res[k]["max_abs_err"] = max(res[k]["max_abs_err"], e)
 
     # Span fetch over a bank the size of the E.coli-shaped genome, with
     # offsets that straddle both ends of it.
@@ -178,24 +293,40 @@ def phase_kernels(dev) -> dict:
         if e:
             raise AssertionError(f"fetch mismatch at T={T}")
         if T == T_MAIN:
-            main_fetch = (args, T)
-        res["fetch"]["max_abs_err"] = max(res["fetch"]["max_abs_err"], e)
+            timed["fetch_tiles"] = (
+                lambda a=args: fetch_tiles(*a, T=T_MAIN, pad=PAD_REF),
+                lambda a=args: fetch_tiles_torch(*a, T=T_MAIN, pad=PAD_REF))
+        res["fetch_tiles"]["max_abs_err"] = max(
+            res["fetch_tiles"]["max_abs_err"], e)
 
-    ref, query, rlen, qlen, kw, tb_args, ET = main_dp
-    fa, T = main_fetch
-    timed = {
-        "dp": (lambda: align_tiles(ref, query, rlen, qlen, **kw),
-               lambda: align_tiles_torch(ref, query, rlen, qlen, **kw)),
-        "traceback": (lambda: traceback(*tb_args, early_terminate=ET),
-                      lambda: traceback_torch(*tb_args, early_terminate=ET)),
-        "fetch": (lambda: fetch_tiles(*fa, T=T, pad=PAD_REF),
-                  lambda: fetch_tiles_torch(*fa, T=T, pad=PAD_REF)),
-    }
+    # Score-only SW at B = 64 on 200-3000 base pairs.
+    sw = [torch.from_numpy(x).to(dev) for x in sw_pairs(rng, SW_B, SW_LEN)]
+    for sc in SCORINGS[:2]:
+        kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"), sc))
+        got = local_score_batch(*sw, **kw)
+        e = max_abs_err({0: got}, {0: local_score_batch_torch(*sw, **kw)})
+        log(f"  SW B={SW_B} up to {SW_LEN} bases, scoring={sc}: err {e}, "
+            f"mean score {float(got.float().mean()):.1f}")
+        if e or not bool((got[2:] > 0).all()):
+            raise AssertionError(f"SW mismatch under {sc}")
+        res["local_score_batch"]["max_abs_err"] = max(
+            res["local_score_batch"]["max_abs_err"], e)
+    # Timed on pairs of exactly 3 kb.
+    sw[2].fill_(SW_LEN)
+    sw[3].fill_(SW_LEN)
+    kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                  SCORINGS[0]))
+    timed["local_score_batch"] = (lambda: local_score_batch(*sw, **kw),
+                                  lambda: local_score_batch_torch(*sw, **kw))
+
     for name, (kernel, plain) in timed.items():
         res[name]["ms"] = median_ms(kernel, 20)
-        res[name]["plain_ms"] = median_ms(plain, 5)
-        log(f"  {name} at B={B_MAIN} T={T_MAIN}: kernel "
-            f"{res[name]['ms']:.4f} ms, plain {res[name]['plain_ms']:.4f} ms")
+        res[name]["plain_ms"] = median_ms(plain, 3 if name ==
+                                          "local_score_batch" else 5)
+        shape = (f"B={SW_B} {SW_LEN}x{SW_LEN}" if name == "local_score_batch"
+                 else f"B={B_MAIN} T={T_MAIN}")
+        log(f"  {name} at {shape}: kernel {res[name]['ms']:.4f} ms, plain "
+            f"{res[name]['plain_ms']:.4f} ms")
     return res
 
 
@@ -211,17 +342,18 @@ def phase_fixtures(dev) -> None:
         reads = read_fasta(d / "reads.fasta")
         same_file = not (d / "ref.fasta").exists()
         ref = reads if same_file else read_fasta(d / "ref.fasta")
-        t0 = time.perf_counter()
-        res = run_pipeline(ref, reads, params, same_file, batch_size=64,
-                           device=dev)
         want = set((d / "out.darwin").read_text().splitlines())
-        got = set(res.records)
-        log(f"  {d.name}: {len(got)}/{len(want)} records, "
-            f"{time.perf_counter() - t0:.2f} s")
-        if got != want:
-            raise AssertionError(
-                f"{d.name}: missing {sorted(want - got)[:3]} extra "
-                f"{sorted(got - want)[:3]}")
+        for engine in ("device", "host"):
+            t0 = time.perf_counter()
+            res = run_pipeline(ref, reads, params, same_file, batch_size=64,
+                               engine=engine, device=dev)
+            got = set(res.records)
+            log(f"  {d.name} ({engine}): {len(got)}/{len(want)} records, "
+                f"{time.perf_counter() - t0:.2f} s")
+            if got != want:
+                raise AssertionError(
+                    f"{d.name} ({engine}): missing {sorted(want - got)[:3]} "
+                    f"extra {sorted(got - want)[:3]}")
 
 
 def ecoli_reads() -> list:
@@ -236,12 +368,29 @@ def ecoli_reads() -> list:
                         rc_fraction=0.5)
 
 
-def phase_ecoli(counters) -> dict:
+def _counted(counters: dict, run) -> tuple:
+    """run() with every launch counter zeroed just before it; returns
+    (its result, {kernel: launches in it})."""
+    for c in counters.values():
+        c.launches = 0
+    out = run()
+    return out, {name: c.launches for name, c in counters.items()}
+
+
+def phase_ecoli(dev, counters: dict) -> dict:
+    """The four E.coli-shaped runs; returns {kernel: launches} summed
+    over them."""
+    from darwin_tpu.config import Params
+    from darwin_tpu.index.genome import Genome
     from darwin_tpu.io.fasta import write_fasta
-    from darwin_tpu_torch import cli
+    from darwin_tpu_torch import cli, native
+    from darwin_tpu_torch.pipeline import (build_seed_table, format_records,
+                                           make_merged_engine, read_banks,
+                                           read_fasta, run_device_merged)
 
     want_sha = (DATA / "ecoli_shape" / "dataset.sha256").read_text().strip()
     want = (DATA / "ecoli_shape" / "jax_cpu.darwin").read_text()
+    total = dict.fromkeys(counters, 0)
     with tempfile.TemporaryDirectory() as td:
         td = Path(td)
         fa = td / "reads.fasta"
@@ -252,59 +401,88 @@ def phase_ecoli(counters) -> dict:
             f"sha256 {sha}")
         if sha != want_sha:
             raise AssertionError(f"dataset sha256 {sha} != {want_sha}")
-        for c in counters:
-            c.launches = 0
-        t0 = time.perf_counter()
-        # No params.cfg in td: the reference's default params.
-        rc = cli.main([str(fa), str(fa), "--params", str(td / "params.cfg"),
-                       "--batch-size", "512", "--out-dir", str(td / "out"),
-                       "--merged-out", str(td / "merged.darwin"),
-                       "--metrics-json", str(td / "metrics.json")])
-        wall = time.perf_counter() - t0
-        launches = {c.__name__: c.launches for c in counters}
-        if rc != 0:
-            raise AssertionError(f"cli exited {rc}")
-        got = (td / "merged.darwin").read_text()
-        m = json.loads((td / "metrics.json").read_text())
-    n_got = len(got.splitlines())
-    log(f"  records {n_got} (expected {len(want.splitlines())}), "
-        f"wall {wall:.3f} s, seed_s {m['seed_s']:.3f}, align_s "
-        f"{m['align_s']:.3f}, seed table {m['seed_table_s']:.3f} s, "
-        f"engine iterations {m['engine_iters']}, mean active slots "
-        f"{m['engine_active_sum'] / max(1, m['engine_iters']):.1f}, "
-        f"reads/s {m['reads_per_s']:.1f}, candidates "
-        f"{m['num_candidates']}")
-    log(f"  launches: {launches}; host_native {m['host_native']}")
-    if m["host_native"] is not True:
-        raise AssertionError("the host stages ran their NumPy fallbacks: "
-                             "darwin_tpu_torch.native did not build")
-    if got != want:
-        w, g = set(want.splitlines()), set(got.splitlines())
-        raise AssertionError(f"E.coli records differ: missing "
-                             f"{sorted(w - g)[:3]} extra {sorted(g - w)[:3]}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
-    return launches
+        params = Params()  # the reference's defaults, as the CLI's
 
+        def cli_run(tag, *extra):
+            out = td / tag
+            # No params.cfg in td: the reference's default params.
+            rc = cli.main([str(fa), str(fa), "--params",
+                           str(td / "params.cfg"), "--batch-size", "512",
+                           "--out-dir", str(out), "--merged-out",
+                           str(out / "merged.darwin"), "--metrics-json",
+                           str(out / "metrics.json"), *extra])
+            if rc != 0:
+                raise AssertionError(f"cli exited {rc}")
+            return ((out / "merged.darwin").read_text(),
+                    json.loads((out / "metrics.json").read_text()))
 
-def _dp_variant(fmt: str, il: int) -> tuple[str, str]:
-    """(JSON name, the TPU kernel it replaces) of one DP variant."""
-    if il == 1:
-        name = "align_tiles" if fmt == "bytes" else f"align_tiles[{fmt}]"
-        return name, "darwin_tpu/ops/pallas_dp.py:523"
-    return f"align_tiles[{fmt},il={il}]", "darwin_tpu/ops/pallas_dp.py:493"
+        def engine_run(fmt):
+            reads = read_fasta(fa)
+            genome = Genome(reads, params.bin_size)
+            t0 = time.perf_counter()
+            table = build_seed_table(genome.concat, params.seed_size,
+                                     params.seed_occurence_multiple,
+                                     params.bin_size, params.window_size)
+            m = {"seed_table_s": time.perf_counter() - t0,
+                 "host_native": native.available()}
+            fwd, rev = read_banks(reads)
+            prebuilt = make_merged_engine(
+                genome, fwd, rev, params, same_file=True, batch_size=512,
+                device=dev, tb_format=fmt)
+            recs, cc = run_device_merged(
+                genome, table, fwd, rev, params, same_file=True,
+                batch_size=512, prebuilt=prebuilt, metrics=m)
+            lines = sorted(set(format_records(genome, reads, recs)))
+            m["num_candidates"] = sum(cc)
+            return "".join(line + "\n" for line in lines), m
 
-
-# The DP kernel's variants, by (dir_format, interleave).
-DP_VARIANTS = {(fmt, il): _dp_variant(fmt, il)
-               for fmt in ("bytes", "packed", "packed6") for il in (1, 2, 4)}
-LAB_KERNELS = {
-    "plane2": ("darwin_tpu_torch/csrc/dp.cu", "tools/plane2_probe.py:209"),
-    "scanshift_shfl": ("darwin_tpu_torch/csrc/scanshift.cu",
-                       "tools/scanshift_probe.py:97"),
-    "scanshift_smem": ("darwin_tpu_torch/csrc/scanshift.cu",
-                       "tools/scanshift_probe.py:97"),
-}
+        runs = {
+            "cli bytes": lambda: cli_run("bytes"),
+            "packed": lambda: engine_run("packed"),
+            "packed6": lambda: engine_run("packed6"),
+            "cli host --paf-out": lambda: cli_run(
+                "host", "--engine", "host", "--paf-out",
+                str(td / "host" / "merged.paf")),
+        }
+        for tag, run in runs.items():
+            t0 = time.perf_counter()
+            (got, m), launches = _counted(counters, run)
+            wall = time.perf_counter() - t0
+            n_got = len(got.splitlines())
+            log(f"  {tag}: records {n_got} (expected "
+                f"{len(want.splitlines())}), wall {wall:.3f} s, seed_s "
+                f"{m['seed_s']:.3f}, align_s {m['align_s']:.3f}, seed table "
+                f"{m['seed_table_s']:.3f} s, engine iterations "
+                f"{m['engine_iters']}, candidates {m['num_candidates']}, "
+                f"reads/s {460 / (m['seed_s'] + m['align_s']):.1f}, "
+                f"host_native {m['host_native']}")
+            log(f"    launches: {launches}")
+            if m["host_native"] is not True:
+                raise AssertionError("the host stages ran their NumPy "
+                                     "fallbacks: darwin_tpu_torch.native "
+                                     "did not build")
+            if got != want:
+                w, g = set(want.splitlines()), set(got.splitlines())
+                raise AssertionError(
+                    f"E.coli records differ ({tag}): missing "
+                    f"{sorted(w - g)[:3]} extra {sorted(g - w)[:3]}")
+            idle = [k for k in ECOLI_RUNS[tag] if launches[k] <= 0]
+            if idle:
+                raise AssertionError(f"{tag}: {idle} not launched")
+            for k, n in launches.items():
+                total[k] += n
+        paf = (td / "host" / "merged.paf").read_text().splitlines()
+    # PAF lines also carry nmatch and ncols, so records that print the
+    # same .out line may be distinct PAF lines: compare what both carry.
+    got_keys = {(c[5], c[0], int(c[7]), int(c[8]), c[12][5:], c[4] == "-")
+                for c in (ln.split("\t") for ln in paf)}
+    want_keys = {(f[1], f[3], int(f[5]), int(f[7]), f[13], f[15] == "1")
+                 for f in (ln.replace(",", "").split()
+                           for ln in want.splitlines())}
+    log(f"  PAF: {len(paf)} lines, {len(got_keys)} distinct records")
+    if got_keys != want_keys:
+        raise AssertionError("PAF records differ from the .out records")
+    return total
 
 
 def phase_lab(dev):
@@ -325,9 +503,13 @@ def phase_lab(dev):
                                                 scanshift_smem,
                                                 scanshift_torch)
 
+    from darwin_tpu_torch.ops.traceback import (traceback_packed,
+                                                 traceback_packed6)
+
     scans = {"scanshift_shfl": scanshift_shfl,
              "scanshift_smem": scanshift_smem}
-    counters = (align_tiles, plane2, *scans.values())
+    counters = (align_tiles, plane2, traceback_packed, traceback_packed6,
+                *scans.values())
     for c in counters:
         c.launches = 0
     align_tiles.variant_launches.clear()
@@ -338,12 +520,16 @@ def phase_lab(dev):
     lab = kernel_lab.Lab(dev, B=2048, T=320, ET=200, V=2)
     for fmt in PACKERS:
         lab.run("ilp", fmt)
+    for exp in ("byte_full", "packed", "packed6", "p6compact", "tbunroll"):
+        lab.run(exp, "packed")
     plane2_probe.probe_emit(376, dev, B=2048, V=2)
     scanshift_probe.run(376, dev, B=2048, V=8)
     launches = {name: align_tiles.variant_launches[v]
-                for v, (name, _) in DP_VARIANTS.items()}
+                for v, name in DP_VARIANTS.items()}
     launches["plane2"] = plane2.launches
     launches.update({k: f.launches for k, f in scans.items()})
+    launches.update(traceback_packed=traceback_packed.launches,
+                    traceback_packed6=traceback_packed6.launches)
     log(f"  lab launches: {launches}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a lab kernel was not launched: {launches}")
@@ -364,7 +550,7 @@ def phase_lab(dev):
                 for il in (1, 2, 4):
                     got = align_tiles(ref, query, rlen, qlen, dir_format=fmt,
                                       interleave=il, **kw)
-                    name = DP_VARIANTS[(fmt, il)][0]
+                    name = DP_VARIANTS[(fmt, il)]
                     e = max_abs_err(got, want)
                     res.setdefault(name, {"max_abs_err": 0})
                     res[name]["max_abs_err"] = max(
@@ -388,7 +574,7 @@ def phase_lab(dev):
         plain_ms = median_ms(lambda: align_tiles_plain(
             ref, query, rlen, qlen, dir_format=fmt, **kw), 5)
         for il in (1, 2, 4):
-            name = DP_VARIANTS[(fmt, il)][0]
+            name = DP_VARIANTS[(fmt, il)]
             res[name]["ms"] = median_ms(
                 lambda: align_tiles(ref, query, rlen, qlen, dir_format=fmt,
                                     interleave=il, **kw), 20)
@@ -429,6 +615,67 @@ def phase_lab(dev):
     return res, launches
 
 
+def phase_scoreeval(dev) -> int:
+    """The score evaluator on the card; returns the SW kernel's launches
+    in its run."""
+    import numpy as np
+    import torch
+
+    from darwin_tpu.eval.datagen import synth_genome, two_readsets
+    from darwin_tpu.eval.score_eval import theoretical_pairs
+    from darwin_tpu.io.fasta import revcomp, write_fasta
+    from darwin_tpu_torch import cli
+    from darwin_tpu_torch.eval import score_eval
+    from darwin_tpu_torch.ops.swscore import (local_score_batch,
+                                              local_score_batch_torch)
+
+    rng = np.random.default_rng(7)
+    a, b = two_readsets(synth_genome(100_000, rng), 40, 4000, rng,
+                        error_rate=0.05, rc_fraction=0.5)
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        write_fasta(td / "set1.fasta", a)
+        write_fasta(td / "set2.fasta", b)
+        merged = td / "merged.darwin"
+        t0 = time.perf_counter()
+        rc = cli.main([str(td / "set1.fasta"), str(td / "set2.fasta"),
+                       "--params", str(td / "params.cfg"), "--device", "cuda",
+                       "--out-dir", str(td / "out"), "--merged-out",
+                       str(merged)])
+        if rc != 0:
+            raise AssertionError(f"cli exited {rc}")
+        n_rec = len(merged.read_text().splitlines())
+        log(f"  overlapped: {n_rec} records, {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        (rc, launches) = _counted(
+            {"local_score_batch": local_score_batch},
+            lambda: score_eval.main([str(merged), str(td / "set1.fasta"),
+                                     str(td / "set2.fasta")]))
+        launches = launches["local_score_batch"]
+        log(f"  score_eval rc {rc}, {time.perf_counter() - t0:.2f} s, SW "
+            f"launches {launches}")
+        if rc != 0 or launches <= 0:
+            raise AssertionError(f"score_eval: rc {rc}, {launches} launches")
+    # The exact scores of every theoretical pair, both strands, from the
+    # kernel and from the plain version on the same inputs.
+    pairs = theoretical_pairs([n for n, _ in a], [n for n, _ in b], 1000)
+    seq_pairs = [(a[i][1], s) for i, j in pairs
+                 for s in (b[j][1], revcomp(b[j][1]))]
+    kw = dict(match=1, mismatch=-1, gap_open=-1, gap_extend=-1)
+    diff = 0
+    for lo in range(0, len(seq_pairs), 64):
+        args = [torch.from_numpy(x).to(dev) for x in
+                score_eval.pair_arrays(seq_pairs[lo:lo + 64])]
+        diff += int((local_score_batch(*args, **kw)
+                     != local_score_batch_torch(*args, **kw)).sum())
+    log(f"  {len(seq_pairs)} exact pair scores ({len(pairs)} pairs x 2 "
+        f"strands): {diff} differ between kernel and plain version")
+    if diff or not pairs:
+        raise AssertionError(f"SW kernel and plain version differ on {diff} "
+                             f"of {len(seq_pairs)} pairs")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -438,13 +685,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     from darwin_tpu_torch import _build
+    from darwin_tpu_torch.ops import traceback as tb
     from darwin_tpu_torch.ops.dp import align_tiles
     from darwin_tpu_torch.ops.tile_fetch import fetch_tiles
-    from darwin_tpu_torch.ops.traceback import traceback
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/5] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
+    log(f"[1/6] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     report = _build.build()
@@ -454,39 +701,42 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log("  " + line.strip())
 
-    log("[2/5] kernels against their plain versions (tolerance 0)")
+    log("[2/6] kernels against their plain versions (tolerance 0)")
     kres = phase_kernels(dev)
-    log("[3/5] fixtures against the reference binary's out.darwin")
+    log("[3/6] fixtures against the reference binary's out.darwin, both "
+        "engines")
+    t0 = time.perf_counter()
     phase_fixtures(dev)
-    log("[4/5] E.coli-shaped slice through darwin_tpu_torch.cli")
-    counters = (align_tiles, traceback, fetch_tiles)
-    launches = phase_ecoli(counters)
-    log("[5/5] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
+    log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
+    log("[4/6] E.coli-shaped slice: device engine in each tb_format, host "
+        "engine")
+    counters = {"align_tiles": align_tiles, "traceback": tb.traceback,
+                "traceback_packed": tb.traceback_packed,
+                "traceback_packed6": tb.traceback_packed6,
+                "fetch_tiles": fetch_tiles}
+    launches = phase_ecoli(dev, counters)
+    log("[5/6] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
         "against its plain version")
     t0 = time.perf_counter()
     lres, llaunches = phase_lab(dev)
     log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
+    log("[6/6] score evaluator (darwin_tpu_torch.eval.score_eval)")
+    launches["local_score_batch"] = phase_scoreeval(dev)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    meta = {
-        "dp": ("align_tiles", "darwin_tpu_torch/csrc/dp.cu",
-               "darwin_tpu/ops/pallas_dp.py:523"),
-        "traceback": ("traceback", "darwin_tpu_torch/csrc/traceback.cu",
-                      "darwin_tpu/ops/traceback.py:156"),
-        "fetch": ("fetch_tiles", "darwin_tpu_torch/csrc/tile_fetch.cu",
-                  "darwin_tpu/ops/tile_fetch.py:161"),
-    }
-    kernels = [dict(name=fn, route="cuda", source=src, replaces=rep,
-                    launches=launches[fn], **kres[k])
-               for k, (fn, src, rep) in meta.items()]
-    lab_meta = {name: ("darwin_tpu_torch/csrc/dp.cu", rep)
-                for name, rep in DP_VARIANTS.values()
-                if name != "align_tiles"}
-    lab_meta.update(LAB_KERNELS)
-    kernels += [dict(name=name, route="cuda", source=src, replaces=rep,
-                     launches=llaunches[name], **lres[name])
-                for name, (src, rep) in lab_meta.items()]
+    # The main paths' numbers first; the lab's for the kernels only the
+    # lab runs.
+    for k, v in lres.items():
+        kres.setdefault(k, v)
+    for k, v in llaunches.items():
+        launches.setdefault(k, v)
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=launches[name], **kres[name])
+               for name, (src, rep, _) in KERNELS.items()]
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on their path: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,10 @@ _SIGNATURES = {
                       _P, _P, _P, _P],
     "dtt_fetch_tiles": [_P, _L, _P, _P, _P, _I, _I, _I, _P, _P],
     "dtt_scanshift": [_P, _I, _I, _I, _I, _P, _P],
+    "dtt_traceback_words": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _P, _P, _P, _P],
+    "dtt_local_score": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -7,15 +7,19 @@ darwin_tpu.cli):
         [NUM_BLOCKS THREADS_PER_BLOCK] [options]
 
 Reads are split into NUM_RANGES contiguous ranges, each writing its own
-``darwin.<i>.out``; NUM_BLOCKS x THREADS_PER_BLOCK is the slot count
-unless --batch-size is given.  Reads ``params.cfg`` from the working
-directory like the reference, or from --params.  The GACT loop runs on
---device (default cuda); there is no fallback to another device.
+``darwin.<i>.out`` (and ``darwin.<i>.paf`` with --paf-out);
+NUM_BLOCKS x THREADS_PER_BLOCK is the slot count unless --batch-size is
+given.  Reads ``params.cfg`` from the working directory like the
+reference, or from --params.  The GACT loop runs on --device (default
+cuda); there is no fallback to another device.  darwin_tpu.cli's
+--backend and --jax-cache have no counterpart: --device takes
+--backend's role, and the port compiles no XLA program.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import sys
 import time
@@ -26,10 +30,13 @@ import torch
 from darwin_tpu.config import Params
 from darwin_tpu.index.genome import Genome
 from darwin_tpu.index.seed_table import SeedTable
+from darwin_tpu.io.fasta import iter_fasta
 from darwin_tpu_torch import native
+from darwin_tpu_torch.io.paf import paf_lines
 from darwin_tpu_torch.pipeline import (build_seed_table, format_records,
-                                       make_merged_engine, read_banks,
-                                       read_fasta, run_device_merged)
+                                       make_aligner, make_merged_engine,
+                                       read_banks, read_fasta,
+                                       run_device_merged, run_host)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -46,10 +53,21 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="params.cfg path (reference-compatible INI)")
     p.add_argument("--batch-size", type=int, default=None,
                    help="GACT slot count (overrides blocks*tpb)")
+    p.add_argument("--engine", default="auto",
+                   choices=["auto", "device", "host"],
+                   help="device = whole GACT loop on --device; host = "
+                        "slot loop on the host, each iteration's tiles "
+                        "aligned on --device.  auto = device (darwin_tpu "
+                        "picks host off the TPU because its device engine "
+                        "is a long XLA compile; the port compiles none)")
     p.add_argument("--out-dir", default=".",
                    help="directory for darwin.<i>.out files")
     p.add_argument("--merged-out", default=None,
                    help="also write a sorted-unique merged overlap file")
+    p.add_argument("--paf-out", default=None,
+                   help="also write overlaps as PAF (sorted unique; "
+                        "matches column is exact, 0 under --noscore), and "
+                        "darwin.<i>.paf beside each darwin.<i>.out")
     p.add_argument("--seed-table", default=None,
                    help="seed table cache path (.npz); built if missing")
     p.add_argument("--noscore", action="store_true",
@@ -57,11 +75,43 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--threads", type=int, default=None,
                    help="host threads for the native D-SOFT engine "
                         "(default: all cores)")
+    p.add_argument("--chunk-reads", type=int, default=None,
+                   help="stream the reads file in chunks of N records "
+                        "(bounded memory; reads-vs-reference mode only)")
+    p.add_argument("--resume", action="store_true",
+                   help="skip read ranges whose darwin.<i>.out already "
+                        "exists (restart amortization; the seed table "
+                        "is amortized via --seed-table)")
     p.add_argument("--metrics-json", default=None,
                    help="write phase timings/counters as JSON")
     p.add_argument("--device", default="cuda",
                    help="torch device of the GACT loop (default cuda)")
     return p
+
+
+def _write_lines(path: Path, lines: list[str]) -> None:
+    path.write_text("".join(line + "\n" for line in lines))
+
+
+def _resume(kind: str, rid: int, out_file: Path, paf_file: Path,
+            paf_out: str | None, all_lines: list, all_paf: list) -> None:
+    """Take a finished range's (or chunk's) records from its files."""
+    prior = out_file.read_text().splitlines()
+    all_lines.extend(prior)
+    if kind == "range":
+        print(f"range {rid}: resumed from {out_file} ({len(prior)} records)")
+    else:
+        print(f"chunk {rid}: resumed ({len(prior)} records)")
+    if paf_out:
+        # PAF needs per-record data the .out text does not carry
+        # (nmatch/ncols): take the sidecar the earlier --paf-out run
+        # wrote beside the .out file.
+        if paf_file.exists():
+            all_paf.extend(paf_file.read_text().splitlines())
+        else:
+            print(f"WARNING: no {paf_file} sidecar; {kind} {rid} will be "
+                  f"missing from {paf_out} (re-run without --resume to "
+                  f"regenerate)", file=sys.stderr)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -85,26 +135,53 @@ def main(argv: list[str] | None = None) -> int:
           f" gap_open = {params.gap_open}, gap_extend = {params.gap_extend}")
     print(f"Batch size: {batch_size}, output ranges: {args.num_ranges}, "
           f"device: {device}")
+    engine = "device" if args.engine == "auto" else args.engine
     # host_native: whether the host stages ran the native library or
     # their NumPy fallbacks.
     metrics: dict = {"batch_size": batch_size, "device": str(device),
-                     "host_native": native.available()}
+                     "engine": engine, "host_native": native.available()}
 
     t_start = time.perf_counter()
     ref_records = read_fasta(args.reference)
     genome = Genome(ref_records, params.bin_size)
-    read_records = (ref_records if same_file
-                    else read_fasta(args.reads))
-    metrics["num_reads"] = len(read_records)
-    print(f"Reference length: {genome.total_length}, "
-          f"{len(ref_records)} pieces; number of reads: "
-          f"{len(read_records)}")
+    chunked = bool(args.chunk_reads) and not same_file
+    if args.chunk_reads and same_file:
+        print("--chunk-reads ignored: self-overlap mode needs the "
+              "whole read set in memory (it IS the reference)")
+    if chunked:
+        read_records = None
+        print(f"Reference length: {genome.total_length}, "
+              f"{len(ref_records)} pieces; streaming reads in chunks of "
+              f"{args.chunk_reads}")
+    else:
+        read_records = (ref_records if same_file
+                        else read_fasta(args.reads))
+        metrics["num_reads"] = len(read_records)
+        print(f"Reference length: {genome.total_length}, "
+              f"{len(ref_records)} pieces; number of reads: "
+              f"{len(read_records)}")
 
-    fwd_bank, rev_bank = read_banks(read_records)
-    prebuilt = make_merged_engine(
-        genome, fwd_bank, rev_bank, params, same_file=same_file,
-        batch_size=batch_size, compute_score=not args.noscore,
-        device=device)
+    num_reads = 0 if chunked else len(read_records)
+    per = max(1, -(-num_reads // max(1, args.num_ranges)))
+    ranges = [(lo, min(num_reads, lo + per))
+              for lo in range(0, num_reads, per)]
+    out_dir = Path(args.out_dir)
+    # Every range already has its output: skip the banks and the engine
+    # (the loop below resumes them all).
+    all_resumed = args.resume and not chunked and all(
+        (out_dir / f"darwin.{rid}.out").exists()
+        for rid in range(len(ranges)))
+    fwd_bank = rev_bank = prebuilt = aligner = None
+    if not chunked and not all_resumed:
+        fwd_bank, rev_bank = read_banks(read_records)
+        if engine == "device":
+            prebuilt = make_merged_engine(
+                genome, fwd_bank, rev_bank, params, same_file=same_file,
+                batch_size=batch_size, compute_score=not args.noscore,
+                device=device)
+    if engine == "host":
+        aligner = make_aligner(params, device)
+    print(f"Engine: {engine}")
 
     t0 = time.perf_counter()
     if args.seed_table and Path(args.seed_table).exists():
@@ -119,36 +196,80 @@ def main(argv: list[str] | None = None) -> int:
         print(f"Seed table built: {len(table.pos)} minimizers")
     metrics["seed_table_s"] = time.perf_counter() - t0
 
-    out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    num_reads = len(read_records)
-    per = max(1, -(-num_reads // max(1, args.num_ranges)))
     all_lines: list[str] = []
+    all_paf: list[str] = []
     n_cand = 0
-    for range_id, lo in enumerate(range(0, num_reads, per)):
-        hi = min(num_reads, lo + per)
-        recs, cc = run_device_merged(
-            genome, table, fwd_bank, rev_bank, params,
-            same_file=same_file, batch_size=batch_size,
-            compute_score=not args.noscore, read_ids=range(lo, hi),
-            num_threads=args.threads, prebuilt=prebuilt,
-            metrics=metrics)
-        n_cand += sum(cc)
-        print(f"range {range_id}: {cc[0]}+{cc[1]} candidates")
-        lines = format_records(genome, read_records, recs)
-        (out_dir / f"darwin.{range_id}.out").write_text(
-            "".join(line + "\n" for line in lines))
+
+    def align(fwd, rev, read_ids=None):
+        """Records and candidate counts of one read set (or of read_ids
+        in it) on the engine."""
+        kw = dict(same_file=same_file, batch_size=batch_size,
+                  compute_score=not args.noscore, read_ids=read_ids,
+                  num_threads=args.threads, metrics=metrics)
+        if engine == "device":
+            return run_device_merged(genome, table, fwd, rev, params,
+                                     prebuilt=prebuilt, device=device, **kw)
+        return run_host(genome, table, fwd, rev, params, aligner=aligner,
+                        **kw)
+
+    def emit(recs, reads, out_file: Path, paf_file: Path) -> list[str]:
+        lines = format_records(genome, reads, recs)
+        _write_lines(out_file, lines)
         all_lines.extend(lines)
+        if args.paf_out:
+            pl = paf_lines(recs, genome, [r.name for r in reads],
+                           [len(r.seq) for r in reads])
+            _write_lines(paf_file, pl)
+            all_paf.extend(pl)
+        return lines
+
+    if chunked:
+        it = iter_fasta(args.reads)
+        for chunk_id in itertools.count():
+            chunk = list(itertools.islice(it, args.chunk_reads))
+            if not chunk:
+                break
+            num_reads += len(chunk)
+            out_file = out_dir / f"darwin.{chunk_id}.out"
+            paf_file = out_dir / f"darwin.{chunk_id}.paf"
+            if args.resume and out_file.exists():
+                _resume("chunk", chunk_id, out_file, paf_file, args.paf_out,
+                        all_lines, all_paf)
+                continue
+            # Each chunk's banks differ: the device engine is built
+            # anew for each (prebuilt stays None).
+            recs, cc = align(*read_banks(chunk))
+            n_cand += sum(cc)
+            lines = emit(recs, chunk, out_file, paf_file)
+            print(f"chunk {chunk_id}: {len(chunk)} reads, {len(lines)} "
+                  f"records")
+        metrics["num_reads"] = num_reads
+    else:
+        for range_id, (lo, hi) in enumerate(ranges):
+            out_file = out_dir / f"darwin.{range_id}.out"
+            paf_file = out_dir / f"darwin.{range_id}.paf"
+            if args.resume and out_file.exists():
+                _resume("range", range_id, out_file, paf_file, args.paf_out,
+                        all_lines, all_paf)
+                continue
+            recs, cc = align(fwd_bank, rev_bank, range(lo, hi))
+            n_cand += sum(cc)
+            print(f"range {range_id}: {cc[0]}+{cc[1]} candidates")
+            emit(recs, read_records, out_file, paf_file)
 
     wall = time.perf_counter() - t_start
     print(f"Time finding seeds: {metrics.get('seed_s', 0.0) * 1e3:.0f} "
           f"msec")
     print(f"Time GACT calling: {metrics.get('align_s', 0.0) * 1e3:.0f} "
           f"msec")
+    if args.paf_out:
+        paf_merged = sorted(set(all_paf))
+        _write_lines(Path(args.paf_out), paf_merged)
+        print(f"PAF written to {args.paf_out} ({len(paf_merged)} records)")
     if args.merged_out:
         merged = sorted(set(all_lines))
-        Path(args.merged_out).write_text(
-            "".join(line + "\n" for line in merged))
+        _write_lines(Path(args.merged_out), merged)
         print(f"Merged {len(all_lines)} records -> {len(merged)} unique "
               f"in {args.merged_out}")
     if args.metrics_json:

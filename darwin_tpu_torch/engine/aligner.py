@@ -1,0 +1,61 @@
+"""Tile-batch aligner of the host-stepped engine: one call = DP + walk on
+the device, results back as NumPy.
+
+The port of darwin_tpu/engine/aligner.py::JaxTileAligner: the tile DP
+in the packed6 word format (ops/dp.py, the K1 kernel) and the packed6
+walker (ops/traceback.py::traceback_packed6), on `device`.  The Pallas
+grid's batch padding is not carried over (the CUDA kernels take any
+batch), nor is the unused tile_size argument (the tiles carry it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from darwin_tpu_torch.ops.dp import align_tiles
+from darwin_tpu_torch.ops.traceback import traceback_packed6
+
+
+@dataclasses.dataclass
+class TileResult:
+    ops: np.ndarray        # [B, S] uint8, arrival order, 0 = none
+    ref_steps: np.ndarray  # [B] int32 (kernel i_steps)
+    query_steps: np.ndarray  # [B] int32 (kernel j_steps)
+    score: np.ndarray      # [B] int32: max score (first) / corner score
+    max_i: np.ndarray      # [B] int32 (1-indexed, first tiles only)
+    max_j: np.ndarray      # [B] int32
+
+
+class TorchTileAligner:
+    def __init__(self, *, early_terminate: int, match: int, mismatch: int,
+                 gap_open: int, gap_extend: int,
+                 device: torch.device | str):
+        self.early_terminate = early_terminate
+        self.scoring = dict(match=match, mismatch=mismatch,
+                            gap_open=gap_open, gap_extend=gap_extend)
+        self.device = torch.device(device)
+        self.calls = 0  # batches aligned (host engine iterations)
+
+    def __call__(self, ref_tiles: np.ndarray, query_tiles: np.ndarray,
+                 ref_lens: np.ndarray, query_lens: np.ndarray,
+                 firsts: np.ndarray) -> TileResult:
+        def up(x, dtype):
+            return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(
+                self.device)
+
+        rlen = up(ref_lens, np.int32)
+        qlen = up(query_lens, np.int32)
+        first = up(firsts, bool)
+        out = align_tiles(up(ref_tiles, np.uint8), up(query_tiles, np.uint8),
+                          rlen, qlen, dir_format="packed6", **self.scoring)
+        raw, i_steps, j_steps = traceback_packed6(
+            out["dir_words"], rlen, qlen, first, out["max_i"], out["max_j"],
+            early_terminate=self.early_terminate)
+        score = torch.where(first, out["max_score"], out["pos_score"])
+        self.calls += 1
+        stats = torch.stack([i_steps, j_steps, score, out["max_i"],
+                             out["max_j"]]).cpu().numpy()
+        return TileResult((raw & 3).cpu().numpy(), *stats)

@@ -11,8 +11,12 @@ tensors:
   Each in-flight call lives in exactly one slot, so updates never
   collide; masked-off lanes all write the one dump row N;
 * every iteration fetches one ref and one query tile per slot
-  (ops/tile_fetch.py), runs the tile DP (ops/dp.py) and the walker
-  (ops/traceback.py), and rescores from the dir bytes' MATCH_BIT;
+  (ops/tile_fetch.py), runs the tile DP (ops/dp.py) and a walker
+  (ops/traceback.py), and rescores from the dir bytes' MATCH_BIT.
+  tb_format picks the pair, as the JAX engine's tb_format does: "bytes"
+  (dir bytes and the byte walker, the default), "packed" or "packed6"
+  (the DP's word formats and their walkers; packed6 leaves holes in
+  the op stream, which the rescoring's lookback skips);
 * finished overlaps are written into an [N, 10] record table on the
   device, downloaded once at the end.
 
@@ -37,7 +41,7 @@ from darwin_tpu_torch.engine.seqbank import SeqBank
 from darwin_tpu_torch.ops.common import MATCH_BIT, PAD_QUERY, PAD_REF
 from darwin_tpu_torch.ops.dp import align_tiles
 from darwin_tpu_torch.ops.tile_fetch import fetch_tiles
-from darwin_tpu_torch.ops.traceback import traceback
+from darwin_tpu_torch.ops.traceback import WALKERS
 
 I32 = torch.int32
 I64 = torch.int64
@@ -65,8 +69,8 @@ def _score_ops(opsT: torch.Tensor, mbitsT: torch.Tensor,
     opsT: [B, S] ops (0 = none), mbitsT: [B, S] bool MATCH_BIT of each
     MATCH op, prev_gap: [B] bool whether the call's last op so far was
     a gap.  Zero slots are skipped when looking back for the previous
-    op (the JAX packed6 walker leaves holes; the dense walker here does
-    not, and the lookback is harmless on dense ops).
+    op (the packed6 walker leaves holes; the lookback is harmless on
+    the other walkers' dense ops).
 
     Returns (delta score, new prev_gap, first op is a gap, any ops,
     matched columns), each [B]."""
@@ -108,7 +112,10 @@ class DeviceGactEngine:
                  mismatch: int, gap_open: int, gap_extend: int,
                  same_file: bool, batch_size: int = 256,
                  compute_score: bool = True,
-                 device: torch.device | str):
+                 device: torch.device | str, tb_format: str = "bytes"):
+        if tb_format not in WALKERS:
+            raise ValueError(f"tb_format {tb_format!r} not in "
+                             f"{tuple(WALKERS)}")
         # Positions inside a piece or read are int32 on the device.
         for what, lengths in (("reference piece", genome.piece_lengths),
                               ("read", queries.lengths)):
@@ -126,6 +133,7 @@ class DeviceGactEngine:
         self.same_file = same_file
         self.batch_size = batch_size
         self.compute_score = compute_score
+        self.tb_format = tb_format
         self._gbank, self._qbank = device_banks(genome, queries,
                                                 self.device)
         self._g_start_all = (genome.chr_id_to_start_bin.astype(np.int64)
@@ -310,11 +318,12 @@ class DeviceGactEngine:
                 ql, fwd, T=T, pad=PAD_QUERY)
 
             # ---- align ------------------------------------------------
-            out = align_tiles(ref_t, query_t, rl, ql, **sc)
+            out = align_tiles(ref_t, query_t, rl, ql,
+                              dir_format=self.tb_format, **sc)
             max_i, max_j = out["max_i"], out["max_j"]
-            raw, i_steps, j_steps = traceback(
-                out["dir"], rl, ql, first_b, max_i, max_j,
-                early_terminate=ET)
+            key, walk = WALKERS[self.tb_format]
+            raw, i_steps, j_steps = walk(out[key], rl, ql, first_b, max_i,
+                                         max_j, early_terminate=ET)
             tscore = torch.where(first_b, out["max_score"],
                                  out["pos_score"])
 

@@ -9,12 +9,15 @@ sink the tool computes (int32 wraparound).
 
 Experiments: dp (byte DP), tb (the port's byte walker, csrc/
 traceback.cu, on the V DP outputs), base (dp and tb), byte_full (DP +
-walker a step), packed_dp, packed6 (DP only, in each word format), ilp
-(interleave 1, 2, 4 in --format, default packed: tools/ilp_probe.py),
-tbiters (how far the walk runs).  The tool's `packed`, `packed6` full
-step, `p6compact` and `tbunroll` need the JAX word walkers
-(traceback_packed_jax, traceback_packed6_jax), which the port does not
-have yet.
+walker a step), packed (packed DP + its walker, csrc/
+traceback_words.cu, a step), packed_dp (packed DP only), packed6
+(packed6 DP + walker a step, then the DP alone), p6compact (the packed6
+step at compact_b 0, 64, 128, 256, 512), tbunroll (the packed step at
+unroll 1, 2, 4, 8), ilp (interleave 1, 2, 4 in --format, default
+packed: tools/ilp_probe.py), tbiters (how far the walk runs).  The
+walker kernels run each tile on its own thread, so compact_b and unroll
+do not change them; the experiments time the tool's sweep all the same,
+and on the CPU the plain walkers take both.
 
 Usage:
   python -m darwin_tpu_torch.lab.kernel_lab [exp ...] [--device cuda|cpu]
@@ -32,11 +35,10 @@ from darwin_tpu_torch.lab import (SCORING, add_device_arg, clock,
                                   related_batches, resolve_device, sum32,
                                   time_ms)
 from darwin_tpu_torch.ops.dp import INTERLEAVES, PACKERS, align_tiles
-from darwin_tpu_torch.ops.traceback import traceback
+from darwin_tpu_torch.ops.traceback import WALKERS
 
-EXPERIMENTS = ("base", "dp", "tb", "byte_full", "packed_dp", "packed6",
-               "ilp", "tbiters")
-NEEDS_WORD_WALKER = ("packed", "p6compact", "tbunroll")
+EXPERIMENTS = ("base", "dp", "tb", "byte_full", "packed", "packed_dp",
+               "packed6", "p6compact", "tbunroll", "ilp", "tbiters")
 
 
 class Lab:
@@ -58,10 +60,11 @@ class Lab:
         return align_tiles(self.refs[v], self.queries[v], self.rlen,
                            self.qlen, **SCORING, **kw)
 
-    def walk(self, out: dict):
-        return traceback(out["dir"], self.rlen, self.qlen, self.firsts,
-                         out["max_i"], out["max_j"],
-                         early_terminate=self.ET)
+    def walk(self, out: dict, fmt: str = "bytes", **kw):
+        key, walker = WALKERS[fmt]
+        return walker(out[key], self.rlen, self.qlen, self.firsts,
+                      out["max_i"], out["max_j"], early_terminate=self.ET,
+                      **kw)
 
     def chain(self, step):
         """sum over v of step(v), on the device (int64; wrapped on
@@ -86,10 +89,18 @@ class Lab:
         return (d.to(torch.int64)[:, ::64, ::64].sum()
                 + out["max_score"].sum(dtype=torch.int64))
 
-    def walk_sink(self, out: dict) -> torch.Tensor:
-        raw, i_s, j_s = self.walk(out)
+    def walk_sink(self, out: dict, fmt: str = "bytes", **kw) -> torch.Tensor:
+        raw, i_s, j_s = self.walk(out, fmt, **kw)
         return ((raw & 3).sum(dtype=torch.int64) + i_s.sum(dtype=torch.int64)
                 + j_s.sum(dtype=torch.int64))
+
+    def full_step(self, fmt: str, **kw):
+        """DP in fmt and its walker a step (sink as the tool's)."""
+        def step(v):
+            out = self.dp(v, dir_format=fmt)
+            return (self.walk_sink(out, fmt, **kw)
+                    + out["max_score"].sum(dtype=torch.int64))
+        return self.chain(step)
 
     def run(self, exp: str, fmt: str) -> None:
         if exp in ("base", "dp"):
@@ -100,16 +111,22 @@ class Lab:
             self.report("tb_only", self.chain(
                 lambda v: self.walk_sink(outs[v])), gcups=False)
         if exp == "byte_full":
-            def step(v):
-                out = self.dp(v)
-                return (self.walk_sink(out)
-                        + out["max_score"].sum(dtype=torch.int64))
-            self.report("byte full step", self.chain(step))
+            self.report("byte full step", self.full_step("bytes"))
+        if exp in ("packed", "packed6"):
+            self.report(f"{exp} full step", self.full_step(exp))
         if exp in ("packed_dp", "packed6"):
             f = "packed" if exp == "packed_dp" else "packed6"
             self.report(f"{f} dp_only", self.chain(
                 lambda v: self.dir_sink(self.dp(v, dir_format=f))),
                 gcups=False)
+        if exp == "p6compact":
+            for kb in (0, 64, 128, 256, 512):
+                self.report(f"packed6 compact_b={kb}",
+                            self.full_step("packed6", compact_b=kb))
+        if exp == "tbunroll":
+            for u in (1, 2, 4, 8):
+                self.report(f"packed step tb-unroll={u}",
+                            self.full_step("packed", unroll=u))
         if exp == "ilp":
             for il in INTERLEAVES:
                 self.report(f"{fmt} dp interleave={il}", self.chain(
@@ -137,11 +154,6 @@ def main(argv: list[str] | None = None) -> int:
                    help="dir format of the ilp experiment")
     args = p.parse_args(argv)
     for exp in args.exps:
-        if exp in NEEDS_WORD_WALKER:
-            print(f"kernel_lab: experiment {exp!r} needs the JAX word "
-                  f"walkers, which are not ported yet (ROADMAP.md)",
-                  file=sys.stderr)
-            return 2
         if exp not in EXPERIMENTS:
             print(f"kernel_lab: unknown experiment {exp!r}", file=sys.stderr)
             return 2

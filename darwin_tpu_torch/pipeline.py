@@ -1,9 +1,12 @@
 """End-to-end overlap pipeline: load -> index -> D-SOFT -> GACT -> records.
 
-The port of darwin_tpu/pipeline.py's device path.  Both strands run as
-ONE merged engine batch (run_device_merged): a multithreaded native
-D-SOFT pass over all forward + reverse-complement read-strands, then
-one engine run with the complement flag as per-call data.  The host
+The port of darwin_tpu/pipeline.py, with its two engines.  On the
+device engine both strands run as ONE merged engine batch
+(run_device_merged): a multithreaded native D-SOFT pass over all
+forward + reverse-complement read-strands, then one engine run with the
+complement flag as per-call data.  The host-stepped engine (run_host)
+mirrors the reference's per-direction flow: D-SOFT and run_gact_batch
+per strand, the tiles aligned on the device each iteration.  The host
 stages (FASTA, seed table, D-SOFT) run the port's own build of the
 native library (darwin_tpu_torch.native) and fall back to darwin_tpu's
 NumPy code without it; the genome layout, the NumPy D-SOFT and record
@@ -27,8 +30,10 @@ from darwin_tpu.index.seed_table import SeedTable
 from darwin_tpu.io import fasta
 from darwin_tpu.io.fasta import FastaRecord, revcomp
 from darwin_tpu_torch import native
-from darwin_tpu_torch.engine.batch import GactCalls
+from darwin_tpu_torch.engine.aligner import TorchTileAligner
+from darwin_tpu_torch.engine.batch import GactCalls, run_gact_batch
 from darwin_tpu_torch.engine.device_batch import DeviceGactEngine
+from darwin_tpu_torch.engine.scoring import ScoreParams
 from darwin_tpu_torch.engine.seqbank import SeqBank
 
 
@@ -129,7 +134,7 @@ def make_merged_engine(genome: Genome, fwd_bank: SeqBank,
                        rev_bank: SeqBank, params: Params, *,
                        same_file: bool, batch_size: int,
                        compute_score: bool = True,
-                       device: torch.device | str):
+                       device: torch.device | str, tb_format: str = "bytes"):
     """Build the merged-bank engine once (bank upload included) so
     callers iterating over read ranges reuse it via run_device_merged's
     ``prebuilt`` argument.  Returns (engine, merged bank, read count)."""
@@ -142,7 +147,7 @@ def make_merged_engine(genome: Genome, fwd_bank: SeqBank,
         match=params.match, mismatch=params.mismatch,
         gap_open=params.gap_open, gap_extend=params.gap_extend,
         same_file=same_file, batch_size=batch_size,
-        compute_score=compute_score, device=device)
+        compute_score=compute_score, device=device, tb_format=tb_format)
     return dev, merged, num_reads
 
 
@@ -192,6 +197,51 @@ def run_device_merged(genome: Genome, table: SeedTable,
     return recs, counts
 
 
+def make_aligner(params: Params, device: torch.device | str
+                 ) -> TorchTileAligner:
+    """The host-stepped engine's tile aligner on device."""
+    return TorchTileAligner(
+        early_terminate=params.early_terminate,
+        match=params.match, mismatch=params.mismatch,
+        gap_open=params.gap_open, gap_extend=params.gap_extend,
+        device=device)
+
+
+def run_host(genome: Genome, table: SeedTable, fwd_bank: SeqBank,
+             rev_bank: SeqBank, params: Params, *, same_file: bool,
+             batch_size: int, aligner: TorchTileAligner,
+             compute_score: bool = True, read_ids=None,
+             num_threads: int | None = None, metrics: dict | None = None):
+    """The host-stepped engine over both strands, one after the other
+    (darwin_tpu.pipeline.run_pipeline's host branch): D-SOFT, then
+    run_gact_batch, forward reads first.
+
+    Returns (records, [n_fwd_candidates, n_rev_candidates]).  With
+    metrics, adds seed_s, align_s and engine_iters (aligner calls)."""
+    sp = ScoreParams(params.match, params.mismatch, params.gap_open,
+                     params.gap_extend)
+    recs, counts = [], []
+    for comp, bank in ((False, fwd_bank), (True, rev_bank)):
+        t0 = time.perf_counter()
+        calls = collect_calls(table, genome, bank, params, read_ids=read_ids,
+                              num_threads=num_threads)
+        t1 = time.perf_counter()
+        counts.append(len(calls))
+        iters = aligner.calls
+        recs.extend(run_gact_batch(
+            genome, bank, calls, tile_size=params.tile_size,
+            first_tile_score_threshold=params.first_tile_score_threshold,
+            sp=sp, complement=comp, same_file=same_file, aligner=aligner,
+            batch_size=batch_size, compute_score=compute_score))
+        if metrics is not None:
+            metrics["seed_s"] = metrics.get("seed_s", 0.0) + t1 - t0
+            metrics["align_s"] = (metrics.get("align_s", 0.0)
+                                  + time.perf_counter() - t1)
+            metrics["engine_iters"] = (metrics.get("engine_iters", 0)
+                                       + aligner.calls - iters)
+    return recs, counts
+
+
 def read_banks(read_records: list[FastaRecord]) -> tuple[SeqBank, SeqBank]:
     """Forward and reverse-complement read banks."""
     return (SeqBank([seq_to_bytes(r.seq) for r in read_records]),
@@ -210,20 +260,27 @@ def run_pipeline(ref_records: list[FastaRecord],
                  read_records: list[FastaRecord], params: Params,
                  same_file: bool, *, batch_size: int = 512,
                  table: SeedTable | None = None,
-                 compute_score: bool = True,
+                 compute_score: bool = True, engine: str = "device",
                  device: torch.device | str = "cuda",
                  metrics: dict | None = None) -> PipelineResult:
-    """All reads against the reference on one device; record lines in
-    the reference's darwin.<i>.out format."""
+    """All reads against the reference on one device, by the device
+    engine or the host-stepped one; record lines in the reference's
+    darwin.<i>.out format."""
+    if engine not in ("device", "host"):
+        raise ValueError(f"engine {engine!r}: device or host")
     genome = Genome(ref_records, params.bin_size)
     if table is None:
         table = build_seed_table(genome.concat, params.seed_size,
                                  params.seed_occurence_multiple,
                                  params.bin_size, params.window_size)
     fwd_bank, rev_bank = read_banks(read_records)
-    recs, counts = run_device_merged(
-        genome, table, fwd_bank, rev_bank, params, same_file=same_file,
-        batch_size=batch_size, compute_score=compute_score,
-        device=device, metrics=metrics)
+    kw = dict(same_file=same_file, batch_size=batch_size,
+              compute_score=compute_score, metrics=metrics)
+    if engine == "device":
+        recs, counts = run_device_merged(genome, table, fwd_bank, rev_bank,
+                                         params, device=device, **kw)
+    else:
+        recs, counts = run_host(genome, table, fwd_bank, rev_bank, params,
+                                aligner=make_aligner(params, device), **kw)
     return PipelineResult(format_records(genome, read_records, recs),
                           counts[0], counts[1])

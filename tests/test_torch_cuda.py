@@ -18,7 +18,8 @@ import torch
 
 from darwin_tpu.config import Params
 from darwin_tpu_torch.engine.device_batch import DeviceGactEngine
-from darwin_tpu_torch.ops import dp, plane2, scanshift, tile_fetch, traceback
+from darwin_tpu_torch.ops import (dp, plane2, scanshift, swscore, tile_fetch,
+                                  traceback)
 from darwin_tpu_torch.ops.common import PAD_QUERY, PAD_REF
 from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
 from darwin_tpu_torch.ops.tile_fetch import fetch_tiles_torch
@@ -103,6 +104,63 @@ def test_dp_word_formats_and_interleave_match_plain(cuda, T):
                 for key in want:
                     assert torch.equal(got[key], want[key]), (sc, fmt, il,
                                                               key)
+
+
+@pytest.mark.parametrize("T,et", [(64, 40), (320, 200), (376, 256)])
+def test_word_walker_kernels_match_plain(cuda, T, et):
+    """Both word walkers at B = 512 under three scorings, rlen < T tiles,
+    packed at unroll 1, 2, 4 and packed6 at compact_b 0, 64, 512 (512 =
+    B: compaction off), against the lockstep plain versions."""
+    ref, query, rlen, qlen, first = _tiles(T + 3, 512, T, cuda)
+    for sc in SCORINGS[:3]:
+        kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"), sc))
+        for fmt, walk, plain, opts in (
+                ("packed", traceback.traceback_packed,
+                 traceback.traceback_packed_torch,
+                 [dict(unroll=u) for u in (1, 2, 4)]),
+                ("packed6", traceback.traceback_packed6,
+                 traceback.traceback_packed6_torch,
+                 [dict(compact_b=k) for k in (0, 64, 512)])):
+            out = dp.align_tiles(ref, query, rlen, qlen, dir_format=fmt,
+                                 **kw)
+            args = (out["dir_words"], rlen, qlen, first, out["max_i"],
+                    out["max_j"])
+            for opt in opts:
+                n = walk.launches
+                got = walk(*args, early_terminate=et, **opt)
+                assert walk.launches == n + 1
+                want = plain(*args, early_terminate=et, **opt)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (sc, fmt, opt)
+                assert (got[0] != 0).any()
+
+
+def test_swscore_kernel_matches_plain(cuda):
+    """Score-only SW at B = 64 on ragged related pairs of 200-3000
+    bases, under two scorings; lanes 0 and 1 have an empty side."""
+    rng = np.random.default_rng(64)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    B, L = 64, 3000
+    ref = np.zeros((B, L), np.uint8)
+    query = np.zeros((B, L), np.uint8)
+    rlen = rng.integers(200, L + 1, size=B).astype(np.int32)
+    qlen = rng.integers(200, L + 1, size=B).astype(np.int32)
+    rlen[0] = qlen[1] = 0
+    for b in range(B):
+        src = acgt[rng.integers(0, 4, size=2 * L)]
+        q = src[rng.integers(0, L // 2):].copy()
+        q[rng.random(len(q)) < 0.1] = acgt[rng.integers(0, 4)]
+        ref[b, :rlen[b]] = src[:rlen[b]]
+        query[b, :qlen[b]] = q[:qlen[b]]
+    t = [torch.from_numpy(x).to(cuda) for x in (ref, query, rlen, qlen)]
+    for sc in [(1, -1, -1, -1), (2, -3, -4, -2)]:
+        kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"), sc))
+        n = swscore.local_score_batch.launches
+        got = swscore.local_score_batch(*t, **kw)
+        assert swscore.local_score_batch.launches == n + 1
+        want = swscore.local_score_batch_torch(*t, **kw)
+        assert torch.equal(got, want), sc
+        assert (got[2:] > 0).all() and not got[:2].any()
 
 
 @pytest.mark.parametrize("T", [24, 320, 376])
@@ -190,6 +248,10 @@ def test_pipeline_on_card_matches_reference_with_one_sync_per_iteration(
                        device=cuda)
     assert set(res.records) == set((TINY / "out.darwin").read_text()
                                    .splitlines())
+    res = run_pipeline(reads, reads, params, True, batch_size=16,
+                       engine="host", device=cuda)
+    assert set(res.records) == set((TINY / "out.darwin").read_text()
+                                   .splitlines())
 
     from darwin_tpu.index.genome import Genome
     from darwin_tpu_torch.engine.batch import GactCalls
@@ -227,6 +289,40 @@ def test_pipeline_on_card_matches_reference_with_one_sync_per_iteration(
     # Besides the per-iteration check: 10 set-up uploads of the call
     # tables and 3 downloads in finish().
     assert eng.last_iters <= syncs <= eng.last_iters + 20, syncs
+
+
+def test_engine_word_formats_on_card(cuda):
+    """The device engine in each tb_format on tiny: the records of the
+    byte walker, in the same order, each walker launched."""
+    from darwin_tpu.index.genome import Genome
+    from darwin_tpu_torch.engine.seqbank import SeqBank
+    from darwin_tpu_torch.pipeline import (build_seed_table, collect_calls,
+                                           read_banks)
+
+    params = Params.from_cfg(TINY / "params.cfg")
+    reads = read_fasta(TINY / "reads.fasta")
+    genome = Genome(reads, params.bin_size)
+    table = build_seed_table(genome.concat, params.seed_size,
+                             params.seed_occurence_multiple,
+                             params.bin_size, params.window_size)
+    merged = SeqBank.concat(*read_banks(reads))
+    calls = collect_calls(table, genome, merged, params)
+    recs = {}
+    for fmt, walk in (("bytes", traceback.traceback),
+                      ("packed", traceback.traceback_packed),
+                      ("packed6", traceback.traceback_packed6)):
+        eng = DeviceGactEngine(
+            genome, merged, tile_size=params.tile_size,
+            early_terminate=params.early_terminate,
+            first_tile_score_threshold=params.first_tile_score_threshold,
+            match=params.match, mismatch=params.mismatch,
+            gap_open=params.gap_open, gap_extend=params.gap_extend,
+            same_file=True, batch_size=32, device=cuda, tb_format=fmt)
+        n = walk.launches
+        recs[fmt] = [tuple(vars(r).values()) for r in eng.run(calls, False)]
+        assert walk.launches > n, fmt
+    assert recs["bytes"] and recs["packed"] == recs["bytes"]
+    assert recs["packed6"] == recs["bytes"]
 
 
 def test_lab_entry_points_on_card(cuda, capsys):

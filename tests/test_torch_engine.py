@@ -4,7 +4,9 @@
   JAX packed6 walker's op streams, holes included;
 * the port's DeviceGactEngine on the CPU against the JAX
   DeviceGactEngine(backend="lax") on the tiny fixture's D-SOFT calls,
-  record for record and in the same order;
+  record for record and in the same order, in the byte format and in
+  both word formats (tb_format "packed", "packed6") against the JAX
+  engine in the same format;
 * run_pipeline on tiny against the reference binary's out.darwin.
 """
 
@@ -98,6 +100,27 @@ def test_engine_matches_jax_device_engine(tiny_calls, compute_score):
         jax_eng.last_iters, jax_eng.last_active_sum)
 
 
+@pytest.mark.parametrize("tb_format", ["packed", "packed6"])
+def test_engine_word_formats_match_jax_device_engine(tiny_calls, tb_format):
+    params, genome, seqs, calls, comp, bank_ids = tiny_calls
+    kw = dict(tile_size=params.tile_size,
+              early_terminate=params.early_terminate,
+              first_tile_score_threshold=params.first_tile_score_threshold,
+              match=params.match, mismatch=params.mismatch,
+              gap_open=params.gap_open, gap_extend=params.gap_extend,
+              same_file=True, batch_size=16, tb_format=tb_format)
+    jax_eng = jdb.DeviceGactEngine(genome, JaxSeqBank(seqs), backend="lax",
+                                   **kw)
+    want = jax_eng.finish(jax_eng.run_async(calls, comp, bank_ids))
+    eng = DeviceGactEngine(genome, SeqBank(seqs), device="cpu", **kw)
+    got = eng.finish(eng.run_async(calls, comp, bank_ids))
+    assert len(got) > 0
+    assert [tuple(vars(r).values()) for r in got] == \
+        [tuple(vars(r).values()) for r in want]
+    assert (eng.last_iters, eng.last_active_sum) == (
+        jax_eng.last_iters, jax_eng.last_active_sum)
+
+
 def test_run_pipeline_tiny_matches_reference(data_dir):
     d = data_dir / "tiny"
     params = Params.from_cfg(d / "params.cfg")
@@ -121,5 +144,7 @@ def test_engine_rejects_pieces_past_int32(tiny_calls):
               gap_open=-1, gap_extend=-1, same_file=True, device="cpu")
     with pytest.raises(ValueError, match="reference piece"):
         DeviceGactEngine(big, SeqBank(seqs), **kw)
+    with pytest.raises(ValueError, match="tb_format"):
+        DeviceGactEngine(genome, SeqBank(seqs), tb_format="words", **kw)
     eng = DeviceGactEngine(genome, SeqBank(seqs), **kw)
     assert [eng.slots(n) for n in (1, 90, 100, 300)] == [64, 96, 128, 256]

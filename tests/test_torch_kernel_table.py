@@ -1,0 +1,38 @@
+"""chip_smoke.py's kernel table: every kernel names the TPU kernel or JAX
+function it replaces as "path:line", and that line (or one of the two
+after it) of the JAX package or tools holds that function's `def`, or
+the `pallas_call` of a Pallas kernel.  Imported without a card."""
+
+from pathlib import Path
+
+import pytest
+
+import chip_smoke
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.KERNELS))
+def test_replaces_points_at_the_function(name):
+    source, replaces, what = chip_smoke.KERNELS[name]
+    assert (REPO / source).is_file(), source
+    path, line = replaces.rsplit(":", 1)
+    lines = (REPO / path).read_text().splitlines()
+    window = lines[int(line) - 1:int(line) + 2]
+    want = "pl.pallas_call(" if what == "pallas_call" else f"def {what}("
+    assert any(want in ln for ln in window), (replaces, want, window)
+
+
+def test_every_dp_variant_and_main_kernel_is_listed():
+    names = set(chip_smoke.KERNELS)
+    assert set(chip_smoke.DP_VARIANTS.values()) <= names
+    assert {"traceback", "traceback_packed", "traceback_packed6",
+            "fetch_tiles", "local_score_batch", "plane2", "scanshift_shfl",
+            "scanshift_smem"} <= names
+    for kernels in chip_smoke.ECOLI_RUNS.values():
+        assert set(kernels) <= names
+    # One JAX function, one kernel: no two main kernels share a line.
+    main = [chip_smoke.KERNELS[k][1] for k in
+            ("traceback", "traceback_packed", "traceback_packed6",
+             "local_score_batch", "fetch_tiles", "align_tiles")]
+    assert len(set(main)) == len(main)
