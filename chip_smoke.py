@@ -14,7 +14,10 @@ Phases; any failure ends the run with a nonzero exit code:
    the span fetch at B = 512 and T = 320, 64, 376 under three scoring
    sets, the score-only SW at B = 64 on 200-3000 base pairs; with
    kernel and plain times (CUDA events, median) at B = 512, T = 320,
-   ET = 200, and for SW at B = 64 on 3 kb pairs;
+   ET = 200, and for SW at B = 64 on 3 kb pairs, each beside its bound
+   (bytes over the HBM rate or int32 operations over the int32 rate,
+   from this run's inputs) and, for the span fetch, the time of one
+   advanced-index gather of the bank (never taken on the path);
 3. fixtures: darwin_tpu_torch.pipeline.run_pipeline on every
    tests/data fixture that has an out.darwin (the reference binary's
    output), under the device engine and under the host-stepped engine;
@@ -43,14 +46,15 @@ Phases; any failure ends the run with a nonzero exit code:
    each lab kernel against its plain version: the DP variants and
    plane 2 at TILES x SCORINGS (B = 512, tiles with rlen < T), plane 2
    also at B = 2048, T = 376, the scans at B = 2048, TJP = 384; with
-   kernel and plain times (CUDA events, median): the DP variants at
-   B = 512, T = 320, plane 2 and the scans at B = 2048;
+   kernel and plain times (CUDA events, median) and bounds: the DP
+   variants at B = 512, T = 320, plane 2 and the scans at B = 2048, the
+   scans beside one torch.cummax;
 6. the score evaluator: two read sets of 40 x 4 kb reads from a 100 kb
-   genome (seed 7; darwin_tpu.eval.datagen.two_readsets) overlapped by
-   the port's CLI, then darwin_tpu_torch.eval.score_eval's main on the
-   records, with the SW counter zeroed before and nonzero after; the
-   exact scores of every theoretical pair, both strands, from the SW
-   kernel must equal the plain version's.
+   genome (seed 7; darwin_tpu_torch.eval.datagen.two_readsets)
+   overlapped by the port's CLI, then darwin_tpu_torch.eval.score_eval's
+   main on the records, with the SW counter zeroed before and nonzero
+   after; the exact scores of every theoretical pair, both strands, from
+   the SW kernel must equal the plain version's.
 
 The last three lines are a JSON summary of the kernels, nvidia-smi's
 name and power limit, and {"ok": true, "device": {...}}.  Without a
@@ -76,6 +80,17 @@ B_MAIN, T_MAIN = 512, 320
 TILES = [(320, 200), (64, 40), (376, 256)]
 SCORINGS = [(1, -1, -1, -1), (2, -3, -4, -2), (3, -1, -2, -1)]
 SW_B, SW_LEN = 64, 3000
+# A kernel's bound is the larger of the bytes it must move over the HBM
+# rate and its int32 operations over the card's int32 rate (NVIDIA
+# H100 SXM: 3.35 TB/s; 132 SMs x 64 INT32 lanes x 1.98 GHz, half the
+# FP32 lanes behind the 67 TFLOP/s FP32 peak).  Operations a unit of
+# work, as the kernels' source notes count them: a DP cell 15 (M: add,
+# max; I and D: two adds, a max, a >= each; H: a max of three and its
+# tie order, two compares; the direction byte, three); an SW cell 10;
+# a walker step 8; a scan element 2 (add, max).
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 132 * 64 * 1.98e9
+DP_OPS_CELL, SW_OPS_CELL, WALK_OPS_STEP, SCAN_OPS = 15, 10, 8, 2
 
 
 def _dp_variant(fmt: str, il: int) -> str:
@@ -117,6 +132,10 @@ KERNELS = {
     "scanshift_smem": ("darwin_tpu_torch/csrc/scanshift.cu",
                        "tools/scanshift_probe.py:97", "pallas_call"),
 }
+# The keys of each entry of the kernels line.
+KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms"}
 # The kernels each phase 4 run must launch.
 ECOLI_RUNS = {
     "cli bytes": ("align_tiles", "fetch_tiles", "traceback"),
@@ -136,6 +155,36 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """bound_ms and bound_by of work that moves nbytes and does ops
+    int32 operations."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / INT32_OPS_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def dp_bound(ref, query, rlen, qlen, out: dict) -> dict:
+    """A DP call's bound: its inputs and outputs once, and the cells
+    this batch's lengths need (min(rlen, T) x min(qlen, T) a tile)."""
+    T = ref.shape[1]
+    cells = int((rlen.clamp(0, T).long() * qlen.clamp(0, T).long()).sum())
+    return bound(nbytes(ref, query, rlen, qlen, *out.values()),
+                 DP_OPS_CELL * cells)
+
+
+def walk_bound(args, out) -> dict:
+    """A walker call's bound: one direction byte a step of the walks
+    this batch takes (the ops it records), its small inputs and its
+    outputs."""
+    steps = int((out[0] != 0).sum())
+    return bound(steps + nbytes(*args[1:], *out), WALK_OPS_STEP * steps)
 
 
 def median_ms(fn, reps: int) -> float:
@@ -218,7 +267,8 @@ def sw_pairs(rng, B: int, L: int):
 
 def phase_kernels(dev) -> dict:
     """Each main-path kernel against its plain version on the card;
-    returns {kernel: {max_abs_err, ms, plain_ms}}."""
+    returns {kernel: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms}}."""
     import numpy as np
     import torch
 
@@ -237,6 +287,7 @@ def phase_kernels(dev) -> dict:
            ("align_tiles", "fetch_tiles", "local_score_batch",
             *walkers.values())}
     timed = {}
+    library = {}  # one PyTorch call computing a kernel's function
     for T, ET in TILES:
         ref, query, rlen, qlen = (torch.from_numpy(x).to(dev) for x in
                                   related_tiles(rng, B_MAIN, T))
@@ -253,6 +304,7 @@ def phase_kernels(dev) -> dict:
                 timed["align_tiles"] = (
                     lambda a=a, kw=kw: align_tiles(*a, **kw),
                     lambda a=a, kw=kw: align_tiles_torch(*a, **kw))
+                res["align_tiles"].update(dp_bound(*a, got))
             walks = []
             for fmt, name in walkers.items():
                 out = (got if fmt == "bytes" else
@@ -267,6 +319,7 @@ def phase_kernels(dev) -> dict:
                 walks.append(float((g[1] + g[2]).float().mean()))
                 if main:
                     timed[name] = (kernel, plain)
+                    res[name].update(walk_bound(args, g))
             log(f"  T={T} ET={ET} scoring={sc}: errors {errs}, mean walk "
                 f"{walks[0]:.1f} steps")
             if any(errs.values()):
@@ -296,6 +349,22 @@ def phase_kernels(dev) -> dict:
             timed["fetch_tiles"] = (
                 lambda a=args: fetch_tiles(*a, T=T_MAIN, pad=PAD_REF),
                 lambda a=args: fetch_tiles_torch(*a, T=T_MAIN, pad=PAD_REF))
+            used = int(args[2].clamp(0, T).sum())  # bank bytes read
+            res["fetch_tiles"].update(bound(
+                used + nbytes(*args[1:], got), 0))
+            # The one-call yardstick: an advanced-index gather of the bank
+            # with the pad byte appended, the index built beforehand.
+            k = torch.arange(T, device=dev)[None, :]
+            s0, L = args[1][:, None], args[2].long()[:, None]
+            idx = torch.where(args[3][:, None], s0 + L - 1 - k,
+                              s0 + k).clamp(0, n - 1)
+            idx = torch.where(k < L, idx, n)
+            bank_pad = torch.cat([bank, torch.full((1,), PAD_REF,
+                                                   dtype=torch.uint8,
+                                                   device=dev)])
+            if not torch.equal(bank_pad[idx], got):
+                raise AssertionError("the gather yardstick differs")
+            library["fetch_tiles"] = lambda b=bank_pad, i=idx: b[i]
         res["fetch_tiles"]["max_abs_err"] = max(
             res["fetch_tiles"]["max_abs_err"], e)
 
@@ -318,30 +387,38 @@ def phase_kernels(dev) -> dict:
                   SCORINGS[0]))
     timed["local_score_batch"] = (lambda: local_score_batch(*sw, **kw),
                                   lambda: local_score_batch_torch(*sw, **kw))
+    cells = int((sw[2].long() * sw[3].long()).sum())
+    res["local_score_batch"].update(bound(
+        nbytes(*sw, local_score_batch(*sw, **kw)), SW_OPS_CELL * cells))
 
     for name, (kernel, plain) in timed.items():
         res[name]["ms"] = median_ms(kernel, 20)
         res[name]["plain_ms"] = median_ms(plain, 3 if name ==
                                           "local_score_batch" else 5)
+        res[name]["library_ms"] = (median_ms(library[name], 20)
+                                   if name in library else None)
         shape = (f"B={SW_B} {SW_LEN}x{SW_LEN}" if name == "local_score_batch"
                  else f"B={B_MAIN} T={T_MAIN}")
         log(f"  {name} at {shape}: kernel {res[name]['ms']:.4f} ms, plain "
-            f"{res[name]['plain_ms']:.4f} ms")
+            f"{res[name]['plain_ms']:.4f} ms, library "
+            f"{res[name]['library_ms']} ms, bound "
+            f"{res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']})")
     return res
 
 
 def phase_fixtures(dev) -> None:
-    from darwin_tpu.config import Params
-    from darwin_tpu_torch.pipeline import read_fasta, run_pipeline
+    from darwin_tpu_torch.config import Params
+    from darwin_tpu_torch.io.fasta import parse_fasta
+    from darwin_tpu_torch.pipeline import run_pipeline
 
     fixtures = sorted(p.parent for p in DATA.glob("*/out.darwin"))
     if not fixtures:
         raise AssertionError(f"no fixtures under {DATA}")
     for d in fixtures:
         params = Params.from_cfg(d / "params.cfg")
-        reads = read_fasta(d / "reads.fasta")
+        reads = parse_fasta(d / "reads.fasta")
         same_file = not (d / "ref.fasta").exists()
-        ref = reads if same_file else read_fasta(d / "ref.fasta")
+        ref = reads if same_file else parse_fasta(d / "ref.fasta")
         want = set((d / "out.darwin").read_text().splitlines())
         for engine in ("device", "host"):
             t0 = time.perf_counter()
@@ -360,7 +437,7 @@ def ecoli_reads() -> list:
     """The E.coli-shaped dataset (tools/ecoli_shape.py makes the same)."""
     import numpy as np
 
-    from darwin_tpu.eval.datagen import sample_reads, synth_genome
+    from darwin_tpu_torch.eval.datagen import sample_reads, synth_genome
 
     rng = np.random.default_rng(42)
     genome = synth_genome(4_600_000, rng)
@@ -380,13 +457,13 @@ def _counted(counters: dict, run) -> tuple:
 def phase_ecoli(dev, counters: dict) -> dict:
     """The four E.coli-shaped runs; returns {kernel: launches} summed
     over them."""
-    from darwin_tpu.config import Params
-    from darwin_tpu.index.genome import Genome
-    from darwin_tpu.io.fasta import write_fasta
     from darwin_tpu_torch import cli, native
-    from darwin_tpu_torch.pipeline import (build_seed_table, format_records,
-                                           make_merged_engine, read_banks,
-                                           read_fasta, run_device_merged)
+    from darwin_tpu_torch.config import Params
+    from darwin_tpu_torch.index.genome import Genome
+    from darwin_tpu_torch.index.seed_table import SeedTable
+    from darwin_tpu_torch.io.fasta import parse_fasta, write_fasta
+    from darwin_tpu_torch.pipeline import (format_records, make_merged_engine,
+                                           read_banks, run_device_merged)
 
     want_sha = (DATA / "ecoli_shape" / "dataset.sha256").read_text().strip()
     want = (DATA / "ecoli_shape" / "jax_cpu.darwin").read_text()
@@ -417,12 +494,12 @@ def phase_ecoli(dev, counters: dict) -> dict:
                     json.loads((out / "metrics.json").read_text()))
 
         def engine_run(fmt):
-            reads = read_fasta(fa)
+            reads = parse_fasta(fa)
             genome = Genome(reads, params.bin_size)
             t0 = time.perf_counter()
-            table = build_seed_table(genome.concat, params.seed_size,
-                                     params.seed_occurence_multiple,
-                                     params.bin_size, params.window_size)
+            table = SeedTable.build(genome.concat, params.seed_size,
+                                    params.seed_occurence_multiple,
+                                    params.bin_size, params.window_size)
             m = {"seed_table_s": time.perf_counter() - t0,
                  "host_native": native.available()}
             fwd, rev = read_banks(reads)
@@ -499,7 +576,7 @@ def phase_lab(dev):
     from darwin_tpu_torch.ops.dp import PACKERS, align_tiles, align_tiles_plain
     from darwin_tpu_torch.ops.plane2 import plane2, plane2_torch
     from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
-    from darwin_tpu_torch.ops.scanshift import (scanshift_shfl,
+    from darwin_tpu_torch.ops.scanshift import (STEPS, scanshift_shfl,
                                                 scanshift_smem,
                                                 scanshift_torch)
 
@@ -575,20 +652,25 @@ def phase_lab(dev):
             ref, query, rlen, qlen, dir_format=fmt, **kw), 5)
         for il in (1, 2, 4):
             name = DP_VARIANTS[(fmt, il)]
-            res[name]["ms"] = median_ms(
-                lambda: align_tiles(ref, query, rlen, qlen, dir_format=fmt,
-                                    interleave=il, **kw), 20)
+            call = (lambda: align_tiles(ref, query, rlen, qlen,
+                                        dir_format=fmt, interleave=il, **kw))
+            res[name].update(dp_bound(ref, query, rlen, qlen, call()))
+            res[name]["ms"] = median_ms(call, 20)
             res[name]["plain_ms"] = plain_ms
+            res[name]["library_ms"] = None
             log(f"  {name} at B={B_MAIN} T={T_MAIN}: kernel "
-                f"{res[name]['ms']:.4f} ms, plain {plain_ms:.4f} ms")
+                f"{res[name]['ms']:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']})")
 
     # Plane 2 timed at the probe's shape, B = 2048, T = 376.
     refs, queries = (torch.from_numpy(x[0]).to(dev) for x in
                      related_batches(1, 2048, 376))
     lens = torch.full((2048,), 376, dtype=torch.int32, device=dev)
     kw = SCORING
-    e = max_abs_err(plane2(refs, queries, lens, lens, **kw),
-                    plane2_torch(refs, queries, lens, lens, **kw))
+    out = plane2(refs, queries, lens, lens, **kw)
+    e = max_abs_err(out, plane2_torch(refs, queries, lens, lens, **kw))
+    res["plane2"].update(dp_bound(refs, queries, lens, lens, out))
+    res["plane2"]["library_ms"] = None
     res["plane2"]["max_abs_err"] = max(res["plane2"]["max_abs_err"], e)
     if e:
         raise AssertionError("plane2 mismatch at B=2048 T=376")
@@ -597,21 +679,27 @@ def phase_lab(dev):
     res["plane2"]["plain_ms"] = median_ms(
         lambda: plane2_torch(refs, queries, lens, lens, **kw), 3)
     log(f"  plane2 at B=2048 T=376: kernel {res['plane2']['ms']:.4f} ms, "
-        f"plain {res['plane2']['plain_ms']:.4f} ms")
+        f"plain {res['plane2']['plain_ms']:.4f} ms, bound "
+        f"{res['plane2']['bound_ms']:.4f} ms ({res['plane2']['bound_by']})")
 
     # The scans at B = 2048, TJP = 384, 16 chained scans a row.
     x = torch.from_numpy(scanshift_probe.probe_inputs(1, 2048, 376)[0][0]
                          ).to(dev)
     want = scanshift_torch(x)
     plain_ms = median_ms(lambda: scanshift_torch(x), 5)
+    # The one-call yardstick: torch.cummax, one of the 16 chained scans.
+    cummax_ms = median_ms(lambda: torch.cummax(x, dim=1), 20)
     for name, fn in scans.items():
         e = max_abs_err({0: fn(x)}, {0: want})
         if e:
             raise AssertionError(f"{name} mismatch at TJP=384")
         res[name] = dict(max_abs_err=e, ms=median_ms(lambda: fn(x), 20),
-                         plain_ms=plain_ms)
+                         plain_ms=plain_ms, library_ms=cummax_ms,
+                         **bound(2 * nbytes(x),
+                                 SCAN_OPS * STEPS * x.numel()))
         log(f"  {name} at B=2048 TJP=384: kernel {res[name]['ms']:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
+            f"plain {plain_ms:.4f} ms, one torch.cummax {cummax_ms:.4f} ms, "
+            f"bound {res[name]['bound_ms']:.4f} ms")
     return res, launches
 
 
@@ -621,11 +709,10 @@ def phase_scoreeval(dev) -> int:
     import numpy as np
     import torch
 
-    from darwin_tpu.eval.datagen import synth_genome, two_readsets
-    from darwin_tpu.eval.score_eval import theoretical_pairs
-    from darwin_tpu.io.fasta import revcomp, write_fasta
     from darwin_tpu_torch import cli
     from darwin_tpu_torch.eval import score_eval
+    from darwin_tpu_torch.eval.datagen import synth_genome, two_readsets
+    from darwin_tpu_torch.io.fasta import revcomp, write_fasta
     from darwin_tpu_torch.ops.swscore import (local_score_batch,
                                               local_score_batch_torch)
 
@@ -658,7 +745,8 @@ def phase_scoreeval(dev) -> int:
             raise AssertionError(f"score_eval: rc {rc}, {launches} launches")
     # The exact scores of every theoretical pair, both strands, from the
     # kernel and from the plain version on the same inputs.
-    pairs = theoretical_pairs([n for n, _ in a], [n for n, _ in b], 1000)
+    pairs = score_eval.theoretical_pairs([n for n, _ in a],
+                                         [n for n, _ in b], 1000)
     seq_pairs = [(a[i][1], s) for i, j in pairs
                  for s in (b[j][1], revcomp(b[j][1]))]
     kw = dict(match=1, mismatch=-1, gap_open=-1, gap_extend=-1)
@@ -737,6 +825,9 @@ def main() -> int:
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on their path: {idle}")
+    short = [k["name"] for k in kernels if not KERNEL_KEYS <= k.keys()]
+    if short:
+        raise AssertionError(f"kernels line incomplete for {short}")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

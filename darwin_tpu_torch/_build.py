@@ -1,12 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by nvcc for sm_90a, one nvcc process
-per source, all started together, and the objects are linked into one
-shared library, ``_build/libdtt_kernels.so``, with a plain C interface
-that is bound with ctypes.  The build happens at first use (never at
-import) and again whenever a source or header in csrc/ is newer than
-the library.  Each C entry launches on the stream it is given and
-returns ``cudaGetLastError()``; ``launch`` raises if that is not 0.
+Every ``csrc/*.cu`` is compiled by nvcc for sm_90a, one nvcc process per
+source, all started together (the native host library's C++ source lives
+in ``native_src/``, which native.py builds with g++), and the objects
+are linked into one shared library, ``_build/libdtt_kernels.so``, with a
+plain C interface that is bound with ctypes.  The build happens at first
+use (never at import) and again whenever a source or header in csrc/ is
+newer than the library.  Each C entry launches on the stream it is given
+and returns ``cudaGetLastError()``; ``launch`` raises if that is not 0.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures (see the csrc files); the last argument is the stream.
 _SIGNATURES = {
     "dtt_align_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _P, _P, _P, _P, _P, _P, _P],
+                        _I, _P, _P, _P, _P, _P, _P, _P],
     "dtt_traceback": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _P, _P, _P, _P],
     "dtt_fetch_tiles": [_P, _L, _P, _P, _P, _I, _I, _I, _P, _P],

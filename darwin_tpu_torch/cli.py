@@ -27,15 +27,14 @@ from pathlib import Path
 
 import torch
 
-from darwin_tpu.config import Params
-from darwin_tpu.index.genome import Genome
-from darwin_tpu.index.seed_table import SeedTable
-from darwin_tpu.io.fasta import iter_fasta
 from darwin_tpu_torch import native
+from darwin_tpu_torch.config import Params
+from darwin_tpu_torch.index.genome import Genome
+from darwin_tpu_torch.index.seed_table import SeedTable
+from darwin_tpu_torch.io.fasta import iter_fasta, parse_fasta
 from darwin_tpu_torch.io.paf import paf_lines
-from darwin_tpu_torch.pipeline import (build_seed_table, format_records,
-                                       make_aligner, make_merged_engine,
-                                       read_banks, read_fasta,
+from darwin_tpu_torch.pipeline import (format_records, make_aligner,
+                                       make_merged_engine, read_banks,
                                        run_device_merged, run_host)
 
 
@@ -142,7 +141,7 @@ def main(argv: list[str] | None = None) -> int:
                      "engine": engine, "host_native": native.available()}
 
     t_start = time.perf_counter()
-    ref_records = read_fasta(args.reference)
+    ref_records = parse_fasta(args.reference)
     genome = Genome(ref_records, params.bin_size)
     chunked = bool(args.chunk_reads) and not same_file
     if args.chunk_reads and same_file:
@@ -155,7 +154,7 @@ def main(argv: list[str] | None = None) -> int:
               f"{args.chunk_reads}")
     else:
         read_records = (ref_records if same_file
-                        else read_fasta(args.reads))
+                        else parse_fasta(args.reads))
         metrics["num_reads"] = len(read_records)
         print(f"Reference length: {genome.total_length}, "
               f"{len(ref_records)} pieces; number of reads: "
@@ -188,9 +187,9 @@ def main(argv: list[str] | None = None) -> int:
         table = SeedTable.load(args.seed_table)
         print(f"Seed table loaded from {args.seed_table}")
     else:
-        table = build_seed_table(genome.concat, params.seed_size,
-                                 params.seed_occurence_multiple,
-                                 params.bin_size, params.window_size)
+        table = SeedTable.build(genome.concat, params.seed_size,
+                                params.seed_occurence_multiple,
+                                params.bin_size, params.window_size)
         if args.seed_table:
             table.save(args.seed_table)
         print(f"Seed table built: {len(table.pos)} minimizers")

@@ -1,5 +1,5 @@
-// Scan-lowering probe for Hopper (sm_90a): the DP kernel's prefix-max
-// scan timed alone, in two lowerings.
+// Scan-lowering probe for Hopper (sm_90a): a row-wide prefix-max scan,
+// the query-gap scan of the TPU tile DP, timed alone in two lowerings.
 //
 // Replaces: tools/scanshift_probe.py, the pallas_call in `one` (line 97;
 // kernel at :76-85), which times the DP's in-row shift-max scan lowered
@@ -15,9 +15,8 @@
 // negligible.
 //
 // The two lowerings, one block a row, one thread a column:
-//  (shfl) the DP kernel's own scan, dtt::block_inclusive_max from
-//         scan.cuh: warp shuffles, then a per-warp carry through shared
-//         memory; two barriers a scan, as in the DP's row loop.
+//  (shfl) block_inclusive_max below: warp shuffles, then a per-warp
+//         carry through shared memory; two barriers a scan.
 //  (smem) a Hillis-Steele scan in shared memory: ceil(log2 C) steps of
 //         max(v[t], v[t-d]), d = 1, 2, 4, ..., ping-ponging between two
 //         buffers with one barrier a step.
@@ -25,9 +24,28 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "scan.cuh"
-
 namespace {
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Block-wide inclusive prefix max of one value a thread, thread t holding
+// column t: each warp scans its 32 columns with shuffles (5 dependent
+// steps); lane 31 publishes the warp's total to shared memory, one
+// barrier, and every thread folds in the totals of the warps before its
+// own (the per-warp carry).  sh_wmax: 32 ints; the caller needs another
+// barrier between this call's return and the next write to sh_wmax.
+__device__ __forceinline__ int block_inclusive_max(int v, int lane, int warp,
+                                                   int* sh_wmax) {
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    const int o = __shfl_up_sync(kFullMask, v, s);
+    if (lane >= s) v = max(v, o);
+  }
+  if (lane == 31) sh_wmax[warp] = v;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) v = max(v, sh_wmax[w]);
+  return v;
+}
 
 __global__ void scan_shfl_kernel(const int* __restrict__ x, int C,
                                  int steps, int* __restrict__ out) {
@@ -36,13 +54,12 @@ __global__ void scan_shfl_kernel(const int* __restrict__ x, int C,
   const size_t at = static_cast<size_t>(blockIdx.x) * C + t;
   // Threads past C sit after every real column; their values never
   // reach a real column's prefix.
-  int v[1] = {t < C ? x[at] : 0};
+  int v = t < C ? x[at] : 0;
   for (int s = 0; s < steps; ++s) {
-    v[0] += s;
-    dtt::block_inclusive_max<1>(v, t & 31, t >> 5, sh_wmax);
+    v = block_inclusive_max(v + s, t & 31, t >> 5, sh_wmax);
     __syncthreads();
   }
-  if (t < C) out[at] = v[0];
+  if (t < C) out[at] = v;
 }
 
 __global__ void scan_smem_kernel(const int* __restrict__ x, int C,

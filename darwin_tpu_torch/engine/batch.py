@@ -1,5 +1,6 @@
 """GACT batch engine, host-stepped: persistent-slot scheduler around the
-tile aligner, plus the GACT call and overlap-record types.
+tile aligner, plus the GACT call and overlap-record types and the
+record line (format_record).
 
 The port of darwin_tpu/engine/batch.py (importing that module would
 import jax through darwin_tpu.engine), with the same semantics line for
@@ -34,9 +35,9 @@ import dataclasses
 
 import numpy as np
 
-from darwin_tpu.index.genome import Genome
 from darwin_tpu_torch.engine.scoring import ScoreParams, score_ops_batch
 from darwin_tpu_torch.engine.seqbank import SeqBank
+from darwin_tpu_torch.index.genome import Genome
 from darwin_tpu_torch.ops.common import PAD_QUERY, PAD_REF
 
 SCORE_THRESHOLD = 0  # reference gact.cpp:24
@@ -71,6 +72,15 @@ class OverlapRecord:
     # op-stream length; PAF column 11.  0 only for records re-parsed
     # from .out text (no op stream available).
     ncols: int = 0
+
+
+def format_record(ref_name: str, query_name: str, ab: int, ae: int,
+                  bb: int, be: int, score: int, comp: bool) -> str:
+    """Overlap record line (reference gact.cpp:213-224); the port's copy
+    of darwin_tpu/golden/gact.py::format_record."""
+    return (f"ref_id: {ref_name}, query_id: {query_name}, "
+            f"ab: {ab}, ae: {ae}, bb: {bb}, be: {be}, "
+            f"score: {score}, comp: {1 if comp else 0}")
 
 
 def run_gact_batch(genome: Genome, queries: SeqBank, calls: GactCalls,

@@ -33,15 +33,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from darwin_tpu.index.genome import Genome
-from darwin_tpu.utils import bucket_steps
 from darwin_tpu_torch.engine.batch import (SCORE_THRESHOLD, GactCalls,
                                            OverlapRecord)
 from darwin_tpu_torch.engine.seqbank import SeqBank
+from darwin_tpu_torch.index.genome import Genome
 from darwin_tpu_torch.ops.common import MATCH_BIT, PAD_QUERY, PAD_REF
 from darwin_tpu_torch.ops.dp import align_tiles
 from darwin_tpu_torch.ops.tile_fetch import fetch_tiles
 from darwin_tpu_torch.ops.traceback import WALKERS
+from darwin_tpu_torch.utils import bucket_steps
 
 I32 = torch.int32
 I64 = torch.int64

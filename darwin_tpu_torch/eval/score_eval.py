@@ -7,7 +7,7 @@ every theoretically-overlapping pair, and darwin's reported overlaps
 matched to them by (ref read, query read) id pair.  The exact scores
 come from the port's score-only SW (ops/swscore.py: the CUDA kernel on
 a card, its plain version on the CPU).  theoretical_pairs, _ints and
-ScoreEvalResult are darwin_tpu's, which load no jax.
+ScoreEvalResult are copies of darwin_tpu's.
 
     python -m darwin_tpu_torch.eval.score_eval OUT.darwin REF.fasta \\
         READS.fasta [--min-overlap 1000] [--params params.cfg]
@@ -17,17 +17,54 @@ ScoreEvalResult are darwin_tpu's, which load no jax.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import re
 import sys
 
 import numpy as np
 import torch
 
-from darwin_tpu.config import Params
-from darwin_tpu.eval.score_eval import (ScoreEvalResult, _ints,
-                                        theoretical_pairs)
-from darwin_tpu.io.fasta import revcomp
+from darwin_tpu_torch.config import Params
+from darwin_tpu_torch.io.fasta import parse_fasta, revcomp
 from darwin_tpu_torch.ops.swscore import local_score_batch
-from darwin_tpu_torch.pipeline import read_fasta
+
+
+def _ints(line: str) -> list[int]:
+    return [int(x) for x in re.findall(r"\d+", line)]
+
+
+@dataclasses.dataclass
+class ScoreEvalResult:
+    n_theoretical: int
+    n_matched: int
+    same_score: int
+    higher_score: int     # reported > exact (shouldn't happen for
+    lower_score: int      # exact SW; reference tracked it anyway)
+    c1: int               # higher, diff < 50   (reference counters)
+    c2: int               # higher, diff < 200
+    c3: int               # lower, diff < 20
+    fn: int
+    fp: int
+
+
+def theoretical_pairs(names1: list[str], names2: list[str],
+                      min_overlap: int = 1000
+                      ) -> list[tuple[int, int]]:
+    """(idx1, idx2) of reads whose genomic intervals overlap enough
+    (.measure_sensitivity_NPBSS.py:57-88: a2<b1 / b2<a1 exclusion,
+    ovl_length > min_overlap)."""
+    info1 = [_ints(n) for n in names1]
+    info2 = [_ints(n) for n in names2]
+    out = []
+    for i1, r1 in enumerate(info1):
+        a1, a2 = r1[1], r1[1] + r1[2]
+        for i2, r2 in enumerate(info2):
+            b1, b2 = r2[1], r2[1] + r2[2]
+            if a2 < b1 or b2 < a1:
+                continue
+            if min(a2, b2) - max(a1, b1) > min_overlap:
+                out.append((i1, i2))
+    return out
 
 
 def pair_arrays(seq_pairs: list[tuple[str, str]]):
@@ -139,8 +176,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     prm = Params.from_cfg(args.params) if args.params else Params()
-    r1 = read_fasta(args.reference)
-    r2 = read_fasta(args.reads)
+    r1 = parse_fasta(args.reference)
+    r2 = parse_fasta(args.reads)
     with open(args.overlaps) as f:
         records = [line for line in f.read().splitlines() if line]
     res = evaluate_scores(

@@ -1,17 +1,20 @@
 """Geometry sweep of the tile DP kernel against its plain version.
 
 The port of tools/geom_sweep.py: runs csrc/dp.cu (ops/dp.py::
-align_tiles) across a matrix of (B, T, dir_format, interleave) and
-checks every output bit-exact against the plain version
+align_tiles) across a matrix of (B, T, dir_format, interleave), where
+interleave is the number of tiles a warp steps together, and checks
+every output bit-exact against the plain version
 (ops/dp.py::align_tiles_plain) on the same device.  The tool's
-block_b has no counterpart here (a block holds whole tiles), so its
+block_b has no counterpart here (a warp holds whole tiles), so its
 matrix loses that column and one duplicate row, and gains interleave 4.
-All configs run in one process: the tool's child-per-config isolation
-exists only for Mosaic aborts.
+--warps runs each config at each number of warps a thread block (the
+kernel's occupancy knob) and prints the time of each.  All configs run
+in one process: the tool's child-per-config isolation exists only for
+Mosaic aborts.
 
 Usage:
   python -m darwin_tpu_torch.lab.geom_sweep [--device cuda|cpu]
-      [--config B,T,FMT,IL ...]
+      [--config B,T,FMT,IL ...] [--warps 1,2,4,8]
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import torch
 
 from darwin_tpu_torch.lab import (SCORING, add_device_arg, clock,
                                   resolve_device, time_ms)
-from darwin_tpu_torch.ops.dp import PACKERS, align_tiles, align_tiles_plain
+from darwin_tpu_torch.ops.dp import (PACKERS, WARPS, align_tiles,
+                                     align_tiles_plain, run_kernel)
 
 # (B, T, dir_format, interleave): the production geometry first, then
 # the tile variants the engine's buckets can select, the small-B
@@ -73,10 +77,11 @@ def max_abs_err(got: dict, want: dict) -> int:
 
 
 def run_one(B: int, T: int, fmt: str, il: int, device: torch.device,
-            reps: int = 5) -> dict:
+            reps: int = 5, warps=(WARPS,)) -> dict:
     """One config: kernel vs plain.  Returns dict(max_abs_err, ms,
-    plain_ms); ms is the kernel's mean over reps calls, plain_ms one
-    call of the plain version."""
+    plain_ms, ms_by_warps); ms is the kernel's mean over reps calls
+    through align_tiles, ms_by_warps the same at each number of warps a
+    block on a CUDA device, plain_ms one call of the plain version."""
     ref, query, rlen, qlen = (torch.from_numpy(x).to(device)
                               for x in sweep_inputs(B, T))
     plain_ms, want = time_ms(
@@ -86,17 +91,31 @@ def run_one(B: int, T: int, fmt: str, il: int, device: torch.device,
     ms, got = time_ms(
         lambda: align_tiles(ref, query, rlen, qlen, dir_format=fmt,
                             interleave=il, **SCORING), device, reps=reps)
-    return dict(max_abs_err=max_abs_err(got, want), ms=ms, plain_ms=plain_ms)
+    err = max_abs_err(got, want)
+    by_warps = {}
+    if device.type == "cuda":
+        for w in warps:
+            by_warps[w], out = time_ms(
+                lambda w=w: run_kernel(ref, query, rlen, qlen, fmt=fmt,
+                                       interleave=il, what="geom_sweep",
+                                       warps=w, **SCORING), device, reps)
+            if fmt != "bytes":
+                out["dir_words"] = out.pop("dir")
+            err = max(err, max_abs_err(out, want))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                ms_by_warps=by_warps)
 
 
-def sweep(matrix, device: torch.device) -> list:
+def sweep(matrix, device: torch.device, warps=(WARPS,)) -> list:
     """Run every config; returns [(B, T, fmt, il, result dict)]."""
     rows = []
     for B, T, fmt, il in matrix:
-        r = run_one(B, T, fmt, il, device)
+        r = run_one(B, T, fmt, il, device, warps=warps)
         status = "OK" if r["max_abs_err"] == 0 else "MISMATCH"
+        by = "".join(f", {w} warps {ms:.4f}"
+                     for w, ms in r["ms_by_warps"].items())
         print(f"{status} B={B} T={T} fmt={fmt} il={il}: max_abs_err "
-              f"{r['max_abs_err']}, kernel {r['ms']:.4f} ms, plain "
+              f"{r['max_abs_err']}, kernel {r['ms']:.4f} ms{by}, plain "
               f"{r['plain_ms']:.2f} ms ({clock(device)})", flush=True)
         rows.append((B, T, fmt, il, r))
     return rows
@@ -115,8 +134,13 @@ def main(argv: list[str] | None = None) -> int:
     add_device_arg(p)
     p.add_argument("--config", type=_config, action="append",
                    help="B,T,FMT,IL (repeatable; default: the matrix)")
+    p.add_argument("--warps", default=str(WARPS),
+                   type=lambda v: tuple(int(w) for w in v.split(",")),
+                   help="warps a thread block to time each config at, "
+                        f"comma-separated (default {WARPS})")
     args = p.parse_args(argv)
-    rows = sweep(args.config or DEFAULT_MATRIX, resolve_device(args.device))
+    rows = sweep(args.config or DEFAULT_MATRIX, resolve_device(args.device),
+                 args.warps)
     bad = [r[:4] for r in rows if r[4]["max_abs_err"]]
     print(f"[sweep] {len(rows) - len(bad)}/{len(rows)} configs exact; "
           f"failures: {bad if bad else 'none'}", flush=True)

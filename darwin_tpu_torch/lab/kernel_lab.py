@@ -14,7 +14,8 @@ traceback_words.cu, a step), packed_dp (packed DP only), packed6
 (packed6 DP + walker a step, then the DP alone), p6compact (the packed6
 step at compact_b 0, 64, 128, 256, 512), tbunroll (the packed step at
 unroll 1, 2, 4, 8), ilp (interleave 1, 2, 4 in --format, default
-packed: tools/ilp_probe.py), tbiters (how far the walk runs).  The
+packed: 1, 2 or 4 tiles stepping together in a warp; tools/
+ilp_probe.py), tbiters (how far the walk runs).  The
 walker kernels run each tile on its own thread, so compact_b and unroll
 do not change them; the experiments time the tool's sweep all the same,
 and on the CPU the plain walkers take both.

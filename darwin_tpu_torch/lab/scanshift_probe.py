@@ -1,11 +1,11 @@
-"""Scan-lowering probe: the DP's prefix-max scan, lowered two ways.
+"""Scan-lowering probe: the TPU DP's prefix-max scan, lowered two ways.
 
-The port of tools/scanshift_probe.py.  The tool times the DP kernel's
-in-row shift-max scan on the TPU in two lowerings (concat-shift and
+The port of tools/scanshift_probe.py.  The tool times the TPU DP
+kernel's in-row shift-max scan in two lowerings (concat-shift and
 roll+mask); here csrc/scanshift.cu times it in two GPU lowerings:
 
-  shfl : the DP kernel's own scan (csrc/scan.cuh): warp shuffles and a
-         per-warp carry, two barriers a scan;
+  shfl : warp shuffles and a per-warp carry through shared memory, two
+         barriers a scan;
   smem : a Hillis-Steele scan in shared memory, log2(TJP) barriers.
 
 Each runs STEPS = 16 chained ``u = cummax(u + s)`` scans over every row

@@ -1,12 +1,13 @@
 """The native host library (seed-table keys, D-SOFT, FASTA), built by
-the port from the reference's source.
+the port from its copy of the reference's source.
 
-``darwin_tpu/native/src/dtnative.cpp`` is compiled, read in place, into
-``_build/libdtnative-<key>.so`` at first use.  The reference's own
-build (``darwin_tpu/native/__init__.py``) passes ``-fopenmp``, which a
-g++ without libgomp cannot link; the source threads with
-``std::thread`` and has no OpenMP pragma, so the port builds it with
-``-pthread`` instead and otherwise the same flags.
+``native_src/dtnative.cpp`` (a copy of darwin_tpu/native/src/
+dtnative.cpp, kept out of csrc/ so that the nvcc build never takes it)
+is compiled into ``_build/libdtnative-<key>.so`` at first use.  The
+reference's own build (``darwin_tpu/native/__init__.py``) passes
+``-fopenmp``, which a g++ without libgomp cannot link; the source
+threads with ``std::thread`` and has no OpenMP pragma, so the port
+builds it with ``-pthread`` instead and otherwise the same flags.
 
 The library is compiled with ``-march=native``, so it must not travel
 between hosts.  Its file name carries a key over the compiler and
@@ -16,8 +17,8 @@ new one is built.
 
 When the build fails, ``available()`` is False, the compiler's error is
 printed once to stderr, and callers take their NumPy fallbacks, as the
-reference does.  The ctypes signatures are the reference's
-(``_declare``).
+reference does.  The ctypes signatures (``_declare``) are the
+reference's.
 """
 
 from __future__ import annotations
@@ -34,10 +35,8 @@ from pathlib import Path
 
 import numpy as np
 
-from darwin_tpu.native import _declare
-
 _DIR = Path(__file__).resolve().parent
-SRC = _DIR.parent / "darwin_tpu" / "native" / "src" / "dtnative.cpp"
+SRC = _DIR / "native_src" / "dtnative.cpp"
 BUILD_DIR = _DIR / "_build"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
              "-funroll-loops", "-march=native", "-Wall"]
@@ -98,6 +97,43 @@ def build(path: Path) -> str | None:
             return proc.stderr or f"{_cxx()} exited {proc.returncode}"
         os.replace(tmp, path)
     return None
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """The C signatures of native_src/dtnative.cpp's entry points."""
+    c = ctypes
+    u8p, i64p, u32p, u64p = (c.POINTER(c.c_uint8), c.POINTER(c.c_int64),
+                             c.POINTER(c.c_uint32), c.POINTER(c.c_uint64))
+    lib.dt_version.restype = c.c_int
+    lib.dt_buf_size.argtypes = [c.c_void_p]
+    lib.dt_buf_size.restype = c.c_int64
+    lib.dt_buf_fill.argtypes = [c.c_void_p, u64p]
+    lib.dt_buf_free.argtypes = [c.c_void_p]
+    lib.dt_scan_minimizers.argtypes = [u8p, c.c_int64, c.c_int, c.c_int,
+                                       c.c_int]
+    lib.dt_scan_minimizers.restype = c.c_void_p
+    lib.dt_build_table.argtypes = [u8p, c.c_int64, c.c_int, c.c_int,
+                                   c.c_int]
+    lib.dt_build_table.restype = c.c_void_p
+    lib.dt_dsoft_batch.argtypes = [
+        u32p, u32p, c.c_int64, c.c_int, c.c_int64, c.c_int64, c.c_int64,
+        c.c_int, u8p, i64p, i64p, i64p, c.c_int64, c.c_int64, c.c_int64,
+        c.c_int64, c.c_int]
+    lib.dt_dsoft_batch.restype = c.c_void_p
+    lib.dt_dsoft_total.argtypes = [c.c_void_p]
+    lib.dt_dsoft_total.restype = c.c_int64
+    lib.dt_dsoft_fill.argtypes = [c.c_void_p, i64p, i64p, i64p]
+    lib.dt_dsoft_free.argtypes = [c.c_void_p]
+    lib.dt_fasta_parse.argtypes = [c.c_char_p]
+    lib.dt_fasta_parse.restype = c.c_void_p
+    lib.dt_fasta_ok.argtypes = [c.c_void_p]
+    lib.dt_fasta_ok.restype = c.c_int
+    for name in ("dt_fasta_nrecords", "dt_fasta_seq_total",
+                 "dt_fasta_desc_total"):
+        getattr(lib, name).argtypes = [c.c_void_p]
+        getattr(lib, name).restype = c.c_int64
+    lib.dt_fasta_fill.argtypes = [c.c_void_p, u8p, i64p, u8p, i64p]
+    lib.dt_fasta_free.argtypes = [c.c_void_p]
 
 
 def _load() -> ctypes.CDLL | None:
@@ -221,7 +257,7 @@ def parse_fasta(path) -> list | None:
     finally:
         lib.dt_fasta_free(h)
 
-    from darwin_tpu.io.fasta import FastaRecord, split_fields
+    from darwin_tpu_torch.io.fasta import FastaRecord, split_fields
     seq_bytes = seq_blob.tobytes()
     desc_bytes = desc_blob.tobytes()
     return [FastaRecord(

@@ -8,12 +8,12 @@ padding is not carried over: every direction output is [B, T, T+1].
   bytes) returns ``dir`` uint8; "packed" and "packed6" return
   ``dir_words`` int32 in the layouts of pack_dir_words /
   pack_dir_words6 (ops/pack.py), written fused by the kernel.
-* interleave N in {1, 2, 4} puts N tiles in one thread block, their
-  rows' updates and scans interleaved (the Hopper form of the TPU
-  kernel's N batch streams); the results are bit-identical for every N.
-  B must divide by N.
+* interleave N in {1, 2, 4} puts N tiles in one warp, stepping
+  together with their instructions interleaved (the Hopper form of the
+  TPU kernel's N batch streams); the results are bit-identical for
+  every N.  B must divide by N.
 * align_tiles_pallas's ``block_b`` is not ported: it is a Mosaic block
-  shape, and here a block always holds whole tiles.
+  shape, and here a warp always holds whole tiles.
 
 A CPU tensor runs the plain version, align_tiles_plain
 (reference_dp.align_tiles_torch followed by the packer); a CUDA tensor
@@ -30,11 +30,16 @@ from darwin_tpu_torch import _build
 from darwin_tpu_torch.ops.pack import pack_dir_words, pack_dir_words6
 from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
 
-# One thread per DP column (T + 1 of them) in one block: up to 1024
-# threads with one tile a block, 512 with more (csrc/dp.cu MaxThreads).
+# A warp's 32 lanes each hold C columns of a tile in registers (csrc/
+# dp.cu by_strip): C <= 32 with one tile a warp; with four, C = 16 needs
+# more than the 255 registers a thread may have and spills, so two and
+# four tiles a warp stop at C = 12.
 MAX_TILE = 1023
-MAX_TILE_INTERLEAVED = 511
+MAX_TILE_INTERLEAVED = 384
 INTERLEAVES = (1, 2, 4)
+# Warps a thread block (lab/geom_sweep.py --warps measures 1-8).
+WARPS = 4
+MAX_WARPS = 8  # csrc/dp.cu kMaxWarps
 PACKERS = {"bytes": None, "packed": pack_dir_words,
            "packed6": pack_dir_words6}
 # The C entry's format codes; 3 is the plane-2 variant (ops/plane2.py).
@@ -70,10 +75,15 @@ def align_tiles_plain(ref: torch.Tensor, query: torch.Tensor,
 def run_kernel(ref: torch.Tensor, query: torch.Tensor,
                ref_len: torch.Tensor, query_len: torch.Tensor, *,
                match: int, mismatch: int, gap_open: int, gap_extend: int,
-               fmt: str, interleave: int, what: str) -> dict:
-    """Launch csrc/dp.cu on CUDA tensors (the caller counts the
-    launch).  Returns dict(dir [B, T, T+1] uint8 for "bytes" or int32
-    otherwise, dir2 for "plane2", and the four [B] int32 stats)."""
+               fmt: str, interleave: int, what: str,
+               warps: int = WARPS) -> dict:
+    """Launch csrc/dp.cu on CUDA tensors, `warps` warps a block (the
+    caller counts the launch).  Returns dict(dir [B, T, T+1] uint8 for
+    "bytes" or int32 otherwise, dir2 for "plane2", and the four [B]
+    int32 stats)."""
+    if not 1 <= warps <= MAX_WARPS:
+        raise ValueError(f"{what}: {warps} warps a block, not in "
+                         f"1..{MAX_WARPS}")
     dev = _build.require_cuda(ref, what)
     B, T = ref.shape
     check_geometry(B, T, interleave, what)
@@ -92,7 +102,7 @@ def run_kernel(ref: torch.Tensor, query: torch.Tensor,
     if B:
         _build.launch(
             "dtt_align_tiles", dev, *args, B, T, match, mismatch,
-            gap_open, gap_extend, FORMAT_CODES[fmt], interleave,
+            gap_open, gap_extend, FORMAT_CODES[fmt], interleave, warps,
             out["dir"].data_ptr(),
             out["dir2"].data_ptr() if fmt == "plane2" else None,
             *(out[k].data_ptr() for k in _STATS))

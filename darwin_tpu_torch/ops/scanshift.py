@@ -6,7 +6,7 @@ scans ``u = cummax(u + s)`` for s = 0..STEPS-1.  The TPU probe lowers
 the DP's shift-max scan two ways (concat-shift, roll+mask); the CUDA
 kernel (csrc/scanshift.cu) lowers it two GPU ways:
 
-* scanshift_shfl: the DP kernel's own scan (csrc/scan.cuh): warp
+* scanshift_shfl: a block scan of warp
   shuffles plus a per-warp carry;
 * scanshift_smem: a Hillis-Steele scan in shared memory, log2(C)
   barrier steps.
@@ -51,7 +51,8 @@ def _scan(x: torch.Tensor, steps: int, lowering: str) -> torch.Tensor:
 
 
 def scanshift_shfl(x: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
-    """Lowering (a): the DP kernel's warp-shuffle scan."""
+    """Lowering (a): a block scan of warp shuffles and a per-warp
+    carry."""
     if x.device.type == "cpu":
         return scanshift_torch(x, steps)
     out = _scan(x, steps, "shfl")

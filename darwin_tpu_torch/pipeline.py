@@ -8,9 +8,9 @@ complement flag as per-call data.  The host-stepped engine (run_host)
 mirrors the reference's per-direction flow: D-SOFT and run_gact_batch
 per strand, the tiles aligned on the device each iteration.  The host
 stages (FASTA, seed table, D-SOFT) run the port's own build of the
-native library (darwin_tpu_torch.native) and fall back to darwin_tpu's
-NumPy code without it; the genome layout, the NumPy D-SOFT and record
-formatting are darwin_tpu's jax-free host modules, shared as they are.
+native library (darwin_tpu_torch.native) and fall back to NumPy without
+it (io/fasta.py, index/seed_table.py, dsoft/filter.py: the port's copies
+of darwin_tpu's host modules).
 """
 
 from __future__ import annotations
@@ -21,20 +21,19 @@ import time
 import numpy as np
 import torch
 
-from darwin_tpu.coding import ref_minimizers, seq_to_bytes
-from darwin_tpu.config import Params
-from darwin_tpu.dsoft import dsoft
-from darwin_tpu.golden.gact import format_record
-from darwin_tpu.index.genome import Genome
-from darwin_tpu.index.seed_table import SeedTable
-from darwin_tpu.io import fasta
-from darwin_tpu.io.fasta import FastaRecord, revcomp
 from darwin_tpu_torch import native
+from darwin_tpu_torch.coding import seq_to_bytes
+from darwin_tpu_torch.config import Params
+from darwin_tpu_torch.dsoft import dsoft
 from darwin_tpu_torch.engine.aligner import TorchTileAligner
-from darwin_tpu_torch.engine.batch import GactCalls, run_gact_batch
+from darwin_tpu_torch.engine.batch import (GactCalls, format_record,
+                                           run_gact_batch)
 from darwin_tpu_torch.engine.device_batch import DeviceGactEngine
 from darwin_tpu_torch.engine.scoring import ScoreParams
 from darwin_tpu_torch.engine.seqbank import SeqBank
+from darwin_tpu_torch.index.genome import Genome
+from darwin_tpu_torch.index.seed_table import SeedTable
+from darwin_tpu_torch.io.fasta import FastaRecord, revcomp
 
 
 @dataclasses.dataclass
@@ -42,45 +41,6 @@ class PipelineResult:
     records: list[str]
     num_candidates_for: int
     num_candidates_rev: int
-
-
-def read_fasta(path) -> list[FastaRecord]:
-    """FASTA records through the native loader, or darwin_tpu's pure
-    parser without it (or when the native loader rejects the file, so
-    that errors come from the reference-parity parser)."""
-    records = native.parse_fasta(path)
-    if records is None:
-        records = fasta.parse_fasta(path, native=False)
-    return records
-
-
-def build_seed_table(ref_seq: str | np.ndarray, kmer_size: int,
-                     seed_occurence_multiple: int, bin_size: int,
-                     window_size: int) -> SeedTable:
-    """darwin_tpu's SeedTable.build (seed_table.py:42-72) with the
-    port's native library: sorted (hash << 32) | pos minimizer keys,
-    native or NumPy, minus the keys at padding positions >= ref_size."""
-    if not 3 < kmer_size <= 15:
-        raise ValueError(f"seed size {kmer_size}: need 3 < k <= 15")
-    if not kmer_size > window_size:
-        raise ValueError(f"seed size {kmer_size} <= window {window_size}")
-    ref_size = len(ref_seq)
-    kmer_max_occurence = seed_occurence_multiple * (
-        1 + (ref_size >> (2 * kmer_size)))
-    if native.available():
-        b = seq_to_bytes(ref_seq) if isinstance(ref_seq, str) else ref_seq
-        keys = native.build_table_keys(b, kmer_size, window_size)
-    else:
-        keys = np.sort(ref_minimizers(ref_seq, kmer_size, window_size))
-    # For k + w < 16 the reference's scan range reaches past the end of
-    # the reference; SeedTable.build drops those positions, and so does
-    # this.
-    keys = keys[(keys & np.uint64(0xFFFFFFFF)) < ref_size]
-    return SeedTable(
-        (keys >> np.uint64(32)).astype(np.uint32),
-        (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32),
-        kmer_size=kmer_size, window_size=window_size, bin_size=bin_size,
-        ref_size=ref_size, kmer_max_occurence=kmer_max_occurence)
 
 
 def _no_calls() -> GactCalls:
@@ -94,8 +54,8 @@ def collect_calls(table: SeedTable, genome: Genome, queries: SeqBank,
     """Run D-SOFT for every query and decode hits to GACT anchors.
 
     Uses the port's multithreaded native D-SOFT when the library is
-    built; falls back to the vectorized NumPy D-SOFT per read (as
-    darwin_tpu.pipeline.collect_calls does).
+    built; falls back to the vectorized NumPy D-SOFT per read
+    (dsoft/filter.py, as darwin_tpu.pipeline.collect_calls does).
     """
     ids = range(len(queries.lengths)) if read_ids is None else read_ids
     if native.available():
@@ -270,9 +230,9 @@ def run_pipeline(ref_records: list[FastaRecord],
         raise ValueError(f"engine {engine!r}: device or host")
     genome = Genome(ref_records, params.bin_size)
     if table is None:
-        table = build_seed_table(genome.concat, params.seed_size,
-                                 params.seed_occurence_multiple,
-                                 params.bin_size, params.window_size)
+        table = SeedTable.build(genome.concat, params.seed_size,
+                                params.seed_occurence_multiple,
+                                params.bin_size, params.window_size)
     fwd_bank, rev_bank = read_banks(read_records)
     kw = dict(same_file=same_file, batch_size=batch_size,
               compute_score=compute_score, metrics=metrics)

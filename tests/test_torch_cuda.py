@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from darwin_tpu.config import Params
+from darwin_tpu_torch.config import Params
 from darwin_tpu_torch.engine.device_batch import DeviceGactEngine
 from darwin_tpu_torch.ops import (dp, plane2, scanshift, swscore, tile_fetch,
                                   traceback)
@@ -24,7 +24,10 @@ from darwin_tpu_torch.ops.common import PAD_QUERY, PAD_REF
 from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
 from darwin_tpu_torch.ops.tile_fetch import fetch_tiles_torch
 from darwin_tpu_torch.ops.traceback import traceback_torch
-from darwin_tpu_torch.pipeline import read_fasta, run_pipeline
+from darwin_tpu_torch.index.genome import Genome
+from darwin_tpu_torch.index.seed_table import SeedTable
+from darwin_tpu_torch.io.fasta import parse_fasta
+from darwin_tpu_torch.pipeline import run_pipeline
 
 pytestmark = pytest.mark.cuda
 TINY = Path(__file__).resolve().parent / "data" / "tiny"
@@ -104,6 +107,80 @@ def test_dp_word_formats_and_interleave_match_plain(cuda, T):
                 for key in want:
                     assert torch.equal(got[key], want[key]), (sc, fmt, il,
                                                               key)
+
+
+def _edge_tiles(seed, B, T, device):
+    """[B, T] tiles with the DP's edge cases in lanes 0-7: idle, empty
+    ref, empty query, all-mismatch full tile, all-mismatch rlen < T and
+    qlen < T, identical full tile, a one-column and a one-row tile; the
+    rest related ACGT (15% substitutions) of random lengths in 1..T."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ref = acgt[rng.integers(0, 4, size=(B, T))]
+    query = ref.copy()
+    mut = rng.random((B, T)) < 0.15
+    query[mut] = acgt[rng.integers(0, 4, size=int(mut.sum()))]
+    ref[3:5], query[3:5] = ord("A"), ord("C")
+    query[5] = ref[5]
+    rlen = rng.integers(1, T + 1, size=B).astype(np.int32)
+    qlen = rng.integers(1, T + 1, size=B).astype(np.int32)
+    half = max(1, T // 2)
+    rlen[:8] = [0, 0, T, T, half, T, T, 1]
+    qlen[:8] = [0, T, 0, T, max(1, T - half), T, 1, T]
+    k = np.arange(T)[None, :]
+    ref[k >= rlen[:, None]] = PAD_REF
+    query[k >= qlen[:, None]] = PAD_QUERY
+    return [torch.from_numpy(x).to(device) for x in (ref, query, rlen, qlen)]
+
+
+@pytest.mark.parametrize("T", [1, 24, 31, 32, 33, 64, 320, 376, 504,
+                               dp.MAX_TILE])
+def test_dp_kernel_edge_geometries_match_plain(cuda, T):
+    """The warp-wavefront DP in every format and interleave, and plane
+    2, bit-exact against the plain version under three scorings, at the
+    strip widths' edges (T = 31, 32, 33, 64, 320, ...) and the largest
+    tiles allowed, on edge-case tiles, B = 36 (not a multiple of 32).
+    An all-mismatch tile's max cell is (rlen, qlen) at score 0."""
+    B = 36
+    ref, query, rlen, qlen = _edge_tiles(T, B, T, cuda)
+    ils = [il for il in dp.INTERLEAVES
+           if il == 1 or T <= dp.MAX_TILE_INTERLEAVED]
+    for sc in SCORINGS[:3]:
+        kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"), sc))
+        plain = align_tiles_torch(ref, query, rlen, qlen, **kw)
+        for lane in (3, 4):
+            assert int(plain["max_score"][lane]) == 0
+            assert (int(plain["max_i"][lane]), int(plain["max_j"][lane])) \
+                == (int(rlen[lane]), int(qlen[lane]))
+        for fmt, packer in dp.PACKERS.items():
+            want = dict(plain)
+            if packer is not None:
+                want["dir_words"] = packer(want.pop("dir"))
+            for il in ils:
+                got = dp.align_tiles(ref, query, rlen, qlen, dir_format=fmt,
+                                     interleave=il, **kw)
+                for key in want:
+                    assert torch.equal(got[key], want[key]), (sc, fmt, il,
+                                                              key)
+        got = plane2.plane2(ref, query, rlen, qlen, **kw)
+        want = plane2.plane2_torch(ref, query, rlen, qlen, **kw)
+        for key in want:
+            assert torch.equal(got[key], want[key]), (sc, "plane2", key)
+
+
+@pytest.mark.parametrize("warps", [1, 2, 3, 8])
+def test_dp_kernel_warps_a_block_give_the_same_result(cuda, warps):
+    """Any number of warps a block, including one that leaves the last
+    block part-empty, gives the default launch's outputs."""
+    ref, query, rlen, qlen = _edge_tiles(warps, 100, 320, cuda)
+    kw = dict(match=1, mismatch=-1, gap_open=-1, gap_extend=-1)
+    for fmt, il in (("bytes", 1), ("packed6", 2), ("plane2", 1)):
+        want = dp.run_kernel(ref, query, rlen, qlen, fmt=fmt, interleave=il,
+                             what="test", **kw)
+        got = dp.run_kernel(ref, query, rlen, qlen, fmt=fmt, interleave=il,
+                            what="test", warps=warps, **kw)
+        for key in want:
+            assert torch.equal(got[key], want[key]), (fmt, il, key)
 
 
 @pytest.mark.parametrize("T,et", [(64, 40), (320, 200), (376, 256)])
@@ -243,7 +320,7 @@ def test_pipeline_on_card_matches_reference_with_one_sync_per_iteration(
     the engine loop waits for the device once per iteration (its
     termination check), plus its set-up copies and the final download."""
     params = Params.from_cfg(TINY / "params.cfg")
-    reads = read_fasta(TINY / "reads.fasta")
+    reads = parse_fasta(TINY / "reads.fasta")
     res = run_pipeline(reads, reads, params, True, batch_size=4,
                        device=cuda)
     assert set(res.records) == set((TINY / "out.darwin").read_text()
@@ -253,16 +330,14 @@ def test_pipeline_on_card_matches_reference_with_one_sync_per_iteration(
     assert set(res.records) == set((TINY / "out.darwin").read_text()
                                    .splitlines())
 
-    from darwin_tpu.index.genome import Genome
     from darwin_tpu_torch.engine.batch import GactCalls
     from darwin_tpu_torch.engine.seqbank import SeqBank
-    from darwin_tpu_torch.pipeline import (build_seed_table, collect_calls,
-                                           read_banks)
+    from darwin_tpu_torch.pipeline import collect_calls, read_banks
 
     genome = Genome(reads, params.bin_size)
-    table = build_seed_table(genome.concat, params.seed_size,
-                             params.seed_occurence_multiple,
-                             params.bin_size, params.window_size)
+    table = SeedTable.build(genome.concat, params.seed_size,
+                            params.seed_occurence_multiple,
+                            params.bin_size, params.window_size)
     merged = SeqBank.concat(*read_banks(reads))
     calls = collect_calls(table, genome, merged, params)
     eng = DeviceGactEngine(
@@ -294,17 +369,15 @@ def test_pipeline_on_card_matches_reference_with_one_sync_per_iteration(
 def test_engine_word_formats_on_card(cuda):
     """The device engine in each tb_format on tiny: the records of the
     byte walker, in the same order, each walker launched."""
-    from darwin_tpu.index.genome import Genome
     from darwin_tpu_torch.engine.seqbank import SeqBank
-    from darwin_tpu_torch.pipeline import (build_seed_table, collect_calls,
-                                           read_banks)
+    from darwin_tpu_torch.pipeline import collect_calls, read_banks
 
     params = Params.from_cfg(TINY / "params.cfg")
-    reads = read_fasta(TINY / "reads.fasta")
+    reads = parse_fasta(TINY / "reads.fasta")
     genome = Genome(reads, params.bin_size)
-    table = build_seed_table(genome.concat, params.seed_size,
-                             params.seed_occurence_multiple,
-                             params.bin_size, params.window_size)
+    table = SeedTable.build(genome.concat, params.seed_size,
+                            params.seed_occurence_multiple,
+                            params.bin_size, params.window_size)
     merged = SeqBank.concat(*read_banks(reads))
     calls = collect_calls(table, genome, merged, params)
     recs = {}

@@ -162,3 +162,34 @@ def test_align_tiles_rejects_bad_geometry():
                 dict(dir_format="words")):
         with pytest.raises(ValueError):
             dp.align_tiles(*args, **bad, **kw)
+
+
+@pytest.mark.parametrize("B,T,interleave,ok", [
+    (4, 1, 1, True), (4, 504, 1, True), (4, dp.MAX_TILE, 1, True),
+    (4, dp.MAX_TILE + 1, 1, False), (4, 376, 2, True), (4, 376, 4, True),
+    (4, dp.MAX_TILE_INTERLEAVED, 4, True),
+    (4, dp.MAX_TILE_INTERLEAVED + 1, 2, False), (4, 0, 1, False),
+    (6, 24, 4, False)])
+def test_check_geometry_limits(B, T, interleave, ok):
+    """The warp-wavefront kernel's limits: one tile a warp up to T =
+    1023 (32 columns a lane), two or four tiles a warp up to T = 384 (12
+    columns a lane: four tiles at 16 spill registers), never below the
+    configs' 504 and the lab's 376; B divides by the interleave."""
+    assert dp.MAX_TILE == 1023 and dp.MAX_TILE_INTERLEAVED == 384
+    if ok:
+        dp.check_geometry(B, T, interleave, "test")
+    else:
+        with pytest.raises(ValueError):
+            dp.check_geometry(B, T, interleave, "test")
+
+
+def test_run_kernel_checks_warps_before_the_device():
+    args = [torch.zeros((4, 8), dtype=torch.uint8)] * 2 + [
+        torch.zeros(4, dtype=torch.int32)] * 2
+    kw = dict(match=1, mismatch=-1, gap_open=-1, gap_extend=-1, fmt="bytes",
+              interleave=1, what="test")
+    for w in (0, dp.MAX_WARPS + 1):
+        with pytest.raises(ValueError, match="warps"):
+            dp.run_kernel(*args, warps=w, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        dp.run_kernel(*args, warps=dp.MAX_WARPS, **kw)

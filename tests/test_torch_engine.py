@@ -14,18 +14,18 @@ import numpy as np
 import pytest
 import torch
 
-from darwin_tpu.coding import seq_to_bytes
-from darwin_tpu.config import Params
 from darwin_tpu.engine import device_batch as jdb
 from darwin_tpu.engine.seqbank import SeqBank as JaxSeqBank
-from darwin_tpu.index.genome import Genome
-from darwin_tpu.index.seed_table import SeedTable
-from darwin_tpu.io.fasta import parse_fasta, revcomp
 from darwin_tpu.ops.reference_dp import align_tiles_jax
 from darwin_tpu.ops.traceback import pack_dir_words6, traceback_packed6_jax
+from darwin_tpu_torch.coding import seq_to_bytes
+from darwin_tpu_torch.config import Params
 from darwin_tpu_torch.engine.batch import GactCalls
 from darwin_tpu_torch.engine.device_batch import DeviceGactEngine, _score_ops
 from darwin_tpu_torch.engine.seqbank import SeqBank
+from darwin_tpu_torch.index.genome import Genome
+from darwin_tpu_torch.index.seed_table import SeedTable
+from darwin_tpu_torch.io.fasta import parse_fasta, revcomp
 from darwin_tpu_torch.pipeline import collect_calls, run_pipeline
 from tests._torch_threads import one_torch_thread  # noqa: F401
 from tests.test_dp import make_batch

@@ -15,21 +15,22 @@
 import numpy as np
 import pytest
 
-from darwin_tpu.config import Params
 from darwin_tpu.engine import scoring as jax_scoring
 from darwin_tpu.engine.aligner import JaxTileAligner
 from darwin_tpu.engine.batch import GactCalls as JaxCalls
 from darwin_tpu.engine.batch import run_gact_batch as jax_run_gact_batch
 from darwin_tpu.engine.seqbank import SeqBank as JaxSeqBank
-from darwin_tpu.index.genome import Genome
-from darwin_tpu.io.fasta import FastaRecord, parse_fasta, revcomp
 from darwin_tpu.ops.reference_dp import align_tiles_jax
 from darwin_tpu.ops.traceback import pack_dir_words6, traceback_packed6_jax
+from darwin_tpu_torch.config import Params
 from darwin_tpu_torch.engine import scoring
 from darwin_tpu_torch.engine.aligner import TorchTileAligner
 from darwin_tpu_torch.engine.batch import run_gact_batch
-from darwin_tpu_torch.pipeline import (build_seed_table, collect_calls,
-                                       make_aligner, read_banks, run_pipeline)
+from darwin_tpu_torch.index.genome import Genome
+from darwin_tpu_torch.index.seed_table import SeedTable
+from darwin_tpu_torch.io.fasta import FastaRecord, parse_fasta, revcomp
+from darwin_tpu_torch.pipeline import (collect_calls, make_aligner,
+                                       read_banks, run_pipeline)
 from tests._torch_threads import one_torch_thread  # noqa: F401
 from tests.test_dp import make_batch
 
@@ -95,9 +96,9 @@ def tiny(data_dir):
     params = Params.from_cfg(d / "params.cfg")
     reads = parse_fasta(d / "reads.fasta")
     genome = Genome(reads, params.bin_size)
-    table = build_seed_table(genome.concat, params.seed_size,
-                             params.seed_occurence_multiple,
-                             params.bin_size, params.window_size)
+    table = SeedTable.build(genome.concat, params.seed_size,
+                            params.seed_occurence_multiple,
+                            params.bin_size, params.window_size)
     return d, params, reads, genome, table
 
 

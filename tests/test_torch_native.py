@@ -1,12 +1,12 @@
 """The port's own build of the native host library, against darwin_tpu.
 
-darwin_tpu_torch.native compiles darwin_tpu/native/src/dtnative.cpp
-into darwin_tpu_torch/_build/ under a name keyed on the flags, the
-source and the host CPU.  Its entry points must equal darwin_tpu.native
-and the NumPy fallbacks on tests/data/tiny, and the pipeline's host
-stages (FASTA, seed table, D-SOFT) must give the same result with the
-library and without it.  Every output is an integer or a string: the
-comparisons are exact.
+darwin_tpu_torch.native compiles its copy of darwin_tpu/native/src/
+dtnative.cpp (darwin_tpu_torch/native_src/) into darwin_tpu_torch/
+_build/ under a name keyed on the flags, the source and the host CPU.
+Its entry points must equal darwin_tpu.native and the NumPy fallbacks on
+tests/data/tiny, and the port's host stages (FASTA, seed table, D-SOFT)
+must give the same result with the library and without it.  Every output
+is an integer or a string: the comparisons are exact.
 """
 
 import json
@@ -15,14 +15,15 @@ import numpy as np
 import pytest
 
 from darwin_tpu import native as jax_native
-from darwin_tpu.coding import ref_minimizers, seq_to_bytes
-from darwin_tpu.config import Params
-from darwin_tpu.dsoft import dsoft
-from darwin_tpu.index.genome import Genome
-from darwin_tpu.index.seed_table import SeedTable
-from darwin_tpu.io.fasta import parse_fasta
+from darwin_tpu.index.seed_table import SeedTable as JaxSeedTable
 from darwin_tpu_torch import cli, native, pipeline
+from darwin_tpu_torch.coding import ref_minimizers, seq_to_bytes
+from darwin_tpu_torch.config import Params
+from darwin_tpu_torch.dsoft import dsoft
 from darwin_tpu_torch.engine.seqbank import SeqBank
+from darwin_tpu_torch.index.genome import Genome
+from darwin_tpu_torch.index.seed_table import SeedTable
+from darwin_tpu_torch.io.fasta import parse_fasta
 from tests._torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -39,6 +40,9 @@ def test_port_library_builds_and_loads():
     assert native.available()
     path = native.library_path()
     assert path.exists() and path.parent == native.BUILD_DIR
+    assert native.SRC.read_bytes() == (
+        native.SRC.parents[2] / "darwin_tpu" / "native" / "src"
+        / "dtnative.cpp").read_bytes()
     assert "-fopenmp" not in native.CXX_FLAGS
     assert "-pthread" in native.CXX_FLAGS
 
@@ -79,15 +83,14 @@ def test_build_table_keys_matches_fallback_and_reference(tiny):
 
 @pytest.mark.parametrize("with_native", [True, False])
 def test_seed_table_matches_reference_build(tiny, monkeypatch, with_native):
-    """Both paths of build_seed_table equal SeedTable.build, including
-    the drop of padding positions when k + w < 16."""
+    """Both paths of the port's SeedTable.build equal darwin_tpu's,
+    including the drop of padding positions when k + w < 16."""
     _, params, _, genome = tiny
     if not with_native:
         monkeypatch.setattr(native, "available", lambda: False)
     for k, w in [(params.seed_size, params.window_size), (5, 2)]:
-        got = pipeline.build_seed_table(genome.concat, k, 32,
-                                        params.bin_size, w)
-        want = SeedTable.build(genome.concat, k, 32, params.bin_size, w)
+        got = SeedTable.build(genome.concat, k, 32, params.bin_size, w)
+        want = JaxSeedTable.build(genome.concat, k, 32, params.bin_size, w)
         np.testing.assert_array_equal(got.hashes, want.hashes)
         np.testing.assert_array_equal(got.pos, want.pos)
         assert (got.k, got.w, got.bin_size, got.ref_size,
@@ -126,9 +129,9 @@ def test_dsoft_batch_matches_fallback_and_reference(tiny):
 
 def test_collect_calls_same_with_and_without_library(tiny, monkeypatch):
     _, params, reads, genome = tiny
-    table = pipeline.build_seed_table(genome.concat, params.seed_size,
-                                      params.seed_occurence_multiple,
-                                      params.bin_size, params.window_size)
+    table = SeedTable.build(genome.concat, params.seed_size,
+                            params.seed_occurence_multiple,
+                            params.bin_size, params.window_size)
     bank = SeqBank.concat(*pipeline.read_banks(reads))
     nat = pipeline.collect_calls(table, genome, bank, params)
     monkeypatch.setattr(native, "available", lambda: False)
@@ -148,7 +151,7 @@ def test_parse_fasta_matches_pure_and_reference(tiny, tmp_path):
     bad.write_text("ACGT\n>r1\nAC\n")
     assert native.parse_fasta(bad) is None
     with pytest.raises(ValueError):
-        pipeline.read_fasta(bad)  # the pure parser's error
+        parse_fasta(bad)  # the pure parser's error
 
 
 @pytest.mark.parametrize("with_native", [True, False])

@@ -9,11 +9,11 @@ query span back to the read's strand), a record with no op-stream tally
 import numpy as np
 
 from darwin_tpu.engine.batch import OverlapRecord as JaxRecord
-from darwin_tpu.index.genome import Genome
 from darwin_tpu.io import paf as jax_paf
-from darwin_tpu.io.fasta import FastaRecord
 from darwin_tpu_torch.engine.batch import OverlapRecord
+from darwin_tpu_torch.index.genome import Genome
 from darwin_tpu_torch.io import paf
+from darwin_tpu_torch.io.fasta import FastaRecord
 
 
 def _records():

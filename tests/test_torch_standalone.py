@@ -1,0 +1,204 @@
+"""darwin_tpu_torch stands alone: it imports nothing of darwin_tpu and
+never jax, and its copies of darwin_tpu's host modules (config, coding,
+io.fasta, index, dsoft, format_record, eval helpers and datagen) give
+darwin_tpu's results on every fixture.  Every output is an integer, a
+string or a byte: the comparisons are exact."""
+
+import ast
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from darwin_tpu import config as jax_config
+from darwin_tpu import utils as jax_utils
+from darwin_tpu.coding import ntcoding as jax_coding
+from darwin_tpu.dsoft import filter as jax_filter
+from darwin_tpu.eval import datagen as jax_datagen
+from darwin_tpu.eval import score_eval as jax_score_eval
+from darwin_tpu.golden.gact import format_record as jax_format_record
+from darwin_tpu.index.genome import Genome as JaxGenome
+from darwin_tpu.index.seed_table import SeedTable as JaxSeedTable
+from darwin_tpu.io import fasta as jax_fasta
+from darwin_tpu_torch import coding, config, native, utils
+from darwin_tpu_torch.dsoft import filter as dsoft_filter
+from darwin_tpu_torch.engine.batch import format_record
+from darwin_tpu_torch.eval import datagen, score_eval
+from darwin_tpu_torch.index.genome import Genome
+from darwin_tpu_torch.index.seed_table import SeedTable
+from darwin_tpu_torch.io import fasta
+
+REPO = Path(__file__).resolve().parent.parent
+DATA = REPO / "tests" / "data"
+FIXTURES = sorted(p.parent.name for p in DATA.glob("*/params.cfg"))
+
+
+def _fixture(name):
+    """(port Params, jax Params, port read records, jax read records)."""
+    d = DATA / name
+    return (config.Params.from_cfg(d / "params.cfg"),
+            jax_config.Params.from_cfg(d / "params.cfg"),
+            fasta.parse_fasta(d / "reads.fasta", native=False),
+            jax_fasta.parse_fasta(d / "reads.fasta", native=False))
+
+
+def _imports_darwin_tpu(path: Path) -> list[str]:
+    """The darwin_tpu modules a source file imports."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                 else [])
+        bad += [n for n in names
+                if n == "darwin_tpu" or n.startswith("darwin_tpu.")]
+    return bad
+
+
+def test_no_source_of_the_port_imports_darwin_tpu():
+    files = [*sorted((REPO / "darwin_tpu_torch").rglob("*.py")),
+             REPO / "chip_smoke.py", REPO / "tools" / "torch_profile_ecoli.py"]
+    bad = {str(f.relative_to(REPO)): _imports_darwin_tpu(f) for f in files}
+    assert not {f: m for f, m in bad.items() if m}
+
+
+def test_importing_the_port_loads_no_jax_and_no_darwin_tpu():
+    """A fresh interpreter imports every module of darwin_tpu_torch,
+    chip_smoke and tools/torch_profile_ecoli; none of them loads jax or
+    a darwin_tpu module (the modules loaded before the imports, by the
+    interpreter's own start-up, are not counted)."""
+    code = """
+import importlib, importlib.util, pkgutil, sys
+before = set(sys.modules)
+sys.path.insert(0, sys.argv[1])
+import darwin_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(darwin_tpu_torch.__path__,
+                                               "darwin_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+spec = importlib.util.spec_from_file_location(
+    "torch_profile_ecoli", sys.argv[1] + "/tools/torch_profile_ecoli.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+new = set(sys.modules) - before
+bad = sorted(m for m in new if m.split(".")[0] in ("jax", "darwin_tpu"))
+print(len(names), bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code, str(REPO)], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    n, bad = out.stdout.split(" ", 1)
+    assert int(n) >= 30 and bad.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_params_from_cfg_field_for_field(name):
+    got, want, *_ = _fixture(name)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.early_terminate == want.early_terminate
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_parse_fasta_native_and_pure_equal_jax(name):
+    for f in sorted((DATA / name).glob("*.fasta")):
+        want = [(r.fields, r.seq) for r in jax_fasta.parse_fasta(
+            f, native=False)]
+        assert [(r.fields, r.seq) for r in fasta.parse_fasta(f)] == want
+        assert [(r.fields, r.seq)
+                for r in fasta.parse_fasta(f, native=False)] == want
+        assert [(r.fields, r.seq) for r in fasta.iter_fasta(f)] == want
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_minimizers_and_bytes_equal_jax(name):
+    params, _, reads, _ = _fixture(name)
+    k, w = params.seed_size, params.window_size
+    for r in reads[:8]:
+        b = coding.seq_to_bytes(r.seq)
+        np.testing.assert_array_equal(b, jax_coding.seq_to_bytes(r.seq))
+        np.testing.assert_array_equal(coding.ref_minimizers(r.seq, k, w),
+                                      jax_coding.ref_minimizers(r.seq, k, w))
+        for got, want in zip(coding.query_minimizers(b, k, w),
+                             jax_coding.query_minimizers(b, k, w)):
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_genome_and_seed_table_equal_jax(name, monkeypatch):
+    """The genome layout, and the seed table both with the port's native
+    library and with its NumPy fallback."""
+    params, jparams, reads, jreads = _fixture(name)
+    g, jg = Genome(reads, params.bin_size), JaxGenome(jreads, jparams.bin_size)
+    for f in ("concat", "piece_lengths", "chr_id_to_start_bin",
+              "bin_to_chr_id"):
+        np.testing.assert_array_equal(getattr(g, f), getattr(jg, f), f)
+    assert g.names == jg.names and g.total_length == jg.total_length
+    hits = np.arange(0, g.total_length, 97)
+    for a, b in zip(g.decode_hits(hits), jg.decode_hits(hits)):
+        np.testing.assert_array_equal(a, b)
+    args = (g.concat, params.seed_size, params.seed_occurence_multiple,
+            params.bin_size, params.window_size)
+    want = JaxSeedTable.build(*args)
+    for with_native in (True, False):
+        if not with_native:
+            monkeypatch.setattr(native, "available", lambda: False)
+        got = SeedTable.build(*args)
+        np.testing.assert_array_equal(got.hashes, want.hashes)
+        np.testing.assert_array_equal(got.pos, want.pos)
+        assert vars(got).keys() == vars(want).keys()
+        assert all(vars(got)[k] == vars(want)[k] for k in
+                   ("k", "w", "bin_size", "ref_size", "kmer_max_occurence"))
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_host_dsoft_equals_jax(name):
+    params, _, reads, _ = _fixture(name)
+    table = SeedTable.build(Genome(reads, params.bin_size).concat,
+                            params.seed_size, params.seed_occurence_multiple,
+                            params.bin_size, params.window_size)
+    n = 0
+    for r in reads[:16]:
+        b = coding.seq_to_bytes(r.seq)
+        got = dsoft_filter.dsoft(table, b, params.num_seeds,
+                                 params.threshold, params.max_candidates)
+        want = jax_filter.dsoft(table, b, params.num_seeds, params.threshold,
+                                params.max_candidates)
+        for a, w in zip(got, want):
+            np.testing.assert_array_equal(a, w)
+        n += len(got[0])
+    assert n > 0
+
+
+def test_format_record_and_bucket_steps_equal_jax():
+    for args in [("chr1", "r7", 0, 120, 5, 130, 97, True),
+                 ("a_b", "R1_2_3_c", 10 ** 6, 10 ** 6 + 5, 0, 4, -3, False)]:
+        assert format_record(*args) == jax_format_record(*args)
+    for n in (0, 1, 63, 64, 65, 95, 96, 97, 129, 1000, 4097):
+        assert utils.bucket_steps(n) == jax_utils.bucket_steps(n)
+        assert utils.bucket_steps(n, 16) == jax_utils.bucket_steps(n, 16)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 42])
+def test_datagen_byte_equal_jax(seed):
+    g = datagen.synth_genome(20_000, np.random.default_rng(seed))
+    assert g == jax_datagen.synth_genome(20_000, np.random.default_rng(seed))
+    kw = dict(error_rate=0.12, rc_fraction=0.5)
+    assert datagen.sample_reads(g, 12, 1500, np.random.default_rng(seed),
+                                **kw) == jax_datagen.sample_reads(
+        g, 12, 1500, np.random.default_rng(seed), **kw)
+    assert datagen.sample_reads(
+        g, 6, 900, np.random.default_rng(seed), read_len_range=(500, 1500),
+        **kw) == jax_datagen.sample_reads(
+        g, 6, 900, np.random.default_rng(seed), read_len_range=(500, 1500),
+        **kw)
+    a, b = datagen.two_readsets(g, 5, 2000, np.random.default_rng(seed),
+                                **kw)
+    ja, jb = jax_datagen.two_readsets(g, 5, 2000, np.random.default_rng(seed),
+                                      **kw)
+    assert (a, b) == (ja, jb)
+    names = [n for n, _ in a]
+    assert score_eval.theoretical_pairs(names, [n for n, _ in b], 300) == \
+        jax_score_eval.theoretical_pairs(names, [n for n, _ in b], 300)
+    assert score_eval._ints(names[0]) == jax_score_eval._ints(names[0])

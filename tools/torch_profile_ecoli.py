@@ -24,16 +24,17 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-import darwin_tpu  # noqa: F401,E402  (THP madvise guard)
+import darwin_tpu_torch  # noqa: F401,E402  (THP madvise guard)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from darwin_tpu.config import Params  # noqa: E402
-from darwin_tpu.eval.datagen import sample_reads, synth_genome  # noqa: E402
-from darwin_tpu.index.genome import Genome  # noqa: E402
-from darwin_tpu.index.seed_table import SeedTable  # noqa: E402
-from darwin_tpu.io.fasta import FastaRecord  # noqa: E402
+from darwin_tpu_torch.config import Params  # noqa: E402
+from darwin_tpu_torch.eval.datagen import (sample_reads,  # noqa: E402
+                                           synth_genome)
+from darwin_tpu_torch.index.genome import Genome  # noqa: E402
+from darwin_tpu_torch.index.seed_table import SeedTable  # noqa: E402
+from darwin_tpu_torch.io.fasta import FastaRecord  # noqa: E402
 from darwin_tpu_torch.pipeline import (make_merged_engine,  # noqa: E402
                                        read_banks, run_device_merged)
 
