@@ -10,14 +10,18 @@ Phases; any failure ends the run with a nonzero exit code:
    darwin_tpu_torch/csrc (nvcc, sm_90a) and the build time printed;
 2. kernels: each CUDA kernel of the main paths against its plain
    PyTorch version on the card, bit-exact (every output is an integer):
-   the DP, the three walkers (dir bytes, packed and packed6 words) and
-   the span fetch at B = 512 and T = 320, 64, 376 under three scoring
-   sets, the score-only SW at B = 64 on 200-3000 base pairs; with
+   the DP, the three walkers (dir bytes, packed and packed6 words) at
+   B = 512 and T = 320, 64, 376 under three scoring sets, the byte
+   walker also on walk_cases' adversarial tiles, the span fetch as a
+   pair (fetch_tile_pair, the engine's form) and as one set on two
+   banks, the score-only SW at B = 64 on 200-3000 base pairs; with
    kernel and plain times (CUDA events, median) at B = 512, T = 320,
    ET = 200, and for SW at B = 64 on 3 kb pairs, each beside its bound
    (bytes over the HBM rate or int32 operations over the int32 rate,
    from this run's inputs) and, for the span fetch, the time of one
-   advanced-index gather of the bank (never taken on the path);
+   advanced-index gather of the banks (never taken on the path); the
+   main path's kernels and the gathers also as device time (device_ms:
+   a CUDA graph of 50 launches, replayed, over 50);
 3. fixtures: darwin_tpu_torch.pipeline.run_pipeline on every
    tests/data fixture that has an out.darwin (the reference binary's
    output), under the device engine and under the host-stepped engine;
@@ -32,15 +36,17 @@ Phases; any failure ends the run with a nonzero exit code:
    CLI with --engine host --paf-out.  Every run's merged records must
    equal tests/data/ecoli_shape/jax_cpu.darwin (darwin_tpu's own output
    on a CPU), the host stages must have run the port's native library
-   (host_native), not their NumPy fallbacks, and every kernel a run
-   uses must have launched in it;
+   (host_native), not their NumPy fallbacks, every kernel a run uses
+   must have launched in it, and the device engine's runs must launch
+   the span fetch once an engine iteration;
 5. the kernel lab (darwin_tpu_torch.lab): with the counters zeroed
    again, its geometry sweep (every dir format and interleave 1, 2, 4,
    each output checked bit-exact against the plain version), the `ilp`
    experiment in every format, the full-step experiments (`byte_full`
    and the word walkers' `packed`, `packed6`, `p6compact`, `tbunroll`)
    at the tool's shape, the
-   plane-2 probe's emit at B = 2048, T = 376 and the scan probe at
+   plane-2 probe's emit and gather (each gather mode beside its bound)
+   at B = 2048, T = 376 and the scan probe at
    TJP = 384 with its cross-check; every DP variant, both word walkers,
    the plane-2 kernel and both scan lowerings must have launched.  Then
    each lab kernel against its plain version: the DP variants and
@@ -59,6 +65,13 @@ Phases; any failure ends the run with a nonzero exit code:
 The last three lines are a JSON summary of the kernels, nvidia-smi's
 name and power limit, and {"ok": true, "device": {...}}.  Without a
 CUDA device it prints no result and exits 1.  It imports no JAX.
+
+    python3 chip_smoke.py --root TREE
+
+instead builds and imports TREE's darwin_tpu_torch (an older commit
+unpacked beside the repo, or the repo itself) and only times its byte
+walker and span fetch on phase 2's inputs (phase_ab), so that two trees
+run in turns compare on one card in one sitting.
 """
 
 from __future__ import annotations
@@ -89,6 +102,8 @@ SW_B, SW_LEN = 64, 3000
 # tie order, two compares; the direction byte, three); an SW cell 10;
 # a walker step 8; a scan element 2 (add, max).
 HBM_BYTES_S = 3.35e12
+# device_ms: a CUDA graph of this many launches, replayed, over its count.
+GRAPH_LAUNCHES = 50
 INT32_OPS_S = 132 * 64 * 1.98e9
 DP_OPS_CELL, SW_OPS_CELL, WALK_OPS_STEP, SCAN_OPS = 15, 10, 8, 2
 
@@ -132,6 +147,10 @@ KERNELS = {
     "scanshift_smem": ("darwin_tpu_torch/csrc/scanshift.cu",
                        "tools/scanshift_probe.py:97", "pallas_call"),
 }
+# The main path's kernels, whose device time (device_ms) is taken too;
+# the span fetch also in its one-set form, ONE_SET.
+ONE_SET = "fetch_tiles[one set]"
+DEVICE_TIMED = ("align_tiles", "traceback", "fetch_tiles", ONE_SET)
 # The keys of each entry of the kernels line.
 KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -204,6 +223,26 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, n: int = GRAPH_LAUNCHES) -> float:
+    """Device time of one fn() call: n calls captured in one CUDA graph,
+    the graph's replay timed (CUDA events, median of 5) over n, so the
+    host's launch path is not in it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ms = median_ms(graph.replay, 5) / n
+    del graph
+    return ms
+
+
 def related_tiles(rng, B: int, T: int):
     """[B, T] ref/query tiles of related ACGT (about 5% each of
     substitutions, insertions and deletions), random lengths in 1..T,
@@ -229,6 +268,108 @@ def related_tiles(rng, B: int, T: int):
         ref[b, :rlen[b]] = src[:rlen[b]]
         query[b, :qlen[b]] = q[:qlen[b]]
     return ref, query, rlen, qlen
+
+
+WALK_CASES = 32  # lanes of one walk_cases batch
+
+
+def _plant(d, i: int, j: int, runs) -> None:
+    """Set bits of one tile's dir bytes d [T, T+1] so that the walk from
+    DP cell (i, j) takes the states of runs ([(state, steps), ...],
+    MATCH 3, INSERT 2, DELETE 1; a gap run is never followed by the
+    other gap) and then stops on a ZERO op.  Cells outside rows and
+    columns 1..T are not planted: there the walk goes on by its own
+    rules (row 0 and column 0 read as ZERO)."""
+    from darwin_tpu_torch.ops.common import GAP_OPEN_FLAG_D, GAP_OPEN_FLAG_I
+
+    T = d.shape[0]
+    states = [s for s, n in runs for _ in range(n)]
+    if not states or states[-1] != 3:
+        states.append(3)
+
+    def put(i, j, mask, bits):
+        if 1 <= i <= T and 1 <= j <= T:
+            d[i - 1, j] = (int(d[i - 1, j]) & ~mask) | bits
+
+    put(i, j, 3, states[0])
+    for st, nxt in zip(states, states[1:] + [0]):
+        if st == 3:  # the entered cell's op bits give the next state
+            i, j = i - 1, j - 1
+            put(i, j, 3, nxt)
+        elif st == 2:  # the current cell's flag: stay in INSERT or MATCH
+            put(i, j, GAP_OPEN_FLAG_I, 0 if nxt == 2 else GAP_OPEN_FLAG_I)
+            i -= 1
+        else:
+            put(i, j, GAP_OPEN_FLAG_D, 0 if nxt == 1 else GAP_OPEN_FLAG_D)
+            j -= 1
+
+
+def walk_cases(rng, T: int):
+    """WALK_CASES adversarial byte-walker tiles at tile size T, as numpy
+    (dirm [B, T, T+1] uint8, ref_len, query_len, first, max_i, max_j):
+    random dir bytes with planted walks.  Lanes: an INSERT and a DELETE
+    run longer than a 32 x 64 window (40 rows, 72 columns, cut to the
+    tile), both in one walk, diagonals onto row 0 and onto column 0,
+    INSERT and DELETE runs across row 0 and column 0 (the walk goes on
+    reading ZERO bytes until ET), walks that start in a gap state and
+    run into the ET cut-off on either axis, starts at (T, T), first
+    tiles whose max cell is at (rlen, qlen), rlen = 0, qlen = 0, a
+    one-row and a one-column tile, a first tile whose max cell is
+    (0, 0), a start past the matrix (clipped into it), and random mixes
+    of runs from random starts.  Imports nothing that needs a card."""
+    import numpy as np
+
+    M, I, D = 3, 2, 1
+    up, left, h = min(T, 40), min(T, 72), max(1, T // 8)
+    # (rlen, qlen, first, max_i, max_j, runs or None for the bytes as
+    # they are); non-first tiles start at (rlen, qlen).
+    cases = [
+        (T, T, False, 0, 0, [(M, h), (I, up), (M, T)]),
+        (T, T, False, 0, 0, [(M, h), (D, left), (M, T)]),
+        (T, T, True, T, T, [(M, 3), (I, 5), (M, 4), (D, 9), (M, 2),
+                            (I, up), (M, 6), (D, left), (M, T)]),
+        (max(1, T // 2), T, False, 0, 0, [(M, T)]),
+        (T, max(1, T // 2), False, 0, 0, [(M, T)]),
+        (min(T, 20), T, False, 0, 0, [(M, 2), (I, 2 * T)]),
+        (T, min(T, 20), False, 0, 0, [(M, 2), (D, 2 * T)]),
+        (T, T, False, 0, 0, [(I, T), (M, T)]),
+        (T, T, False, 0, 0, [(D, T), (M, T)]),
+        (T, T, True, T, T, [(M, 2 * T)]),
+        (max(1, T - 3), max(1, T - 7), True, max(1, T - 3), max(1, T - 7),
+         [(M, h), (D, 2), (M, T)]),
+        (0, T, False, 0, 0, None),
+        (T, 0, False, 0, 0, None),
+        (1, T, False, 0, 0, [(D, T // 2), (M, 1)]),
+        (T, 1, False, 0, 0, [(I, T // 2), (M, 1)]),
+        (T, T, True, 0, 0, None),
+        (T + 3, T + 5, False, 0, 0, None),
+    ]
+    while len(cases) < WALK_CASES:
+        rlen, qlen = (int(x) for x in rng.integers(1, T + 1, size=2))
+        first = bool(rng.random() < 0.5)
+        runs = []
+        while sum(n for _, n in runs) < 2 * T:
+            runs += [(M, int(rng.integers(1, 30))),
+                     (int(rng.integers(1, 3)), int(rng.integers(1, 80)))]
+        cases.append((rlen, qlen, first, int(rng.integers(0, rlen + 1)),
+                      int(rng.integers(0, qlen + 1)), runs))
+    dirm = rng.integers(0, 32, size=(WALK_CASES, T, T + 1), dtype=np.uint8)
+    for b, (rlen, qlen, first, mi, mj, runs) in enumerate(cases):
+        if runs is not None:
+            _plant(dirm[b], mi if first else rlen, mj if first else qlen,
+                   runs)
+    cols = list(zip(*[c[:5] for c in cases]))
+    return (dirm, *(np.array(x, dtype=np.int32) for x in cols[:2]),
+            np.array(cols[2], dtype=bool),
+            *(np.array(x, dtype=np.int32) for x in cols[3:]))
+
+
+def walk_case_batch(rng, T: int, B: int):
+    """B lanes of walk_cases: as many batches as B needs, cut to B."""
+    import numpy as np
+
+    parts = [walk_cases(rng, T) for _ in range(-(-B // WALK_CASES))]
+    return tuple(np.concatenate(x)[:B] for x in zip(*parts))
 
 
 def _walker_pairs(fmt: str, ET: int, args):
@@ -265,24 +406,96 @@ def sw_pairs(rng, B: int, L: int):
     return ref, query, rlen, qlen
 
 
+def fetch_banks(rng, dev):
+    """The span fetch's two banks on dev: a genome-sized bank of 4.6 M
+    bytes whose storage ends at its last byte, and a read-sized bank of
+    9.2 M + 1 bytes padded as device_banks pads it."""
+    import numpy as np
+    import torch
+
+    from darwin_tpu_torch.ops.common import PAD_QUERY
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    gbank = torch.from_numpy(acgt[rng.integers(0, 4, size=4_600_000)])
+    nq = 9_200_001
+    q = np.full(-(-nq // 16) * 16, PAD_QUERY, dtype=np.uint8)
+    q[:nq - 1] = acgt[rng.integers(0, 4, size=nq - 1)]
+    return gbank.to(dev), torch.from_numpy(q).to(dev)[:nq]
+
+
+def fetch_spans(rng, n: int, T: int, dev):
+    """B_MAIN (start, length) spans of a bank of n bytes: lengths 0..T,
+    starts anywhere from T before the bank to T past it, and four lanes
+    far outside it or across its ends."""
+    import numpy as np
+    import torch
+
+    start = rng.integers(-T, n + T, size=B_MAIN)
+    start[:4] = [-10**9, 10**12, n - 5, -3]
+    length = rng.integers(0, T + 1, size=B_MAIN).astype(np.int32)
+    return torch.from_numpy(start).to(dev), torch.from_numpy(length).to(dev)
+
+
+def fetch_bound(sets, back, outs) -> dict:
+    """A fetch call's bound: the bank bytes its spans read, its starts,
+    lengths and backward flags, and its [B, T] outputs."""
+    T = outs[0].shape[1]
+    used = sum(int(length.clamp(0, T).sum()) for _, _, length, _ in sets)
+    return bound(used + nbytes(back, *outs, *(x for _, start, length, _ in
+                                               sets for x in (start,
+                                                              length))), 0)
+
+
+def gather_yardstick(sets, back, T: int, want):
+    """One PyTorch call computing the fetch of sets [(bank, start,
+    length, pad), ...]: an advanced-index gather of the banks and their
+    pad bytes concatenated, its [len(sets), B, T] index built
+    beforehand.  Checked against want (the kernel's outputs); returns
+    the call."""
+    import torch
+
+    k = torch.arange(T, device=back.device)[None, :]
+    pad_at = sum(bank.shape[0] for bank, *_ in sets)
+    idxs, off = [], 0
+    for m, (bank, start, length, _) in enumerate(sets):
+        s0, L = start[:, None], length.long()[:, None]
+        idx = torch.where(back[:, None], s0 + L - 1 - k, s0 + k)
+        idx = idx.clamp(0, bank.shape[0] - 1) + off
+        idxs.append(torch.where(k < L, idx, pad_at + m))
+        off += bank.shape[0]
+    pads = torch.tensor([pad for *_, pad in sets], dtype=torch.uint8,
+                        device=back.device)
+    cat = torch.cat([bank for bank, *_ in sets] + [pads])
+    idx = torch.stack(idxs)
+    if not torch.equal(cat[idx], torch.stack(list(want))):
+        raise AssertionError("the gather yardstick differs")
+    return lambda: cat[idx]
+
+
 def phase_kernels(dev) -> dict:
     """Each main-path kernel against its plain version on the card;
     returns {kernel: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
-    library_ms}}."""
+    library_ms}}, with device_ms (and library_device_ms where there is
+    a library call) for the main path's kernels, and the span fetch's
+    one-set numbers under "one_set"."""
     import numpy as np
     import torch
 
     from darwin_tpu_torch.lab.geom_sweep import max_abs_err
-    from darwin_tpu_torch.ops.common import PAD_REF
+    from darwin_tpu_torch.ops.common import PAD_QUERY, PAD_REF
     from darwin_tpu_torch.ops.dp import align_tiles
     from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
     from darwin_tpu_torch.ops.swscore import (local_score_batch,
                                               local_score_batch_torch)
-    from darwin_tpu_torch.ops.tile_fetch import fetch_tiles, fetch_tiles_torch
+    from darwin_tpu_torch.ops.tile_fetch import (fetch_tile_pair,
+                                                 fetch_tile_pair_torch,
+                                                 fetch_tiles,
+                                                 fetch_tiles_torch)
 
     walkers = {"bytes": "traceback", "packed": "traceback_packed",
                "packed6": "traceback_packed6"}
     rng = np.random.default_rng(0)
+    wrng = np.random.default_rng(1)
     res = {k: {"max_abs_err": 0} for k in
            ("align_tiles", "fetch_tiles", "local_score_batch",
             *walkers.values())}
@@ -326,50 +539,58 @@ def phase_kernels(dev) -> dict:
                 raise AssertionError(f"kernel mismatch at T={T} {sc}")
             for k, e in errs.items():
                 res[k]["max_abs_err"] = max(res[k]["max_abs_err"], e)
+        args = [torch.from_numpy(x).to(dev)
+                for x in walk_case_batch(wrng, T, B_MAIN)]
+        kernel, plain = _walker_pairs("bytes", ET, args)
+        g = kernel()
+        e = max_abs_err(dict(enumerate(g)), dict(enumerate(plain())))
+        log(f"  T={T} ET={ET} walk_cases: error {e}, mean walk "
+            f"{float((g[1] + g[2]).float().mean()):.1f} steps")
+        if e:
+            raise AssertionError(f"byte walker mismatch on walk_cases, T={T}")
+        res["traceback"]["max_abs_err"] = max(res["traceback"]["max_abs_err"],
+                                              e)
 
-    # Span fetch over a bank the size of the E.coli-shaped genome, with
-    # offsets that straddle both ends of it.
-    n = 4_600_000
-    bank = torch.from_numpy(np.frombuffer(b"ACGT", np.uint8)[
-        rng.integers(0, 4, size=n)]).to(dev)
+    # The span fetch in both forms: the pair (the engine's one launch an
+    # iteration) and one set.
+    frng = np.random.default_rng(2)
+    gbank, qbank = fetch_banks(frng, dev)
     for T, _ in TILES:
-        start = rng.integers(-T, n + T, size=B_MAIN)
-        start[:4] = [-10**9, 10**12, n - 5, -3]
-        length = rng.integers(0, T + 1, size=B_MAIN).astype(np.int32)
-        args = (bank, torch.from_numpy(start).to(dev),
-                torch.from_numpy(length).to(dev),
-                torch.from_numpy(rng.random(B_MAIN) < 0.5).to(dev))
-        got = fetch_tiles(*args, T=T, pad=PAD_REF)
-        want = fetch_tiles_torch(*args, T=T, pad=PAD_REF)
-        e = max_abs_err({0: got}, {0: want})
-        log(f"  fetch T={T}: err {e}")
+        g_start, rl = fetch_spans(frng, gbank.shape[0], T, dev)
+        q_start, ql = fetch_spans(frng, qbank.shape[0], T, dev)
+        back = torch.from_numpy(frng.random(B_MAIN) < 0.5).to(dev)
+        pair = (gbank, qbank, g_start, q_start, rl, ql, back)
+        pkw = dict(T=T, pad_ref=PAD_REF, pad_query=PAD_QUERY)
+        one = (qbank, q_start, ql, back)
+        okw = dict(T=T, pad=PAD_QUERY)
+        got = fetch_tile_pair(*pair, **pkw)
+        want = fetch_tile_pair_torch(*pair, **pkw)
+        got1 = fetch_tiles(*one, **okw)
+        e = max_abs_err(dict(enumerate((*got, got1))),
+                        dict(enumerate((*want, want[1]))))
+        log(f"  fetch_tile_pair and fetch_tiles T={T}: err {e}")
         if e:
             raise AssertionError(f"fetch mismatch at T={T}")
-        if T == T_MAIN:
-            timed["fetch_tiles"] = (
-                lambda a=args: fetch_tiles(*a, T=T_MAIN, pad=PAD_REF),
-                lambda a=args: fetch_tiles_torch(*a, T=T_MAIN, pad=PAD_REF))
-            used = int(args[2].clamp(0, T).sum())  # bank bytes read
-            res["fetch_tiles"].update(bound(
-                used + nbytes(*args[1:], got), 0))
-            # The one-call yardstick: an advanced-index gather of the bank
-            # with the pad byte appended, the index built beforehand.
-            k = torch.arange(T, device=dev)[None, :]
-            s0, L = args[1][:, None], args[2].long()[:, None]
-            idx = torch.where(args[3][:, None], s0 + L - 1 - k,
-                              s0 + k).clamp(0, n - 1)
-            idx = torch.where(k < L, idx, n)
-            bank_pad = torch.cat([bank, torch.full((1,), PAD_REF,
-                                                   dtype=torch.uint8,
-                                                   device=dev)])
-            if not torch.equal(bank_pad[idx], got):
-                raise AssertionError("the gather yardstick differs")
-            library["fetch_tiles"] = lambda b=bank_pad, i=idx: b[i]
         res["fetch_tiles"]["max_abs_err"] = max(
             res["fetch_tiles"]["max_abs_err"], e)
+        if T == T_MAIN:
+            timed["fetch_tiles"] = (
+                lambda p=pair, k=pkw: fetch_tile_pair(*p, **k),
+                lambda p=pair, k=pkw: fetch_tile_pair_torch(*p, **k))
+            timed[ONE_SET] = (lambda a=one, k=okw: fetch_tiles(*a, **k),
+                              lambda a=one, k=okw: fetch_tiles_torch(*a, **k))
+            sets = [(gbank, g_start, rl, PAD_REF),
+                    (qbank, q_start, ql, PAD_QUERY)]
+            res["fetch_tiles"].update(fetch_bound(sets, back, got))
+            res[ONE_SET] = dict(max_abs_err=e,
+                                **fetch_bound(sets[1:], back, got[1:]))
+            library["fetch_tiles"] = gather_yardstick(sets, back, T, got)
+            library[ONE_SET] = gather_yardstick(sets[1:], back, T, got[1:])
 
-    # Score-only SW at B = 64 on 200-3000 base pairs.
-    sw = [torch.from_numpy(x).to(dev) for x in sw_pairs(rng, SW_B, SW_LEN)]
+    # Score-only SW at B = 64 on 200-3000 base pairs, from a generator of
+    # its own, so that other phases' draws do not change its inputs.
+    sw = [torch.from_numpy(x).to(dev)
+          for x in sw_pairs(np.random.default_rng(3), SW_B, SW_LEN)]
     for sc in SCORINGS[:2]:
         kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"), sc))
         got = local_score_batch(*sw, **kw)
@@ -392,17 +613,30 @@ def phase_kernels(dev) -> dict:
         nbytes(*sw, local_score_batch(*sw, **kw)), SW_OPS_CELL * cells))
 
     for name, (kernel, plain) in timed.items():
-        res[name]["ms"] = median_ms(kernel, 20)
-        res[name]["plain_ms"] = median_ms(plain, 3 if name ==
-                                          "local_score_batch" else 5)
-        res[name]["library_ms"] = (median_ms(library[name], 20)
-                                   if name in library else None)
+        r = res[name]
+        r["ms"] = median_ms(kernel, 20)
+        r["plain_ms"] = median_ms(plain, 3 if name == "local_score_batch"
+                                  else 5)
+        r["library_ms"] = (median_ms(library[name], 20)
+                           if name in library else None)
+        device = ""
+        if name in DEVICE_TIMED:
+            r["device_ms"] = graph_ms(kernel)
+            device = f" (graph {r['device_ms']:.4f} ms"
+            if name in library:
+                r["library_device_ms"] = graph_ms(library[name])
+                device += f", library graph {r['library_device_ms']:.4f} ms"
+            device += ")"
         shape = (f"B={SW_B} {SW_LEN}x{SW_LEN}" if name == "local_score_batch"
                  else f"B={B_MAIN} T={T_MAIN}")
-        log(f"  {name} at {shape}: kernel {res[name]['ms']:.4f} ms, plain "
-            f"{res[name]['plain_ms']:.4f} ms, library "
-            f"{res[name]['library_ms']} ms, bound "
-            f"{res[name]['bound_ms']:.4f} ms ({res[name]['bound_by']})")
+        log(f"  {name} at {shape}: kernel {r['ms']:.4f} ms{device}, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    one_set = res.pop(ONE_SET)
+    res["fetch_tiles"]["one_set"] = one_set
+    log(f"  fetch: the pair's device time is "
+        f"{res['fetch_tiles']['device_ms'] / one_set['device_ms']:.2f}x one "
+        f"set's")
     return res
 
 
@@ -546,6 +780,12 @@ def phase_ecoli(dev, counters: dict) -> dict:
             idle = [k for k in ECOLI_RUNS[tag] if launches[k] <= 0]
             if idle:
                 raise AssertionError(f"{tag}: {idle} not launched")
+            if ("fetch_tiles" in ECOLI_RUNS[tag]
+                    and launches["fetch_tiles"] != m["engine_iters"]):
+                raise AssertionError(
+                    f"{tag}: fetch_tiles launched {launches['fetch_tiles']} "
+                    f"times in {m['engine_iters']} engine iterations, not "
+                    f"once an iteration")
             for k, n in launches.items():
                 total[k] += n
         paf = (td / "host" / "merged.paf").read_text().splitlines()
@@ -600,6 +840,7 @@ def phase_lab(dev):
     for exp in ("byte_full", "packed", "packed6", "p6compact", "tbunroll"):
         lab.run(exp, "packed")
     plane2_probe.probe_emit(376, dev, B=2048, V=2)
+    plane2_probe.probe_gather(376, dev, B=2048, V=2)
     scanshift_probe.run(376, dev, B=2048, V=8)
     launches = {name: align_tiles.variant_launches[v]
                 for v, name in DP_VARIANTS.items()}
@@ -764,14 +1005,67 @@ def phase_scoreeval(dev) -> int:
     return launches
 
 
-def main() -> int:
+def phase_ab(dev, reps: int = 20) -> dict:
+    """The imported tree's byte walker and span fetch on phase 2's
+    inputs at T_MAIN (its first draws; first scoring): the walker, one
+    fetch_tiles call, and two (one an engine iteration before
+    fetch_tile_pair), each as the median of reps event-timed calls (ms)
+    and as device_ms, with each call's output sum, which must agree
+    between trees.  Uses only calls whose signatures every version of
+    the port has kept."""
+    import numpy as np
     import torch
 
+    from darwin_tpu_torch.ops.common import PAD_QUERY, PAD_REF
+    from darwin_tpu_torch.ops.dp import align_tiles
+    from darwin_tpu_torch.ops.tile_fetch import fetch_tiles
+    from darwin_tpu_torch.ops.traceback import traceback
+
+    rng = np.random.default_rng(0)
+    ref, query, rlen, qlen = (torch.from_numpy(x).to(dev) for x in
+                              related_tiles(rng, B_MAIN, T_MAIN))
+    first = torch.from_numpy(rng.random(B_MAIN) < 0.5).to(dev)
+    out = align_tiles(ref, query, rlen, qlen, **dict(zip(
+        ("match", "mismatch", "gap_open", "gap_extend"), SCORINGS[0])))
+    walk = (out["dir"], rlen, qlen, first, out["max_i"], out["max_j"])
+    ET = dict(TILES)[T_MAIN]
+    frng = np.random.default_rng(2)
+    gbank, qbank = fetch_banks(frng, dev)
+    g_start, rl = fetch_spans(frng, gbank.shape[0], T_MAIN, dev)
+    q_start, ql = fetch_spans(frng, qbank.shape[0], T_MAIN, dev)
+    back = torch.from_numpy(frng.random(B_MAIN) < 0.5).to(dev)
+    calls = {
+        "walker": lambda: traceback(*walk, early_terminate=ET),
+        "fetch_one_set": lambda: (fetch_tiles(qbank, q_start, ql, back,
+                                              T=T_MAIN, pad=PAD_QUERY),),
+        "fetch_two_sets": lambda: (
+            fetch_tiles(gbank, g_start, rl, back, T=T_MAIN, pad=PAD_REF),
+            fetch_tiles(qbank, q_start, ql, back, T=T_MAIN,
+                        pad=PAD_QUERY)),
+    }
+    res = {}
+    for name, fn in calls.items():
+        res[f"{name}_sum"] = sum(int(o.long().sum()) for o in fn())
+        res[f"{name}_ms"] = median_ms(fn, reps)
+        res[f"{name}_device_ms"] = graph_ms(fn)
+    return res
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", help="time only this tree's walker and "
+                    "fetch (phase_ab)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(REPO))
+    root = Path(args.root).resolve() if args.root else REPO
+    sys.path.insert(0, str(root))
     from darwin_tpu_torch import _build
     from darwin_tpu_torch.ops import traceback as tb
     from darwin_tpu_torch.ops.dp import align_tiles
@@ -779,6 +1073,13 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
+    if args.root:
+        if not Path(_build.__file__).resolve().is_relative_to(root):
+            raise AssertionError(f"imported {_build.__file__}, not {root}'s")
+        _build.lib()
+        print(json.dumps({"root": str(root), "device": smi,
+                          **phase_ab(dev)}))
+        return 0
     log(f"[1/6] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()

@@ -36,7 +36,9 @@ _SIGNATURES = {
                         _I, _P, _P, _P, _P, _P, _P, _P],
     "dtt_traceback": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _P, _P, _P, _P],
-    "dtt_fetch_tiles": [_P, _L, _P, _P, _P, _I, _I, _I, _P, _P],
+    # nsets, then two sets of (bank, n, n_read, start, len, pad, out).
+    "dtt_fetch_tiles": [_I, *[_P, _L, _L, _P, _P, _I, _P] * 2,
+                        _P, _I, _I, _P],
     "dtt_scanshift": [_P, _I, _I, _I, _I, _P, _P],
     "dtt_traceback_words": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _P, _P, _P, _P],
@@ -46,6 +48,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_entries: dict = {}  # entry name -> bound ctypes function
 
 
 def _nvcc() -> str:
@@ -142,10 +145,18 @@ def require_cuda(t: torch.Tensor, what: str) -> torch.device:
 
 def launch(entry: str, device: torch.device, *args) -> None:
     """Call one C entry on device's current stream; raise on a CUDA
-    error code."""
-    fn = getattr(lib(), entry)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    error code.  The entry is resolved once, and the current device is
+    switched only when it is not already device."""
+    fn = _entries.get(entry)
+    if fn is None:
+        fn = _entries[entry] = getattr(lib(), entry)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch.cuda.current_stream(index).cuda_stream
+    if index == current:
         rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{entry}: CUDA error {rc} at launch")

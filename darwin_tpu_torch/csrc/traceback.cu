@@ -1,29 +1,41 @@
-// GACT traceback walker for Hopper (sm_90a).
+// GACT traceback walker over dir bytes, for Hopper (sm_90a).
 //
-// Replaces: darwin_tpu/ops/traceback.py, traceback_packed6_jax (line
-// 156), the walker the JAX engine runs after the DP.  That walker is
-// plain XLA, not Pallas; it is a kernel here because in eager PyTorch
-// the walk would be up to 2*ET-1 Python-driven steps of about 15 small
-// launches each, every engine iteration.  Semantics are those of
-// traceback_jax (traceback.py:28-112), whose PyTorch port is
-// darwin_tpu_torch/ops/traceback.py::traceback_torch.
+// Replaces: darwin_tpu/ops/traceback.py, traceback_jax (line 29), the
+// walker the JAX engine runs after the DP.  That walker is plain XLA,
+// not Pallas; it is a kernel here because in eager PyTorch the walk
+// would be up to 2*ET-1 Python-driven steps of about 15 small launches
+// each, every engine iteration.  Its PyTorch port, and this kernel's
+// plain version, is darwin_tpu_torch/ops/traceback.py::traceback_torch.
 //
 // What it computes: per tile, the walk from (max_i, max_j) for first
 // tiles or (rlen, qlen) otherwise, until a ZERO op or until either axis
 // has taken ET steps; INSERT/DELETE switch to MATCH on the *current*
-// cell's gap-open flag.  Output: the dense op stream [B, 2*ET-1] uint8
-// (op | MATCH_BIT for MATCH ops on equal chars, 0 after the walk) and
-// the steps taken on each axis.
+// cell's gap-open flag.  Row 0 and column 0 (and anything above or left
+// of them) read as ZERO; coordinates past the matrix are clipped into
+// it as traceback_jax clips them.  Output: the dense op stream
+// [B, 2*ET-1] uint8 (op | MATCH_BIT for MATCH ops on equal chars, 0
+// after the walk) and the steps taken on each axis.
 //
 // What bounds it on the H100: latency.  A walk is a chain of up to
-// 2*ET-1 dependent byte loads from the dir matrix (B*T*(T+1) bytes,
-// 52.6 MB at B = 512, T = 320: larger than L2 only at far bigger B), so
-// each step waits one L2 round trip; bytes moved are tiny.
+// 2*ET-1 dependent steps, each reading the byte of the cell it enters;
+// the bytes moved are tiny.  The matrix (B*T*(T+1) bytes, 52.6 MB at
+// B = 512, T = 320) is larger than the H100's 50 MB L2, and one
+// dependent global load costs 0.5-2 us.
 //
-// Design: one thread per tile, 128 threads a block.  All walks run at
-// once and their load latencies overlap across warps; nothing is staged
-// in shared memory.  The op stream is written as the walk goes and
-// zero-filled to its end.
+// Design: one warp a tile, WARPS warps a block.  The warp copies a
+// window of its tile's matrix into shared memory: WIN_R = 32 rows by
+// WIN_C = 64 columns ending at the current cell, each lane issuing its
+// WIN_R * WIN_C / 32 loads together, so a window costs about one memory
+// round trip (64 x 64 windows measured no faster on the H100, 32 x 128
+// slower).  Every lane then walks the same walk from shared memory
+// (broadcast reads, no divergence) until it leaves the window at its
+// top or left edge, where the warp loads the window ending at the new
+// cell.  Walks only move up and left, so a diagonal walk of ET = 200
+// needs about 7 windows of 32 rows instead of 399 global round trips.
+// The walker tracks its offset in the window and issues each step's
+// shared read before the bounds checks that may drop it.  Op records
+// go to a shared buffer of 2*ET-1 bytes a warp, written out coalesced
+// with the zero tail when the walk ends.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -33,58 +45,111 @@ namespace {
 constexpr int GAP_OPEN_FLAG_I = 8;
 constexpr int GAP_OPEN_FLAG_D = 4;
 constexpr int MATCH_BIT = 16;
-constexpr int THREADS = 128;
+constexpr int WARPS = 4;
+constexpr int WIN_R = 32;
+constexpr int WIN_C = 64;
 
-__global__ void traceback_kernel(
+// Copies the window ending at DP cell (ai, aj) of one tile's matrix d:
+// win[dr * WIN_C + dc] = cell (ai - dr, aj - dc).  Every load is of a
+// row and column clamped into 1..T, so none is conditional and all are
+// in flight together; the entries of cells outside rows and columns
+// >= 1 are never read (the walker reads ZERO there).
+__device__ __forceinline__ void load_window(const uint8_t* __restrict__ d,
+                                            int T, int ai, int aj,
+                                            uint8_t* win, int lane) {
+  constexpr int H = WIN_C / 32;
+  const int C = T + 1;
+  uint8_t v[WIN_R][H];
+#pragma unroll
+  for (int dr = 0; dr < WIN_R; ++dr) {
+    const uint8_t* row =
+        d + static_cast<size_t>(min(max(ai - dr, 1), T) - 1) * C;
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      v[dr][h] = row[min(max(aj - 32 * h - lane, 1), T)];
+  }
+  __syncwarp();  // every lane has read the previous window
+#pragma unroll
+  for (int dr = 0; dr < WIN_R; ++dr) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) win[dr * WIN_C + 32 * h + lane] = v[dr][h];
+  }
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(WARPS * 32) traceback_kernel(
     const uint8_t* __restrict__ dir, const int* __restrict__ ref_len,
     const int* __restrict__ query_len, const uint8_t* __restrict__ first,
     const int* __restrict__ max_i, const int* __restrict__ max_j, int B,
-    int T, int ET, uint8_t* __restrict__ ops, int* __restrict__ i_steps,
-    int* __restrict__ j_steps) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int C = T + 1;
+    int T, int ET, int per_warp, uint8_t* __restrict__ ops,
+    int* __restrict__ i_steps, int* __restrict__ j_steps) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * WARPS + warp;
+  if (b >= B) return;  // the whole warp
+  uint8_t* win = smem + warp * per_warp;
+  uint8_t* rec = win + WIN_R * WIN_C;
   const int S = 2 * ET - 1;
-  const uint8_t* d = dir + static_cast<size_t>(b) * T * C;
-  // DP cell (i, j); row 0 and column 0 read as ZERO, coordinates are
-  // clipped into the matrix as traceback_jax clips them.
-  auto cell = [&](int i, int j) -> int {
-    if (i < 1 || j < 1) return 0;
-    return d[static_cast<size_t>(min(i, T) - 1) * C + min(j, C - 1)];
-  };
+  const uint8_t* d = dir + static_cast<size_t>(b) * T * (T + 1);
 
   const bool is_first = first[b] != 0;
   int i = is_first ? max_i[b] : ref_len[b];
   int j = is_first ? max_j[b] : query_len[b];
-  int val = cell(i, j);
+  // The window covers rows lo_i..lo_i+WIN_R-1 and columns
+  // lo_j..lo_j+WIN_C-1; off is the current cell's offset in it.  It
+  // starts empty (i < lo_i).
+  int lo_i = i + 1, lo_j = j + 1, off = 0;
+  // The byte of the cell (i, j) just entered, off already moved to it.
+  // The shared read is issued before the checks (clamped into the
+  // window, it is always in bounds) and its value dropped where the
+  // cell is outside the matrix or the window.
+  auto enter = [&]() -> int {
+    const int v = win[min(off, WIN_R * WIN_C - 1)];
+    if (i < 1 || j < 1) return 0;
+    if (i < lo_i || j < lo_j) {
+      load_window(d, T, i, j, win, lane);
+      lo_i = i - WIN_R + 1;
+      lo_j = j - WIN_C + 1;
+      off = 0;
+      return win[0];
+    }
+    return v;
+  };
+
+  int val = enter();
   int state = val & 3;
   int is = 0, js = 0, s = 0;
-  uint8_t* out = ops + static_cast<size_t>(b) * S;
   for (; s < S; ++s) {
     if (state == 0 || is >= ET || js >= ET) break;
-    const int match_bit = state == 3 ? (val & MATCH_BIT) : 0;
-    out[s] = static_cast<uint8_t>(state + match_bit);
-    const int di = (state == 3 || state == 2) ? 1 : 0;
-    const int dj = state == 2 ? 0 : 1;
+    if (lane == 0)
+      rec[s] = static_cast<uint8_t>(state + (state == 3 ? val & MATCH_BIT
+                                                         : 0));
+    const int di = state >> 1;  // MATCH and INSERT move up
+    const int dj = state & 1;   // MATCH and DELETE move left
     i -= di;
     j -= dj;
-    const int nval = cell(i, j);
-    int next;
-    if (state == 3) {
-      next = nval & 3;
-    } else if (state == 2) {
-      next = (val & GAP_OPEN_FLAG_I) ? 3 : 2;
+    off += di * WIN_C + dj;
+    const int nval = enter();
+    if (state == 2) {
+      state = (val & GAP_OPEN_FLAG_I) ? 3 : 2;
+    } else if (state == 1) {
+      state = (val & GAP_OPEN_FLAG_D) ? 3 : 1;
     } else {
-      next = (val & GAP_OPEN_FLAG_D) ? 3 : 1;
+      state = nval & 3;
     }
-    state = next;
     val = nval;
     is += di;
     js += dj;
   }
-  for (; s < S; ++s) out[s] = 0;
-  i_steps[b] = is;
-  j_steps[b] = js;
+  for (int k = s + lane; k < S; k += 32) rec[k] = 0;
+  __syncwarp();
+  uint8_t* out = ops + static_cast<size_t>(b) * S;
+  for (int k = lane; k < S; k += 32) out[k] = rec[k];
+  if (lane == 0) {
+    i_steps[b] = is;
+    j_steps[b] = js;
+  }
 }
 
 }  // namespace
@@ -94,10 +159,17 @@ extern "C" int dtt_traceback(const uint8_t* dir, const int* ref_len,
                              const int* max_i, const int* max_j, int B,
                              int T, int ET, uint8_t* ops, int* i_steps,
                              int* j_steps, void* stream) {
-  const int blocks = (B + THREADS - 1) / THREADS;
-  traceback_kernel<<<blocks, THREADS, 0,
+  // A warp's window, then its op buffer rounded up to 16 bytes.
+  const int per_warp = WIN_R * WIN_C + ((2 * ET - 1 + 15) & ~15);
+  const int smem = WARPS * per_warp;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        traceback_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  traceback_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, smem,
                      static_cast<cudaStream_t>(stream)>>>(
-      dir, ref_len, query_len, first, max_i, max_j, B, T, ET, ops, i_steps,
-      j_steps);
+      dir, ref_len, query_len, first, max_i, max_j, B, T, ET, per_warp, ops,
+      i_steps, j_steps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,8 +10,8 @@ tensors:
   termination) is masked tensor arithmetic with index_put_ updates.
   Each in-flight call lives in exactly one slot, so updates never
   collide; masked-off lanes all write the one dump row N;
-* every iteration fetches one ref and one query tile per slot
-  (ops/tile_fetch.py), runs the tile DP (ops/dp.py) and a walker
+* every iteration fetches one ref and one query tile per slot in one
+  launch (ops/tile_fetch.py), runs the tile DP (ops/dp.py) and a walker
   (ops/traceback.py), and rescores from the dir bytes' MATCH_BIT.
   tb_format picks the pair, as the JAX engine's tb_format does: "bytes"
   (dir bytes and the byte walker, the default), "packed" or "packed6"
@@ -39,7 +39,7 @@ from darwin_tpu_torch.engine.seqbank import SeqBank
 from darwin_tpu_torch.index.genome import Genome
 from darwin_tpu_torch.ops.common import MATCH_BIT, PAD_QUERY, PAD_REF
 from darwin_tpu_torch.ops.dp import align_tiles
-from darwin_tpu_torch.ops.tile_fetch import fetch_tiles
+from darwin_tpu_torch.ops.tile_fetch import fetch_tile_pair
 from darwin_tpu_torch.ops.traceback import WALKERS
 from darwin_tpu_torch.utils import bucket_steps
 
@@ -51,12 +51,15 @@ def device_banks(genome: Genome, seqbank: SeqBank,
                  device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """The genome's padded concatenation and the read bank's flat bytes
     as uint8 tensors on device.  One pad byte is appended to each, so
-    an empty bank still has a byte to clip to."""
+    an empty bank still has a byte to clip to.  Each tensor is a view of
+    the first len(flat) + 1 bytes of a storage rounded up to 16 bytes,
+    so the span fetch's aligned 16-byte reads of its last byte stay
+    inside the storage."""
     def upload(flat, pad):
-        a = np.empty(len(flat) + 1, dtype=np.uint8)
-        a[:-1] = flat
-        a[-1] = pad
-        return torch.from_numpy(a).to(device)
+        n = len(flat) + 1
+        a = np.full(-(-n // 16) * 16, pad, dtype=np.uint8)
+        a[:n - 1] = flat
+        return torch.from_numpy(a).to(device)[:n]
 
     return upload(genome.concat, PAD_REF), upload(seqbank.flat, PAD_QUERY)
 
@@ -309,13 +312,11 @@ class DeviceGactEngine:
             ql = torch.where(act2, ql.clamp(min=0), 0)
             # Reverse tiles read [pos-len, pos) forward; forward tiles
             # read [pos, pos+len) back to front.
-            fwd = ~rev2
-            ref_t = fetch_tiles(
-                self._gbank, g_start[ci2] + torch.where(rev2, p_r - rl, p_r),
-                rl, fwd, T=T, pad=PAD_REF)
-            query_t = fetch_tiles(
-                self._qbank, q_start[ci2] + torch.where(rev2, p_q - ql, p_q),
-                ql, fwd, T=T, pad=PAD_QUERY)
+            ref_t, query_t = fetch_tile_pair(
+                self._gbank, self._qbank,
+                g_start[ci2] + torch.where(rev2, p_r - rl, p_r),
+                q_start[ci2] + torch.where(rev2, p_q - ql, p_q), rl, ql,
+                ~rev2, T=T, pad_ref=PAD_REF, pad_query=PAD_QUERY)
 
             # ---- align ------------------------------------------------
             out = align_tiles(ref_t, query_t, rl, ql,

@@ -10,7 +10,8 @@ The port of tools/plane2_probe.py.  Two measurements:
   gather : the walker's dependent gather widened three ways: one plane
            [B, 1], both planes interleaved [B, 2], two separate [B, 1]
            gathers, each a chain of 45 steps (the packed6 walker's
-           rounds at the bench shape), V walks.  The gathers are plain
+           rounds at the bench shape), V walks; each printed beside its
+           bound, the bytes a walk gathers over the HBM rate.  The gathers are plain
            PyTorch, as the tool's are plain XLA; on the card each mode's
            V walks are captured in one CUDA graph, so the time is the
            gathers', not the host's launches; the eager time is printed
@@ -37,6 +38,13 @@ from darwin_tpu_torch.ops.plane2 import plane2
 
 ITERS = 45  # packed6 walker rounds at the bench shape (the tool's)
 GATHER_MODES = ("one", "wide2", "twosep")
+HBM_BYTES_S = 3.35e12  # NVIDIA H100 SXM's HBM rate
+
+
+def gather_bound_ms(B: int, mode: str) -> float:
+    """A walk's bound: the int32 values its ITERS gathers read (one a
+    lane, two for wide2 and twosep) over the HBM rate."""
+    return ITERS * B * 4 * (1 if mode == "one" else 2) / HBM_BYTES_S * 1e3
 
 
 def base_sink(out: dict) -> torch.Tensor:
@@ -148,7 +156,8 @@ def probe_gather(T: int, device: torch.device, B: int, V: int,
         print(f"gather {mode}: {timed / V:.4f} ms/walk "
               f"({timed / V / ITERS * 1e3:.1f} us/iter"
               f"{', CUDA graph' if graph_ms is not None else ''}; eager "
-              f"{eager_ms / V:.4f} ms/walk) sink {res[mode][2]} "
+              f"{eager_ms / V:.4f} ms/walk; bound "
+              f"{gather_bound_ms(B, mode):.6f} ms) sink {res[mode][2]} "
               f"({clock(device)})", flush=True)
     return res
 

@@ -3,7 +3,8 @@ CUDA kernel with its plain PyTorch version and the dispatch between
 them.
 
 * traceback (csrc/traceback.cu; plain traceback_torch) walks dir bytes,
-  the port of darwin_tpu/ops/traceback.py::traceback_jax;
+  the port of darwin_tpu/ops/traceback.py::traceback_jax, one warp a
+  tile over shared-memory windows of the matrix;
 * traceback_packed (csrc/traceback_words.cu; plain
   traceback_packed_torch) walks pack_dir_words words, two steps a
   gather: traceback_packed_jax;
@@ -37,6 +38,10 @@ from darwin_tpu_torch.ops.common import (GAP_OPEN_FLAG_D, GAP_OPEN_FLAG_I,
 I32 = torch.int32
 # The word walkers' format codes in csrc/traceback_words.cu.
 WORD_FORMATS = {"packed": 1, "packed6": 2}
+# The byte walker's op buffer of 2*ET-1 bytes a warp, beside its 32 x 64
+# window, four warps a block, fits a block's 227 KB of shared memory up
+# to MAX_ET.
+MAX_ET = 16384
 
 
 def traceback_torch(dirm: torch.Tensor, ref_len: torch.Tensor,
@@ -111,18 +116,18 @@ def traceback(dirm: torch.Tensor, ref_len: torch.Tensor,
                          f"{tuple(dirm.shape)}")
     B, T = dirm.shape[:2]
     ET = early_terminate
-    if ET < 1:
-        raise ValueError(f"traceback: early_terminate {ET} < 1")
-    i32 = torch.int32
+    if not 1 <= ET <= MAX_ET:
+        raise ValueError(f"traceback: early_terminate {ET} outside "
+                         f"1..{MAX_ET}")
     args = [_build.arg(dirm, "dirm", torch.uint8, (B, T, T + 1), dev),
-            _build.arg(ref_len, "ref_len", i32, (B,), dev),
-            _build.arg(query_len, "query_len", i32, (B,), dev),
+            _build.arg(ref_len, "ref_len", I32, (B,), dev),
+            _build.arg(query_len, "query_len", I32, (B,), dev),
             _build.arg(first, "first", torch.bool, (B,), dev),
-            _build.arg(max_i, "max_i", i32, (B,), dev),
-            _build.arg(max_j, "max_j", i32, (B,), dev)]
+            _build.arg(max_i, "max_i", I32, (B,), dev),
+            _build.arg(max_j, "max_j", I32, (B,), dev)]
     raw = torch.empty((B, 2 * ET - 1), dtype=torch.uint8, device=dev)
-    i_steps = torch.empty(B, dtype=i32, device=dev)
-    j_steps = torch.empty(B, dtype=i32, device=dev)
+    i_steps = torch.empty(B, dtype=I32, device=dev)
+    j_steps = torch.empty(B, dtype=I32, device=dev)
     if B:
         _build.launch("dtt_traceback", dev, *args, B, T, ET,
                       raw.data_ptr(), i_steps.data_ptr(),

@@ -283,6 +283,102 @@ def test_fetch_kernel_matches_plain(cuda, T):
     assert torch.equal(got, fetch_tiles_torch(*args, T=T, pad=PAD_QUERY))
 
 
+@pytest.mark.parametrize("B", [1, 36, 512])
+@pytest.mark.parametrize("T", [1, 32, 64, 320, 376, dp.MAX_TILE])
+def test_windowed_walker_matches_plain(cuda, T, B):
+    """The byte walker (one warp a tile over shared-memory windows)
+    against traceback_torch at two early_terminates: on
+    chip_smoke.walk_cases lanes (gap runs longer than a window, walks
+    across row 0 and column 0, cut-offs on either axis, empty, one-row
+    and one-column tiles, clipped starts) and on the DP's dir bytes of
+    related tiles (_tiles) under three scorings."""
+    import chip_smoke
+
+    rng = np.random.default_rng(T * 7 + B)
+    inputs = [[torch.from_numpy(x).to(cuda)
+               for x in chip_smoke.walk_case_batch(rng, T, B)]]
+    lanes = slice(None, B) if B >= 3 else slice(-B, None)
+    ref, query, rlen, qlen, first = (x[lanes] for x in
+                                     _tiles(T + B, max(B, 3), T, cuda))
+    for sc in SCORINGS[:3]:
+        kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"), sc))
+        out = dp.align_tiles(ref, query, rlen, qlen, **kw)
+        inputs.append((out["dir"], rlen, qlen, first, out["max_i"],
+                       out["max_j"]))
+    for k, args in enumerate(inputs):
+        for et in sorted({max(1, T * 5 // 8), T}):
+            want = traceback_torch(*args, early_terminate=et)
+            n = traceback.traceback.launches
+            got = traceback.traceback(*args, early_terminate=et)
+            assert traceback.traceback.launches == n + 1
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (k, et)
+
+
+@pytest.mark.parametrize("B", [1, 36, 512])
+@pytest.mark.parametrize("T", [1, 24, 64, 320, 376])
+def test_fetch_kernels_match_plain_at_bank_ends(cuda, T, B):
+    """fetch_tiles and fetch_tile_pair against their plain versions on
+    two banks: one whose storage ends at its odd last byte (its last
+    chunks cannot take the aligned loads), one padded by device_banks'
+    rule; offsets straddling both ends of each bank and far outside it,
+    mixed directions, lengths 0..T; and a bank view that starts off a
+    16-byte boundary."""
+    rng = np.random.default_rng(T * 3 + B)
+    gbank = torch.from_numpy(rng.integers(65, 91, size=100_003,
+                                          dtype=np.uint8)).to(cuda)
+    qn = 77_777
+    qpad = np.full(-(-qn // 16) * 16, PAD_QUERY, dtype=np.uint8)
+    qpad[:qn - 1] = rng.integers(65, 91, size=qn - 1, dtype=np.uint8)
+    qbank = torch.from_numpy(qpad).to(cuda)[:qn]
+
+    def spans(n):
+        start = np.where(rng.random(B) < 0.5,
+                         rng.integers(-T - 20, 20, size=B),
+                         rng.integers(n - T - 20, n + 20, size=B))
+        start[:2] = np.array([-10 ** 9, 10 ** 12])[:B]
+        start[2:8:2] = rng.integers(0, n, size=len(start[2:8:2]))
+        length = rng.integers(0, T + 1, size=B).astype(np.int32)
+        return (torch.from_numpy(start).to(cuda),
+                torch.from_numpy(length).to(cuda))
+
+    g_start, rl = spans(gbank.shape[0])
+    q_start, ql = spans(qn)
+    back = torch.from_numpy(rng.random(B) < 0.5).to(cuda)
+    n = tile_fetch.fetch_tiles.launches
+    for bank in (gbank, qbank, gbank[5:]):
+        got = tile_fetch.fetch_tiles(bank, g_start, rl, back, T=T,
+                                     pad=PAD_REF)
+        assert torch.equal(got, fetch_tiles_torch(bank, g_start, rl, back,
+                                                  T=T, pad=PAD_REF))
+    pair = (gbank, qbank, g_start, q_start, rl, ql, back)
+    kw = dict(T=T, pad_ref=PAD_REF, pad_query=PAD_QUERY)
+    got = tile_fetch.fetch_tile_pair(*pair, **kw)
+    want = tile_fetch.fetch_tile_pair_torch(*pair, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert tile_fetch.fetch_tiles.launches == n + 4
+
+
+def test_walker_and_fetch_reject_bad_arguments(cuda):
+    dirm = torch.zeros((2, 8, 9), dtype=torch.uint8, device=cuda)
+    n2 = torch.zeros(2, dtype=torch.int32, device=cuda)
+    args = (dirm, n2, n2, n2.bool(), n2, n2)
+    for et in (0, traceback.MAX_ET + 1):
+        with pytest.raises(ValueError):
+            traceback.traceback(*args, early_terminate=et)
+    bank = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    kw = dict(T=8, pad_ref=1, pad_query=2)
+    with pytest.raises(ValueError):  # B differs between the sets
+        tile_fetch.fetch_tile_pair(bank, bank, n2.long(), n2[:1].long(), n2,
+                                   n2[:1], n2.bool(), **kw)
+    with pytest.raises(ValueError):
+        tile_fetch.fetch_tile_pair(bank, bank.cpu(), n2.long(), n2.long(),
+                                   n2, n2, n2.bool(), **kw)
+    with pytest.raises(ValueError):
+        tile_fetch.fetch_tile_pair(bank, bank, n2.long(), n2.long(), n2, n2,
+                                   n2.bool(), T=8, pad_ref=1, pad_query=256)
+
+
 def test_wrappers_reject_bad_arguments(cuda):
     ref, query, rlen, qlen, _ = _tiles(0, 8, 32, cuda)
     kw = dict(match=1, mismatch=-1, gap_open=-1, gap_extend=-1)

@@ -88,3 +88,44 @@ def test_traceback_dispatch():
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     with pytest.raises(ValueError):
         tb.traceback(*(a.to("meta") for a in args), early_terminate=8)
+
+
+def _longest_run(ops: np.ndarray, op: int) -> int:
+    """Longest run of op in any lane of an [B, S] op stream."""
+    best = 0
+    for row in ops:
+        run = 0
+        for v in row:
+            run = run + 1 if v == op else 0
+            best = max(best, run)
+    return best
+
+
+@pytest.mark.parametrize("T", [24, 64])
+def test_traceback_torch_matches_jax_on_walk_cases(T):
+    """chip_smoke.walk_cases, the adversarial tiles the card test runs
+    the windowed walker on, at two early_terminates: traceback_torch
+    equals traceback_jax, and the cases do what they claim (gap runs
+    past the window's 32 rows at T = 64, cut-offs on either axis, empty
+    walks)."""
+    import chip_smoke
+
+    cases = chip_smoke.walk_cases(np.random.default_rng(T), T)
+    for et in (T * 5 // 8, T):
+        raw, i_steps, j_steps = traceback_torch(
+            *(torch.from_numpy(x) for x in cases), early_terminate=et)
+        raw = raw.numpy()
+        ops, mbits, wi, wj = traceback_jax(*cases, early_terminate=et)
+        np.testing.assert_array_equal(raw & 3, np.asarray(ops).T)
+        np.testing.assert_array_equal(raw >= MATCH_BIT, np.asarray(mbits).T)
+        np.testing.assert_array_equal(i_steps.numpy(), np.asarray(wi))
+        np.testing.assert_array_equal(j_steps.numpy(), np.asarray(wj))
+        assert _longest_run(raw & 3, 2) == et
+        assert _longest_run(raw & 3, 1) == et
+        wi, wj = np.asarray(wi), np.asarray(wj)
+        assert ((wi == et) & (wj < et)).any()
+        assert ((wj == et) & (wi < et)).any()
+        assert not raw[11:13].any() and not raw[15].any()
+    if T == 64:
+        lane0 = raw[0] & 3
+        assert _longest_run(lane0[None], 2) > 32

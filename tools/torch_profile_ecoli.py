@@ -6,8 +6,8 @@ Builds the E.coli-shaped dataset (tools/ecoli_shape.py's recipe),
 times the port's pipeline stages with host timers (genome, banks and
 seed table once; D-SOFT and the engine over REPS warm runs), then runs
 the engine again under torch.profiler and reports its device busy and
-idle share, the device time by kernel, and the kernel launches per
-engine iteration.
+idle share, the device time by kernel (in all and a launch), and the
+kernel launches per engine iteration.
 The full per-kernel table goes to OUT_FILE, or to standard output
 when no OUT_FILE is given.
 """
@@ -95,6 +95,9 @@ def main() -> int:
              records=len(recs))
     print(f"host timers (D-SOFT and engine: median of {REPS} warm runs):",
           t, flush=True)
+    print(f"align_s: median {t['align_s']:.4f} s, spread "
+          f"{min(t['align_s_runs']):.4f}-{max(t['align_s_runs']):.4f} s over "
+          f"{REPS} warm runs", flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -123,7 +126,8 @@ def main() -> int:
           f"iteration over {iters} iterations", flush=True)
     rows = sorted(busy.items(), key=lambda kv: -kv[1])
     lines = [f"{v / 1e3:10.3f} ms {100 * v / total:5.1f}% "
-             f"{count[k]:7d}x  {k[:110]}" for k, v in rows]
+             f"{count[k]:7d}x {v / count[k] / 1e3:9.4f} ms each  {k[:100]}"
+             for k, v in rows]
     print("device time by kernel (top 12):")
     print("\n".join(lines[:12]), flush=True)
     full = ("\n".join(lines) + "\n\n"
