@@ -7,21 +7,25 @@ every part of its main path.
 Phases; any failure ends the run with a nonzero exit code:
 
 1. device: the card's name and power limit; the kernels are built from
-   darwin_tpu_torch/csrc (nvcc, sm_90a) and the build time printed;
+   darwin_tpu_torch/csrc (nvcc, sm_90a), the normal library and the
+   checked one (-DDTT_CHECKED) at once, the build time and the normal
+   library's registers a kernel printed;
 2. kernels: each CUDA kernel of the main paths against its plain
    PyTorch version on the card, bit-exact (every output is an integer):
    the DP, the three walkers (dir bytes, packed and packed6 words) at
-   B = 512 and T = 320, 64, 376 under three scoring sets, the byte
-   walker also on walk_cases' adversarial tiles, the span fetch as a
-   pair (fetch_tile_pair, the engine's form) and as one set on two
-   banks, the score-only SW at B = 64 on 200-3000 base pairs; with
-   kernel and plain times (CUDA events, median) at B = 512, T = 320,
-   ET = 200, and for SW at B = 64 on 3 kb pairs, each beside its bound
-   (bytes over the HBM rate or int32 operations over the int32 rate,
-   from this run's inputs) and, for the span fetch, the time of one
-   advanced-index gather of the banks (never taken on the path); the
-   main path's kernels and the gathers also as device time (device_ms:
-   a CUDA graph of 50 launches, replayed, over 50);
+   B = 512 and T = 320, 64, 376 under three scoring sets, the three
+   walkers also on walk_cases' adversarial tiles (packed by the plain
+   packers for the word walkers), the span fetch as a pair
+   (fetch_tile_pair, the engine's form) and as one set on two banks,
+   the score-only SW at B = 64 on 200-3000 base pairs and at its
+   tiling's edges (sw_edge_shapes); with kernel and plain times (CUDA
+   events, median) at B = 512, T = 320, ET = 200, and for SW at B = 64
+   on 3 kb pairs, each beside its bound (bytes over the HBM rate or
+   int32 operations over the int32 rate, from this run's inputs) and,
+   for the span fetch, the time of one advanced-index gather of the
+   banks (never taken on the path); the main path's kernels, SW, the
+   word walkers and the gathers also as device time (device_ms: a CUDA
+   graph of 50 launches, replayed, over 50);
 3. fixtures: darwin_tpu_torch.pipeline.run_pipeline on every
    tests/data fixture that has an out.darwin (the reference binary's
    output), under the device engine and under the host-stepped engine;
@@ -60,7 +64,15 @@ Phases; any failure ends the run with a nonzero exit code:
    overlapped by the port's CLI, then darwin_tpu_torch.eval.score_eval's
    main on the records, with the SW counter zeroed before and nonzero
    after; the exact scores of every theoretical pair, both strands, from
-   the SW kernel must equal the plain version's.
+   the SW kernel must equal the plain version's;
+7. the checked library, whose every global access traps out of its
+   allocation: an out-of-bounds launch (checked_trap) must end a child
+   process on it; then phase 2's inputs (checked_digests: the DP in
+   three formats and plane 2 at every TILES entry, the three walkers on
+   the DP's output and on walk_cases, the fetch at both bank ends, SW
+   at B = 64 and at its tiling's edges) run in another child
+   (``--checked``), which must exit 0 with every output equal to the
+   normal library's.
 
 The last three lines are a JSON summary of the kernels, nvidia-smi's
 name and power limit, and {"ok": true, "device": {...}}.  Without a
@@ -69,13 +81,22 @@ CUDA device it prints no result and exits 1.  It imports no JAX.
     python3 chip_smoke.py --root TREE
 
 instead builds and imports TREE's darwin_tpu_torch (an older commit
-unpacked beside the repo, or the repo itself) and only times its byte
-walker and span fetch on phase 2's inputs (phase_ab), so that two trees
-run in turns compare on one card in one sitting.
+unpacked beside the repo, or the repo itself), prints its normal
+library's registers a kernel (when it builds it), and only times its
+byte walker, span fetch, word walkers and SW on phase 2's inputs
+(phase_ab), so that two trees run in turns compare on one card in one
+sitting.
+
+    python3 chip_smoke.py --checked [--small | --trap]
+
+runs checked_digests on the checked library (phase 7's child; --small:
+one small input a kernel) and prints the digests as its last line, or
+(--trap) checked_trap, an out-of-bounds launch that must end it.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import json
 import statistics
@@ -150,7 +171,8 @@ KERNELS = {
 # The main path's kernels, whose device time (device_ms) is taken too;
 # the span fetch also in its one-set form, ONE_SET.
 ONE_SET = "fetch_tiles[one set]"
-DEVICE_TIMED = ("align_tiles", "traceback", "fetch_tiles", ONE_SET)
+DEVICE_TIMED = ("align_tiles", "traceback", "fetch_tiles", ONE_SET,
+                "traceback_packed", "traceback_packed6", "local_score_batch")
 # The keys of each entry of the kernels line.
 KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -166,6 +188,12 @@ ECOLI_RUNS = {
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _registers(report: str) -> list:
+    """nvcc -Xptxas -v's lines naming a kernel and its registers."""
+    return [ln.strip() for ln in report.splitlines()
+            if "registers" in ln or "Compiling entry" in ln]
 
 
 def nvidia_smi_line() -> str:
@@ -372,6 +400,11 @@ def walk_case_batch(rng, T: int, B: int):
     return tuple(np.concatenate(x)[:B] for x in zip(*parts))
 
 
+# The walkers' JSON names by dir format.
+WALKERS = {"bytes": "traceback", "packed": "traceback_packed",
+           "packed6": "traceback_packed6"}
+
+
 def _walker_pairs(fmt: str, ET: int, args):
     """(kernel, plain) closures of one walker on the same inputs."""
     from darwin_tpu_torch.ops import traceback as tb
@@ -399,6 +432,47 @@ def sw_pairs(rng, B: int, L: int):
     for b in range(B):
         src = acgt[rng.integers(0, 4, size=2 * L)]
         q = src[rng.integers(0, L // 2):].copy()
+        mut = rng.random(len(q)) < 0.1
+        q[mut] = acgt[rng.integers(0, 4, size=int(mut.sum()))]
+        ref[b, :rlen[b]] = src[:rlen[b]]
+        query[b, :qlen[b]] = q[:qlen[b]]
+    return ref, query, rlen, qlen
+
+
+def sw_edge_shapes() -> list:
+    """(LR, LQ) at the SW kernel's tiling edges (W = swscore.WARPS warps
+    a block, C = 2..16 columns a lane): the query one below, at and one
+    above W * 32 * 2 columns (the least C's pass) and W * 32 * 16 (the
+    most C's: above it a second pass), two and three passes under short
+    and long refs (the pass period set by the warps' lag or by LR),
+    refs shorter than W rows, and one-row and one-column pairs."""
+    from darwin_tpu_torch.ops.swscore import SW_STRIPS, WARPS
+
+    low, one = 32 * SW_STRIPS[0] * WARPS, 32 * SW_STRIPS[-1] * WARPS
+    return [(1, 1), (1, 33), (WARPS - 1, low - 1), (WARPS - 1, low),
+            (40, low + 1), (3, one - 1), (40, one), (WARPS - 1, one + 1),
+            (300, one + 1), (2, 2 * one + 3), (33, 1)]
+
+
+def sw_edge_pairs(rng, B: int, LR: int, LQ: int):
+    """[B, LR] / [B, LQ] pairs as sw_pairs makes them, lengths random in
+    1..L; lane 0 has an empty ref, lane 1 an empty query, lane 2 (and
+    lane 0 of a batch of one) both at full length."""
+    import numpy as np
+
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ref = np.zeros((B, LR), np.uint8)
+    query = np.zeros((B, LQ), np.uint8)
+    rlen = rng.integers(1, LR + 1, size=B).astype(np.int32)
+    qlen = rng.integers(1, LQ + 1, size=B).astype(np.int32)
+    if B >= 3:
+        rlen[0] = qlen[1] = 0
+        rlen[2], qlen[2] = LR, LQ
+    else:
+        rlen[0], qlen[0] = LR, LQ
+    for b in range(B):
+        src = acgt[rng.integers(0, 4, size=LR + LQ)]
+        q = src[rng.integers(0, LR + 1):].copy()
         mut = rng.random(len(q)) < 0.1
         q[mut] = acgt[rng.integers(0, 4, size=int(mut.sum()))]
         ref[b, :rlen[b]] = src[:rlen[b]]
@@ -483,22 +557,21 @@ def phase_kernels(dev) -> dict:
 
     from darwin_tpu_torch.lab.geom_sweep import max_abs_err
     from darwin_tpu_torch.ops.common import PAD_QUERY, PAD_REF
-    from darwin_tpu_torch.ops.dp import align_tiles
+    from darwin_tpu_torch.ops.dp import PACKERS, align_tiles
     from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
     from darwin_tpu_torch.ops.swscore import (local_score_batch,
                                               local_score_batch_torch)
+    from darwin_tpu_torch.ops.swscore import run_kernel as sw_kernel
     from darwin_tpu_torch.ops.tile_fetch import (fetch_tile_pair,
                                                  fetch_tile_pair_torch,
                                                  fetch_tiles,
                                                  fetch_tiles_torch)
 
-    walkers = {"bytes": "traceback", "packed": "traceback_packed",
-               "packed6": "traceback_packed6"}
     rng = np.random.default_rng(0)
     wrng = np.random.default_rng(1)
     res = {k: {"max_abs_err": 0} for k in
            ("align_tiles", "fetch_tiles", "local_score_batch",
-            *walkers.values())}
+            *WALKERS.values())}
     timed = {}
     library = {}  # one PyTorch call computing a kernel's function
     for T, ET in TILES:
@@ -519,7 +592,7 @@ def phase_kernels(dev) -> dict:
                     lambda a=a, kw=kw: align_tiles_torch(*a, **kw))
                 res["align_tiles"].update(dp_bound(*a, got))
             walks = []
-            for fmt, name in walkers.items():
+            for fmt, name in WALKERS.items():
                 out = (got if fmt == "bytes" else
                        align_tiles(ref, query, rlen, qlen, dir_format=fmt,
                                    **kw))
@@ -539,17 +612,19 @@ def phase_kernels(dev) -> dict:
                 raise AssertionError(f"kernel mismatch at T={T} {sc}")
             for k, e in errs.items():
                 res[k]["max_abs_err"] = max(res[k]["max_abs_err"], e)
-        args = [torch.from_numpy(x).to(dev)
-                for x in walk_case_batch(wrng, T, B_MAIN)]
-        kernel, plain = _walker_pairs("bytes", ET, args)
-        g = kernel()
-        e = max_abs_err(dict(enumerate(g)), dict(enumerate(plain())))
-        log(f"  T={T} ET={ET} walk_cases: error {e}, mean walk "
-            f"{float((g[1] + g[2]).float().mean()):.1f} steps")
-        if e:
-            raise AssertionError(f"byte walker mismatch on walk_cases, T={T}")
-        res["traceback"]["max_abs_err"] = max(res["traceback"]["max_abs_err"],
-                                              e)
+        dirm, *rest = (torch.from_numpy(x).to(dev)
+                       for x in walk_case_batch(wrng, T, B_MAIN))
+        for fmt, name in WALKERS.items():
+            packer = PACKERS[fmt]
+            kernel, plain = _walker_pairs(
+                fmt, ET, (dirm if packer is None else packer(dirm), *rest))
+            g = kernel()
+            e = max_abs_err(dict(enumerate(g)), dict(enumerate(plain())))
+            log(f"  T={T} ET={ET} walk_cases, {name}: error {e}, mean walk "
+                f"{float((g[1] + g[2]).float().mean()):.1f} steps")
+            if e:
+                raise AssertionError(f"{name} mismatch on walk_cases, T={T}")
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], e)
 
     # The span fetch in both forms: the pair (the engine's one launch an
     # iteration) and one set.
@@ -601,6 +676,20 @@ def phase_kernels(dev) -> dict:
             raise AssertionError(f"SW mismatch under {sc}")
         res["local_score_batch"]["max_abs_err"] = max(
             res["local_score_batch"]["max_abs_err"], e)
+    # At the tiling's edges, from a generator of its own.
+    erng = np.random.default_rng(4)
+    for LR, LQ in sw_edge_shapes():
+        edge = [torch.from_numpy(x).to(dev)
+                for x in sw_edge_pairs(erng, SW_B, LR, LQ)]
+        for sc in SCORINGS:
+            kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                          sc))
+            e = max_abs_err({0: local_score_batch(*edge, **kw)},
+                            {0: local_score_batch_torch(*edge, **kw)})
+            if e:
+                raise AssertionError(f"SW mismatch at LR={LR} LQ={LQ} {sc}")
+    log(f"  SW B={SW_B} at {len(sw_edge_shapes())} edge shapes x "
+        f"{len(SCORINGS)} scorings: exact")
     # Timed on pairs of exactly 3 kb.
     sw[2].fill_(SW_LEN)
     sw[3].fill_(SW_LEN)
@@ -632,6 +721,17 @@ def phase_kernels(dev) -> dict:
         log(f"  {name} at {shape}: kernel {r['ms']:.4f} ms{device}, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    # SW's device time by warps a block (local_score_batch takes
+    # swscore.WARPS) on the timed pairs, and at the default on eight times
+    # as many (the same pairs repeated: blocks share SMs).
+    by_warps = {w: graph_ms(lambda w=w: sw_kernel(*sw, warps=w, **kw))
+                for w in (4, 8, 16)}
+    sw8 = [x.repeat(8, *[1] * (x.dim() - 1)) for x in sw]
+    b8 = graph_ms(lambda: sw_kernel(*sw8, **kw), n=10)
+    res["local_score_batch"].update(device_ms_by_warps=by_warps,
+                                    device_ms_8x_pairs=b8)
+    log(f"  local_score_batch device ms by warps a block: {by_warps}; "
+        f"B={8 * SW_B} at {SW_LEN}x{SW_LEN}: {b8:.4f} ms")
     one_set = res.pop(ONE_SET)
     res["fetch_tiles"]["one_set"] = one_set
     log(f"  fetch: the pair's device time is "
@@ -1005,37 +1105,215 @@ def phase_scoreeval(dev) -> int:
     return launches
 
 
+def _digest(outs) -> str:
+    """sha256 (16 hex digits) of a kernel's outputs: a tensor, a tuple of
+    them or a dict of them in key order."""
+    if isinstance(outs, dict):
+        outs = [outs[k] for k in sorted(outs)]
+    elif not isinstance(outs, (tuple, list)):
+        outs = [outs]
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(str((t.dtype, tuple(t.shape))).encode())
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def checked_digests(dev, small: bool = False) -> dict:
+    """{case: digest of its outputs} of phase 2's inputs through the
+    library _build.CHECKED selects: the DP in three formats and plane 2
+    at every TILES entry and scoring, each walker on the DP's output and
+    on walk_cases, the span fetch (pair and one set) at every TILES
+    entry on both bank ends, SW on phase 2's pairs and at its tiling's
+    edges.  small: B = 36, the tile size 64 and one scoring.  On the
+    checked library each case's name goes to stderr before it runs, so
+    that a trap names it."""
+    import numpy as np
+    import torch
+
+    from darwin_tpu_torch.ops.common import PAD_QUERY, PAD_REF
+    from darwin_tpu_torch.ops.dp import PACKERS, align_tiles
+    from darwin_tpu_torch.ops.plane2 import plane2
+    from darwin_tpu_torch.ops.swscore import local_score_batch
+    from darwin_tpu_torch.ops.tile_fetch import fetch_tile_pair, fetch_tiles
+    from darwin_tpu_torch.ops.traceback import WALKERS as WALK_FNS
+
+    B = 36 if small else B_MAIN
+    tiles = TILES[1:2] if small else TILES
+    scorings = SCORINGS[:1] if small else SCORINGS
+    res = {}
+
+    from darwin_tpu_torch import _build
+
+    def run(case, fn):
+        if _build.CHECKED:  # a trap ends the run: name its case first
+            print(f"checked: {case}", file=sys.stderr, flush=True)
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        res[case] = _digest(out)
+        return out
+
+    rng, wrng = np.random.default_rng(0), np.random.default_rng(1)
+    for T, ET in tiles:
+        ref, query, rlen, qlen = (torch.from_numpy(x).to(dev) for x in
+                                  related_tiles(rng, B, T))
+        first = torch.from_numpy(rng.random(B) < 0.5).to(dev)
+        for sc in scorings:
+            kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                          sc))
+            for fmt, (key, walk) in WALK_FNS.items():
+                out = run(f"align_tiles[{fmt}] T={T} {sc}",
+                          lambda: align_tiles(ref, query, rlen, qlen,
+                                              dir_format=fmt, **kw))
+                args = (out[key], rlen, qlen, first, out["max_i"],
+                        out["max_j"])
+                run(f"{WALKERS[fmt]} T={T} {sc}",
+                    lambda: walk(*args, early_terminate=ET))
+            run(f"plane2 T={T} {sc}",
+                lambda: plane2(ref, query, rlen, qlen, **kw))
+        dirm, *rest = (torch.from_numpy(x).to(dev)
+                       for x in walk_case_batch(wrng, T, B))
+        for fmt, (_, walk) in WALK_FNS.items():
+            packer = PACKERS[fmt]
+            args = (dirm if packer is None else packer(dirm), *rest)
+            run(f"{WALKERS[fmt]} T={T} walk_cases",
+                lambda: walk(*args, early_terminate=ET))
+
+    frng = np.random.default_rng(2)
+    gbank, qbank = fetch_banks(frng, dev)
+    for T, _ in TILES:
+        g_start, rl = fetch_spans(frng, gbank.shape[0], T, dev)
+        q_start, ql = fetch_spans(frng, qbank.shape[0], T, dev)
+        back = torch.from_numpy(frng.random(B_MAIN) < 0.5).to(dev)
+        if small and T != tiles[0][0]:
+            continue
+        run(f"fetch_tile_pair T={T}", lambda: fetch_tile_pair(
+            gbank, qbank, g_start, q_start, rl, ql, back, T=T,
+            pad_ref=PAD_REF, pad_query=PAD_QUERY))
+        for name, bank, start, length, pad in (
+                ("genome", gbank, g_start, rl, PAD_REF),
+                ("reads", qbank, q_start, ql, PAD_QUERY)):
+            run(f"fetch_tiles {name} T={T}", lambda: fetch_tiles(
+                bank, start, length, back, T=T, pad=pad))
+
+    sw = [torch.from_numpy(x).to(dev)
+          for x in sw_pairs(np.random.default_rng(3), SW_B, SW_LEN)]
+    erng = np.random.default_rng(4)
+    shapes = [(f"LR={LR} LQ={LQ}", [torch.from_numpy(x).to(dev) for x in
+                                     sw_edge_pairs(erng, SW_B, LR, LQ)])
+              for LR, LQ in sw_edge_shapes()]
+    for tag, pairs in ([] if small else [("pairs", sw)]) + shapes:
+        for sc in scorings:
+            kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                          sc))
+            run(f"local_score_batch {tag} {sc}",
+                lambda: local_score_batch(*pairs, **kw))
+    return res
+
+
+def checked_trap(dev) -> None:
+    """The checked library's control: one walker launch told B = 4 over
+    tensors of two tiles (the wrapper's checks bypassed), which reads
+    and writes past its allocations and must trap."""
+    import torch
+
+    from darwin_tpu_torch import _build
+
+    T = 8
+    d = torch.zeros((2, T, T + 1), dtype=torch.uint8, device=dev)
+    n = torch.full((2,), T, dtype=torch.int32, device=dev)
+    raw = torch.empty((2, 2 * T - 1), dtype=torch.uint8, device=dev)
+    _build.launch("dtt_traceback", dev, d, n, n, n.bool(), n, n, 4, T, T,
+                  raw, n.clone(), n.clone())
+    torch.cuda.synchronize()
+
+
+def _checked_child(*flags) -> subprocess.CompletedProcess:
+    """This script with --checked and flags, in a child process."""
+    return subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--checked", *flags], capture_output=True,
+                          text=True, timeout=900, cwd=REPO)
+
+
+def phase_checked(dev) -> dict:
+    """Phase 7: checked_trap must end a child process on the checked
+    library; then checked_digests in another, against this process's on
+    the normal library.  Returns {kernel: cases} run."""
+    r = _checked_child("--trap")
+    if r.returncode == 0:
+        raise AssertionError("the checked library did not trap on an "
+                             "out-of-bounds launch")
+    log(f"  control: an out-of-bounds launch ends its process (exit "
+        f"{r.returncode}: {r.stderr.strip().splitlines()[-1][-120:]})")
+    want = checked_digests(dev)
+    t0 = time.perf_counter()
+    r = _checked_child()
+    if r.returncode != 0:
+        raise AssertionError(f"the checked library's run exited "
+                             f"{r.returncode}:\n{r.stderr[-3000:]}")
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    differ = sorted(k for k in want.keys() | got.keys()
+                    if got.get(k) != want.get(k))
+    if differ:
+        raise AssertionError(f"checked library's outputs differ: "
+                             f"{differ[:5]} ({len(differ)} cases)")
+    cases = {}
+    for k in want:
+        name = k.split(" ")[0].split("[")[0]
+        cases[name] = cases.get(name, 0) + 1
+    log(f"  {len(want)} cases, no trap, every output equal to the normal "
+        f"library's ({time.perf_counter() - t0:.1f} s): {cases}")
+    return cases
+
+
 def phase_ab(dev, reps: int = 20) -> dict:
-    """The imported tree's byte walker and span fetch on phase 2's
-    inputs at T_MAIN (its first draws; first scoring): the walker, one
-    fetch_tiles call, and two (one an engine iteration before
-    fetch_tile_pair), each as the median of reps event-timed calls (ms)
-    and as device_ms, with each call's output sum, which must agree
-    between trees.  Uses only calls whose signatures every version of
-    the port has kept."""
+    """The imported tree's walkers, span fetch and SW on phase 2's
+    inputs at T_MAIN (its first draws; first scoring): the byte walker
+    and both word walkers, one fetch_tiles call, and two (one an engine
+    iteration before fetch_tile_pair), and SW at SW_B on SW_LEN-base
+    pairs, each as the median of reps event-timed calls (ms) and as
+    device_ms, with each call's output sum, which must agree between
+    trees.  Uses only calls whose signatures every version of the port
+    that has the word walkers and SW has kept."""
     import numpy as np
     import torch
 
     from darwin_tpu_torch.ops.common import PAD_QUERY, PAD_REF
     from darwin_tpu_torch.ops.dp import align_tiles
+    from darwin_tpu_torch.ops.swscore import local_score_batch
     from darwin_tpu_torch.ops.tile_fetch import fetch_tiles
-    from darwin_tpu_torch.ops.traceback import traceback
+    from darwin_tpu_torch.ops.traceback import (traceback, traceback_packed,
+                                                 traceback_packed6)
 
     rng = np.random.default_rng(0)
     ref, query, rlen, qlen = (torch.from_numpy(x).to(dev) for x in
                               related_tiles(rng, B_MAIN, T_MAIN))
     first = torch.from_numpy(rng.random(B_MAIN) < 0.5).to(dev)
-    out = align_tiles(ref, query, rlen, qlen, **dict(zip(
-        ("match", "mismatch", "gap_open", "gap_extend"), SCORINGS[0])))
-    walk = (out["dir"], rlen, qlen, first, out["max_i"], out["max_j"])
+    kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                  SCORINGS[0]))
+    walks = {}
+    for fmt in ("bytes", "packed", "packed6"):
+        out = align_tiles(ref, query, rlen, qlen, dir_format=fmt, **kw)
+        walks[fmt] = (out["dir" if fmt == "bytes" else "dir_words"], rlen,
+                      qlen, first, out["max_i"], out["max_j"])
     ET = dict(TILES)[T_MAIN]
+    sw = [torch.from_numpy(x).to(dev)
+          for x in sw_pairs(np.random.default_rng(3), SW_B, SW_LEN)]
+    sw[2].fill_(SW_LEN)
+    sw[3].fill_(SW_LEN)
     frng = np.random.default_rng(2)
     gbank, qbank = fetch_banks(frng, dev)
     g_start, rl = fetch_spans(frng, gbank.shape[0], T_MAIN, dev)
     q_start, ql = fetch_spans(frng, qbank.shape[0], T_MAIN, dev)
     back = torch.from_numpy(frng.random(B_MAIN) < 0.5).to(dev)
     calls = {
-        "walker": lambda: traceback(*walk, early_terminate=ET),
+        "walker": lambda: traceback(*walks["bytes"], early_terminate=ET),
+        "walker_packed": lambda: traceback_packed(*walks["packed"],
+                                                  early_terminate=ET),
+        "walker_packed6": lambda: traceback_packed6(*walks["packed6"],
+                                                    early_terminate=ET),
+        "sw": lambda: (local_score_batch(*sw, **kw),),
         "fetch_one_set": lambda: (fetch_tiles(qbank, q_start, ql, back,
                                               T=T_MAIN, pad=PAD_QUERY),),
         "fetch_two_sets": lambda: (
@@ -1057,8 +1335,15 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", help="time only this tree's walker and "
-                    "fetch (phase_ab)")
+    ap.add_argument("--root", help="time only this tree's walkers, fetch "
+                    "and SW (phase_ab)")
+    ap.add_argument("--checked", action="store_true",
+                    help="print checked_digests of the checked library "
+                         "(phase 7's child)")
+    ap.add_argument("--small", action="store_true",
+                    help="with --checked: one small input a kernel")
+    ap.add_argument("--trap", action="store_true",
+                    help="with --checked: run checked_trap instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1072,45 +1357,61 @@ def main(argv=None) -> int:
     from darwin_tpu_torch.ops.tile_fetch import fetch_tiles
 
     dev = torch.device("cuda", 0)
+    if args.checked:
+        _build.CHECKED = True
+        if args.trap:
+            checked_trap(dev)
+            print("checked_trap: no trap", file=sys.stderr)
+            return 0
+        print(json.dumps(checked_digests(dev, small=args.small)))
+        return 0
     smi = nvidia_smi_line()
     if args.root:
         if not Path(_build.__file__).resolve().is_relative_to(root):
             raise AssertionError(f"imported {_build.__file__}, not {root}'s")
+        report = _build.build()
         _build.lib()
         print(json.dumps({"root": str(root), "device": smi,
+                          "registers": _registers(report),
                           **phase_ab(dev)}))
         return 0
-    log(f"[1/6] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
+    log(f"[1/7] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    report = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        checked = pool.submit(_build.build, True)
+        report = _build.build()
+        checked.result()
     _build.lib()
-    log(f"  kernels built in {time.perf_counter() - t0:.1f} s -> {_build.LIB}")
-    for line in report.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            log("  " + line.strip())
+    log(f"  kernels built in {time.perf_counter() - t0:.1f} s -> {_build.LIB} "
+        f"and {_build.LIB_CHECKED.name}")
+    for line in _registers(report):
+        log("  " + line)
 
-    log("[2/6] kernels against their plain versions (tolerance 0)")
+    log("[2/7] kernels against their plain versions (tolerance 0)")
     kres = phase_kernels(dev)
-    log("[3/6] fixtures against the reference binary's out.darwin, both "
+    log("[3/7] fixtures against the reference binary's out.darwin, both "
         "engines")
     t0 = time.perf_counter()
     phase_fixtures(dev)
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
-    log("[4/6] E.coli-shaped slice: device engine in each tb_format, host "
+    log("[4/7] E.coli-shaped slice: device engine in each tb_format, host "
         "engine")
     counters = {"align_tiles": align_tiles, "traceback": tb.traceback,
                 "traceback_packed": tb.traceback_packed,
                 "traceback_packed6": tb.traceback_packed6,
                 "fetch_tiles": fetch_tiles}
     launches = phase_ecoli(dev, counters)
-    log("[5/6] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
+    log("[5/7] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
         "against its plain version")
     t0 = time.perf_counter()
     lres, llaunches = phase_lab(dev)
     log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
-    log("[6/6] score evaluator (darwin_tpu_torch.eval.score_eval)")
+    log("[6/7] score evaluator (darwin_tpu_torch.eval.score_eval)")
     launches["local_score_batch"] = phase_scoreeval(dev)
+    log("[7/7] phase 2's inputs through the checked library, in a child "
+        "process")
+    phase_checked(dev)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 

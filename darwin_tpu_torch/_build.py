@@ -8,6 +8,15 @@ plain C interface that is bound with ctypes.  The build happens at first
 use (never at import) and again whenever a source or header in csrc/ is
 newer than the library.  Each C entry launches on the stream it is given
 and returns ``cudaGetLastError()``; ``launch`` raises if that is not 0.
+
+The checked library, ``_build/libdtt_kernels_checked.so``, is the same
+sources built with ``-DDTT_CHECKED`` (csrc/checked.cuh): every global
+load and store of the kernels traps when it falls outside the
+allocation it addresses.  ``launch`` takes it instead of the normal
+one while ``CHECKED`` is true (the environment's ``DTT_CHECKED=1`` sets
+it at import), and hands the kernels each tensor argument's storage
+extent first.  A trap ends the process's CUDA context: run the checked
+library in a process of its own (``python3 chip_smoke.py --checked``).
 """
 
 from __future__ import annotations
@@ -24,6 +33,9 @@ import torch
 _DIR = Path(__file__).resolve().parent
 CSRC = _DIR / "csrc"
 LIB = _DIR / "_build" / "libdtt_kernels.so"
+LIB_CHECKED = _DIR / "_build" / "libdtt_kernels_checked.so"
+# Whether launch() takes the checked library.
+CHECKED = os.environ.get("DTT_CHECKED", "") == "1"
 # -Xptxas -v reports registers / shared memory / spills per kernel;
 # build() returns that report.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -42,13 +54,15 @@ _SIGNATURES = {
     "dtt_scanshift": [_P, _I, _I, _I, _I, _P, _P],
     "dtt_traceback_words": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _P, _P, _P, _P],
-    "dtt_local_score": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    "dtt_local_score": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P],
 }
+# The checked library's one more entry: the extents of the next launch.
+_SET_EXTENTS = ("dtt_set_extents", [_I, _P, _P])
 
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-_entries: dict = {}  # entry name -> bound ctypes function
+_locks = {False: threading.Lock(), True: threading.Lock()}
+_libs: dict = {}  # checked -> loaded ctypes.CDLL
+_entries: dict = {}  # (checked, entry name) -> bound ctypes function
 
 
 def _nvcc() -> str:
@@ -59,24 +73,28 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> str:
-    """Compile csrc/*.cu into LIB unless it is newer than every source
-    and header.
+def build(checked: bool = False) -> str:
+    """Compile csrc/*.cu into LIB (LIB_CHECKED with -DDTT_CHECKED when
+    checked) unless it is newer than every source and header.
 
     Returns nvcc's report (ptxas resource usage), or "" when the
     library was up to date.  Writes to a temporary name first, so a
-    concurrent process never loads a half-written library."""
+    concurrent process never loads a half-written library.  The two
+    libraries may build at once, from two threads."""
     sources = sorted(CSRC.glob("*.cu"))
     newest = max(s.stat().st_mtime for s in CSRC.glob("*.cu*"))
-    with _lock:
-        if LIB.exists() and LIB.stat().st_mtime >= newest:
+    out = LIB_CHECKED if checked else LIB
+    flags = [*NVCC_FLAGS, "-DDTT_CHECKED"] if checked else NVCC_FLAGS
+    with _locks[checked]:
+        if out.exists() and out.stat().st_mtime >= newest:
             return ""
-        LIB.parent.mkdir(exist_ok=True)
+        out.parent.mkdir(exist_ok=True)
         tag = f"{os.getpid()}.tmp"
-        objs = [LIB.with_name(f".{s.stem}.{tag}.o") for s in sources]
+        objs = [out.with_name(f".{out.stem}.{s.stem}.{tag}.o")
+                for s in sources]
         try:
             procs = [subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                [_nvcc(), *flags, "-c", str(s), "-o", str(o)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                 for s, o in zip(sources, objs)]
             try:
@@ -90,7 +108,7 @@ def build() -> str:
                 if p.returncode != 0:
                     raise RuntimeError(
                         f"nvcc failed on {s.name}:\n{err[-4000:]}")
-            tmp = LIB.with_name(f".{LIB.name}.{tag}")
+            tmp = out.with_name(f".{out.name}.{tag}")
             proc = subprocess.run(
                 [_nvcc(), "-shared", *map(str, objs), "-o", str(tmp)],
                 capture_output=True, text=True, timeout=300)
@@ -99,29 +117,34 @@ def build() -> str:
                 o.unlink(missing_ok=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{proc.stderr[-4000:]}")
-        os.replace(tmp, LIB)
+        os.replace(tmp, out)
         return "".join(report)
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    global _lib
-    if _lib is None:
-        build()
-        with _lock:
-            if _lib is None:
-                so = ctypes.CDLL(str(LIB))
-                for name, argtypes in _SIGNATURES.items():
+def lib(checked: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library (the checked one when checked), built
+    first if needed."""
+    so = _libs.get(checked)
+    if so is None:
+        build(checked)
+        with _locks[checked]:
+            so = _libs.get(checked)
+            if so is None:
+                so = ctypes.CDLL(str(LIB_CHECKED if checked else LIB))
+                sigs = dict(_SIGNATURES)
+                if checked:
+                    sigs[_SET_EXTENTS[0]] = _SET_EXTENTS[1]
+                for name, argtypes in sigs.items():
                     fn = getattr(so, name)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
-                _lib = so
-    return _lib
+                _libs[checked] = so
+    return so
 
 
 def arg(t: torch.Tensor, name: str, dtype: torch.dtype,
-        shape: tuple, device: torch.device) -> int:
-    """Check one kernel argument and return its data pointer."""
+        shape: tuple, device: torch.device) -> torch.Tensor:
+    """Check one kernel argument and return it."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -131,7 +154,7 @@ def arg(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
-    return t.data_ptr()
+    return t
 
 
 def require_cuda(t: torch.Tensor, what: str) -> torch.device:
@@ -143,13 +166,32 @@ def require_cuda(t: torch.Tensor, what: str) -> torch.device:
     return t.device
 
 
+def _set_extents(tensors: list) -> None:
+    """Hand the checked library the storage extents of a launch's
+    tensors."""
+    spans = [(s.data_ptr(), s.data_ptr() + s.nbytes())
+             for s in (t.untyped_storage() for t in tensors)]
+    n = len(spans)
+    lo = (ctypes.c_ulonglong * n)(*(a for a, _ in spans))
+    hi = (ctypes.c_ulonglong * n)(*(b for _, b in spans))
+    rc = lib(True).dtt_set_extents(n, lo, hi)
+    if rc != 0:
+        raise RuntimeError(f"dtt_set_extents: error {rc} ({n} extents)")
+
+
 def launch(entry: str, device: torch.device, *args) -> None:
-    """Call one C entry on device's current stream; raise on a CUDA
-    error code.  The entry is resolved once, and the current device is
-    switched only when it is not already device."""
-    fn = _entries.get(entry)
+    """Call one C entry on device's current stream, tensors passed as
+    their data pointers; raise on a CUDA error code.  The entry is
+    resolved once, and the current device is switched only when it is
+    not already device."""
+    checked = CHECKED
+    fn = _entries.get((checked, entry))
     if fn is None:
-        fn = _entries[entry] = getattr(lib(), entry)
+        fn = _entries[checked, entry] = getattr(lib(checked), entry)
+    if checked:
+        _set_extents([a for a in args if isinstance(a, torch.Tensor)])
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
     current = torch.cuda.current_device()
     index = current if device.index is None else device.index
     stream = torch.cuda.current_stream(index).cuda_stream

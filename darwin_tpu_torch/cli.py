@@ -135,14 +135,19 @@ def main(argv: list[str] | None = None) -> int:
     print(f"Batch size: {batch_size}, output ranges: {args.num_ranges}, "
           f"device: {device}")
     engine = "device" if args.engine == "auto" else args.engine
-    # host_native: whether the host stages ran the native library or
-    # their NumPy fallbacks.
+    # darwin_tpu.cli's keys (seconds as *_ms), and the port's own:
+    # host_native says whether the host stages ran the native library or
+    # their NumPy fallbacks.  dsoft: the port's D-SOFT runs on the host.
     metrics: dict = {"batch_size": batch_size, "device": str(device),
-                     "engine": engine, "host_native": native.available()}
+                     "engine": engine, "dsoft": "host",
+                     "host_native": native.available()}
 
     t_start = time.perf_counter()
     ref_records = parse_fasta(args.reference)
     genome = Genome(ref_records, params.bin_size)
+    metrics["ref_load_ms"] = (time.perf_counter() - t_start) * 1e3
+    metrics["ref_length"] = int(genome.total_length)
+    t0 = time.perf_counter()
     chunked = bool(args.chunk_reads) and not same_file
     if args.chunk_reads and same_file:
         print("--chunk-reads ignored: self-overlap mode needs the "
@@ -159,6 +164,8 @@ def main(argv: list[str] | None = None) -> int:
         print(f"Reference length: {genome.total_length}, "
               f"{len(ref_records)} pieces; number of reads: "
               f"{len(read_records)}")
+    metrics["read_load_ms"] = (0.0 if chunked
+                               else (time.perf_counter() - t0) * 1e3)
 
     num_reads = 0 if chunked else len(read_records)
     per = max(1, -(-num_reads // max(1, args.num_ranges)))
@@ -194,6 +201,7 @@ def main(argv: list[str] | None = None) -> int:
             table.save(args.seed_table)
         print(f"Seed table built: {len(table.pos)} minimizers")
     metrics["seed_table_s"] = time.perf_counter() - t0
+    metrics["seed_table_ms"] = metrics["seed_table_s"] * 1e3
 
     out_dir.mkdir(parents=True, exist_ok=True)
     all_lines: list[str] = []
@@ -275,6 +283,8 @@ def main(argv: list[str] | None = None) -> int:
         metrics.update(
             wall_s=wall, num_candidates=n_cand,
             num_records=len(all_lines),
+            seed_ms=metrics.get("seed_s", 0.0) * 1e3,
+            gact_ms=metrics.get("align_s", 0.0) * 1e3,
             reads_per_s=num_reads / max(1e-9, metrics.get("seed_s", 0.0)
                                         + metrics.get("align_s", 0.0)))
         Path(args.metrics_json).write_text(

@@ -80,7 +80,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "checked.cuh"
+
 namespace {
+
+using dtt::at;
 
 constexpr int NEG_INF = 1 << 30;
 constexpr int GAP_OPEN_FLAG_I = 8;
@@ -145,7 +149,7 @@ __device__ __forceinline__ void copy_row(uint8_t* dst, const uint8_t* src,
                                          int n, int qv, int lane) {
   const int h = min((4 - static_cast<int>(
                               reinterpret_cast<uintptr_t>(dst) & 3)) & 3, n);
-  if (lane < h) dst[lane] = lane <= qv ? src[lane] : 0;
+  if (lane < h) at(dst, lane) = lane <= qv ? src[lane] : 0;
   const int nw = (n - h) >> 2;
   uint32_t* d32 = reinterpret_cast<uint32_t*>(dst + h);
   const uint32_t* s32 = reinterpret_cast<const uint32_t*>(src);
@@ -153,10 +157,10 @@ __device__ __forceinline__ void copy_row(uint8_t* dst, const uint8_t* src,
     uint32_t w = __funnelshift_r(s32[x], s32[x + 1], 8 * h);
     const int nv = qv - (h + 4 * x) + 1;  // the word's bytes up to qv
     if (nv < 4) w = nv <= 0 ? 0 : w & ((1u << (8 * nv)) - 1);
-    d32[x] = w;
+    at(d32, x) = w;
   }
   for (int x = h + 4 * nw + lane; x < n; x += 32) {
-    dst[x] = x <= qv ? src[x] : 0;
+    at(dst, x) = x <= qv ? src[x] : 0;
   }
 }
 
@@ -165,11 +169,11 @@ __device__ __forceinline__ void zero_bytes(uint8_t* p, size_t n, int lane) {
   const size_t h = min(static_cast<size_t>(
                            (16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15),
                        n);
-  if (static_cast<size_t>(lane) < h) p[lane] = 0;
+  if (static_cast<size_t>(lane) < h) at(p, lane) = 0;
   const size_t n16 = (n - h) >> 4;
   uint4* q = reinterpret_cast<uint4*>(p + h);
-  for (size_t x = lane; x < n16; x += 32) q[x] = make_uint4(0, 0, 0, 0);
-  for (size_t x = h + 16 * n16 + lane; x < n; x += 32) p[x] = 0;
+  for (size_t x = lane; x < n16; x += 32) at(q, x) = make_uint4(0, 0, 0, 0);
+  for (size_t x = h + 16 * n16 + lane; x < n; x += 32) at(p, x) = 0;
 }
 
 // The warp writes DP row r (1-based) of tile b from its ring: bytes
@@ -180,27 +184,27 @@ __device__ __forceinline__ void emit_row(const Args& a, int b, int r,
                                          const uint8_t* ring, int rl,
                                          int qv, int lane) {
   const int TJ = a.T + 1;
-  const size_t at = (static_cast<size_t>(b) * a.T + (r - 1)) * TJ;
+  const size_t off = (static_cast<size_t>(b) * a.T + (r - 1)) * TJ;
   const uint8_t* r0 = ring_row<C, FMT>(ring, r, rl);
   if constexpr (FMT == kBytes) {
-    copy_row(static_cast<uint8_t*>(a.dir) + at, r0, TJ, qv, lane);
+    copy_row(static_cast<uint8_t*>(a.dir) + off, r0, TJ, qv, lane);
   } else {
     const uint8_t* r1 = ring_row<C, FMT>(ring, r - 1, rl);
-    int* words = static_cast<int*>(a.dir) + at;
+    int* words = static_cast<int*>(a.dir) + off;
     // Every field's column lies in c - 3 .. c + 1 (kPadL zero columns
     // on the left, zero columns past qlen on the right).
     for (int c = lane; c < TJ; c += 32) {
       if constexpr (FMT == kPacked) {
-        words[c] = r0[c] | r0[c + 1] << 8 | r1[c] << 16 | r1[c + 1] << 24;
+        at(words, c) = r0[c] | r0[c + 1] << 8 | r1[c] << 16 | r1[c + 1] << 24;
       } else {
         const uint8_t* r2 = ring_row<C, FMT>(ring, r - 2, rl);
         const uint8_t* r3 = ring_row<C, FMT>(ring, r - 3, rl);
-        words[c] = r0[c] | r0[c + 1] << 5 | r1[c] << 10 | r1[c + 1] << 15 |
-                   r2[c - 1] << 20 | r3[c - 2] << 25;
+        at(words, c) = r0[c] | r0[c + 1] << 5 | r1[c] << 10 |
+                       r1[c + 1] << 15 | r2[c - 1] << 20 | r3[c - 2] << 25;
         if constexpr (FMT == kPlane2) {
-          a.dir2[at + c] = ring_row<C, FMT>(ring, r - 4, rl)[c - 2] |
-                           ring_row<C, FMT>(ring, r - 5, rl)[c - 2] << 5 |
-                           ring_row<C, FMT>(ring, r - 6, rl)[c - 3] << 10;
+          at(a.dir2, off + c) = ring_row<C, FMT>(ring, r - 4, rl)[c - 2] |
+                                ring_row<C, FMT>(ring, r - 5, rl)[c - 2] << 5 |
+                                ring_row<C, FMT>(ring, r - 6, rl)[c - 3] << 10;
         }
       }
     }
@@ -233,7 +237,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     for (int k = 0; k < IL; ++k) {
       uint8_t* sref = wsm + k * tile_smem + R::kBytes;
       const uint8_t* g = a.ref + static_cast<size_t>(b0 + k) * T;
-      for (int x = lane; x < T; x += 32) sref[x] = g[x];
+      for (int x = lane; x < T; x += 32) sref[x] = at(g, x);
     }
   }
 
@@ -243,8 +247,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 #pragma unroll
   for (int k = 0; k < IL; ++k) {
     const int b = b0 + k;
-    const int rlen = a.ref_len[b];
-    const int qlen = a.query_len[b];
+    const int rlen = at(a.ref_len, b);
+    const int qlen = at(a.query_len, b);
     rl[k] = max(0, min(rlen, T));
     qv[k] = max(0, min(qlen, T));
     last[k] = rl[k] > 0 ? min(rl[k] + Lag<FMT>::value, T) : 0;
@@ -261,7 +265,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       for (int t = 0; t < 4; ++t) {
         const int x = lane * C + 4 * w + t;
         if (4 * w + t < C && x < T) {
-          v |= static_cast<unsigned>(g[x]) << (8 * t);
+          v |= static_cast<unsigned>(at(g, x)) << (8 * t);
         }
       }
       qw[k][w] = v;
@@ -444,10 +448,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     if (lane == 0) {
       const int b = b0 + k;
       const bool found = key >= 0;
-      a.max_score[b] = found ? static_cast<int>(key >> 32) : 0;
-      a.max_i[b] = found ? static_cast<int>((key >> 16) & 0xffff) : 0;
-      a.max_j[b] = found ? static_cast<int>(key & 0xffff) : 0;
-      a.pos_score[b] = cor;
+      at(a.max_score, b) = found ? static_cast<int>(key >> 32) : 0;
+      at(a.max_i, b) = found ? static_cast<int>((key >> 16) & 0xffff) : 0;
+      at(a.max_j, b) = found ? static_cast<int>(key & 0xffff) : 0;
+      at(a.pos_score, b) = cor;
     }
   }
 }
@@ -511,6 +515,7 @@ extern "C" int dtt_align_tiles(const uint8_t* ref, const uint8_t* query,
                dir,      dir2,     max_score, max_i,    max_j,
                pos_score};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DTT_UPLOAD_EXTENTS(s);
   switch (fmt * 8 + interleave) {
     case kBytes * 8 + 1: return by_strip<1, kBytes>(a, warps, s);
     case kBytes * 8 + 2: return by_strip<2, kBytes>(a, warps, s);

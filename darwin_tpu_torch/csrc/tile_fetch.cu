@@ -38,7 +38,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "checked.cuh"
+
 namespace {
+
+using dtt::at;
 
 constexpr int THREADS = 128;
 
@@ -57,9 +61,9 @@ __device__ __forceinline__ uint4 load16(const uint8_t* p) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(p);
   const unsigned o = a & 15;
   const uint4* q = reinterpret_cast<const uint4*>(a - o);
-  const uint4 lo = __ldg(q);
+  const uint4 lo = __ldg(&at(q, 0));
   if (o == 0) return lo;
-  const uint4 hi = __ldg(q + 1);
+  const uint4 hi = __ldg(&at(q, 1));
   uint32_t w0 = lo.x, w1 = lo.y, w2 = lo.z, w3 = lo.w;
   uint32_t w4 = hi.x, w5 = hi.y, w6 = hi.z, w7 = hi.w;
   if (o & 8) {
@@ -84,24 +88,24 @@ __device__ __forceinline__ void store(uint8_t* dst, uint4 v, int nb) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(dst);
   if (nb == 16) {
     if ((a & 15) == 0) {
-      *reinterpret_cast<uint4*>(dst) = v;
+      at(reinterpret_cast<uint4*>(dst), 0) = v;
       return;
     }
     if ((a & 7) == 0) {
-      reinterpret_cast<uint2*>(dst)[0] = make_uint2(v.x, v.y);
-      reinterpret_cast<uint2*>(dst)[1] = make_uint2(v.z, v.w);
+      at(reinterpret_cast<uint2*>(dst), 0) = make_uint2(v.x, v.y);
+      at(reinterpret_cast<uint2*>(dst), 1) = make_uint2(v.z, v.w);
       return;
     }
     if ((a & 3) == 0) {
       uint32_t* w = reinterpret_cast<uint32_t*>(dst);
-      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+      at(w, 0) = v.x; at(w, 1) = v.y; at(w, 2) = v.z; at(w, 3) = v.w;
       return;
     }
   }
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int t = 0; t < 16; ++t)
-    if (t < nb) dst[t] = static_cast<uint8_t>(w[t / 4] >> (8 * (t % 4)));
+    if (t < nb) at(dst, t) = static_cast<uint8_t>(w[t / 4] >> (8 * (t % 4)));
 }
 
 // Field by field, so that the choice compiles to selects and the
@@ -124,9 +128,9 @@ __global__ void __launch_bounds__(THREADS) fetch_tiles_kernel(
   const int b = g / chunks;
   const int k0 = (g - b * chunks) * 16;
   const int nb = min(16, T - k0);  // bytes of the chunk inside the row
-  const int L = sp.len[b];
-  const long long s = sp.start[b];
-  const bool back = backward[b] != 0;
+  const int L = at(sp.len, b);
+  const long long s = at(sp.start, b);
+  const bool back = at(backward, b) != 0;
 
   // The chunk's bank bytes in bank order start at lo.
   const long long lo = back ? s + L - 16 - k0 : s + k0;
@@ -149,7 +153,7 @@ __global__ void __launch_bounds__(THREADS) fetch_tiles_kernel(
       for (int t = 0; t < 16; ++t) {
         long long idx = back ? s + L - 1 - k0 - t : s + k0 + t;
         idx = idx < 0 ? 0 : (idx >= sp.n ? sp.n - 1 : idx);
-        byte[t] = sp.bank[idx];
+        byte[t] = at(sp.bank, idx);
       }
       uint32_t w[4] = {0, 0, 0, 0};
 #pragma unroll
@@ -174,7 +178,8 @@ extern "C" int dtt_fetch_tiles(
   const SpanSet set1{bank1, n1, n_read1, start1, len1, out1, pad1};
   const int threads = B * ((T + 15) / 16);
   const dim3 grid((threads + THREADS - 1) / THREADS, nsets);
-  fetch_tiles_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      set0, set1, backward, B, T);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  DTT_UPLOAD_EXTENTS(st);
+  fetch_tiles_kernel<<<grid, THREADS, 0, st>>>(set0, set1, backward, B, T);
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,7 +40,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "checked.cuh"
+
 namespace {
+
+using dtt::at;
 
 constexpr int GAP_OPEN_FLAG_I = 8;
 constexpr int GAP_OPEN_FLAG_D = 4;
@@ -66,7 +70,7 @@ __device__ __forceinline__ void load_window(const uint8_t* __restrict__ d,
         d + static_cast<size_t>(min(max(ai - dr, 1), T) - 1) * C;
 #pragma unroll
     for (int h = 0; h < H; ++h)
-      v[dr][h] = row[min(max(aj - 32 * h - lane, 1), T)];
+      v[dr][h] = at(row, min(max(aj - 32 * h - lane, 1), T));
   }
   __syncwarp();  // every lane has read the previous window
 #pragma unroll
@@ -93,9 +97,9 @@ __global__ void __launch_bounds__(WARPS * 32) traceback_kernel(
   const int S = 2 * ET - 1;
   const uint8_t* d = dir + static_cast<size_t>(b) * T * (T + 1);
 
-  const bool is_first = first[b] != 0;
-  int i = is_first ? max_i[b] : ref_len[b];
-  int j = is_first ? max_j[b] : query_len[b];
+  const bool is_first = at(first, b) != 0;
+  int i = is_first ? at(max_i, b) : at(ref_len, b);
+  int j = is_first ? at(max_j, b) : at(query_len, b);
   // The window covers rows lo_i..lo_i+WIN_R-1 and columns
   // lo_j..lo_j+WIN_C-1; off is the current cell's offset in it.  It
   // starts empty (i < lo_i).
@@ -145,10 +149,10 @@ __global__ void __launch_bounds__(WARPS * 32) traceback_kernel(
   for (int k = s + lane; k < S; k += 32) rec[k] = 0;
   __syncwarp();
   uint8_t* out = ops + static_cast<size_t>(b) * S;
-  for (int k = lane; k < S; k += 32) out[k] = rec[k];
+  for (int k = lane; k < S; k += 32) at(out, k) = rec[k];
   if (lane == 0) {
-    i_steps[b] = is;
-    j_steps[b] = js;
+    at(i_steps, b) = is;
+    at(j_steps, b) = js;
   }
 }
 
@@ -162,13 +166,14 @@ extern "C" int dtt_traceback(const uint8_t* dir, const int* ref_len,
   // A warp's window, then its op buffer rounded up to 16 bytes.
   const int per_warp = WIN_R * WIN_C + ((2 * ET - 1 + 15) & ~15);
   const int smem = WARPS * per_warp;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  DTT_UPLOAD_EXTENTS(st);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         traceback_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  traceback_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
+  traceback_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, smem, st>>>(
       dir, ref_len, query_len, first, max_i, max_j, B, T, ET, per_warp, ops,
       i_steps, j_steps);
   return static_cast<int>(cudaGetLastError());

@@ -5,7 +5,8 @@ The port of darwin_tpu/engine/aligner.py::JaxTileAligner: the tile DP
 in the packed6 word format (ops/dp.py, the K1 kernel) and the packed6
 walker (ops/traceback.py::traceback_packed6), on `device`.  The Pallas
 grid's batch padding is not carried over (the CUDA kernels take any
-batch), nor is the unused tile_size argument (the tiles carry it).
+batch).  tile_size, when given, is checked against the CUDA DP
+kernel's limit on a CUDA device (the tiles carry their size).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from darwin_tpu_torch.ops.dp import align_tiles
+from darwin_tpu_torch.ops.dp import align_tiles, check_tile_size
 from darwin_tpu_torch.ops.traceback import traceback_packed6
 
 
@@ -32,7 +33,9 @@ class TileResult:
 class TorchTileAligner:
     def __init__(self, *, early_terminate: int, match: int, mismatch: int,
                  gap_open: int, gap_extend: int,
-                 device: torch.device | str):
+                 device: torch.device | str, tile_size: int | None = None):
+        if tile_size is not None and torch.device(device).type == "cuda":
+            check_tile_size(tile_size, "TorchTileAligner")
         self.early_terminate = early_terminate
         self.scoring = dict(match=match, mismatch=mismatch,
                             gap_open=gap_open, gap_extend=gap_extend)

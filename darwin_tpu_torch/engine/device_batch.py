@@ -38,7 +38,7 @@ from darwin_tpu_torch.engine.batch import (SCORE_THRESHOLD, GactCalls,
 from darwin_tpu_torch.engine.seqbank import SeqBank
 from darwin_tpu_torch.index.genome import Genome
 from darwin_tpu_torch.ops.common import MATCH_BIT, PAD_QUERY, PAD_REF
-from darwin_tpu_torch.ops.dp import align_tiles
+from darwin_tpu_torch.ops.dp import align_tiles, check_tile_size
 from darwin_tpu_torch.ops.tile_fetch import fetch_tile_pair
 from darwin_tpu_torch.ops.traceback import WALKERS
 from darwin_tpu_torch.utils import bucket_steps
@@ -119,6 +119,8 @@ class DeviceGactEngine:
         if tb_format not in WALKERS:
             raise ValueError(f"tb_format {tb_format!r} not in "
                              f"{tuple(WALKERS)}")
+        if torch.device(device).type == "cuda":
+            check_tile_size(tile_size, "DeviceGactEngine")
         # Positions inside a piece or read are int32 on the device.
         for what, lengths in (("reference piece", genome.piece_lengths),
                               ("read", queries.lengths)):

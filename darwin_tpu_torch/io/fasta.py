@@ -98,6 +98,25 @@ def iter_fasta(path: str | Path):
         yield FastaRecord(fields, "".join(chunks))
 
 
+def check_reference_wrap(path: str | Path) -> bool:
+    """True iff the file obeys the reference's 70-char wrap rule."""
+    last_len = SEQLINE_WRAP_LEN
+    with open(path, newline="\n") as f:
+        for line in f:
+            line = line.rstrip("\n").rstrip("\r")
+            if not line:
+                continue
+            if line[0] == ">":
+                last_len = SEQLINE_WRAP_LEN
+            else:
+                if len(line) > SEQLINE_WRAP_LEN or (
+                        len(line) < SEQLINE_WRAP_LEN
+                        and last_len != SEQLINE_WRAP_LEN):
+                    return False
+                last_len = len(line)
+    return True
+
+
 def write_fasta(path: str | Path, records: Iterable[tuple[str, str]],
                 wrap: int = SEQLINE_WRAP_LEN) -> None:
     """Write records as (name, seq) pairs, wrapped for the reference."""

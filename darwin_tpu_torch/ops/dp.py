@@ -47,18 +47,28 @@ FORMAT_CODES = {"bytes": 0, "packed": 1, "packed6": 2, "plane2": 3}
 _STATS = ("max_score", "max_i", "max_j", "pos_score")
 
 
-def check_geometry(B: int, T: int, interleave: int, what: str) -> None:
-    """Raise ValueError for a geometry the kernel does not take."""
+def check_tile_size(T: int, what: str, interleave: int = 1) -> None:
+    """Raise ValueError for a tile size the CUDA kernel does not take
+    (the plain version, on the CPU, takes any)."""
+    limit = MAX_TILE if interleave == 1 else MAX_TILE_INTERLEAVED
+    if not 1 <= T <= limit:
+        raise ValueError(f"{what}: tile size {T} outside 1..{limit}, the "
+                         f"CUDA DP kernel's limit at interleave "
+                         f"{interleave}")
+
+
+def check_geometry(B: int, T: int, interleave: int, what: str, *,
+                   on_card: bool = True) -> None:
+    """Raise ValueError for a geometry the kernel (on_card) or the plain
+    version does not take."""
     if interleave not in INTERLEAVES:
         raise ValueError(f"{what}: interleave {interleave} not in "
                          f"{INTERLEAVES}")
     if B % interleave:
         raise ValueError(f"{what}: batch {B} does not divide by "
                          f"interleave {interleave}")
-    limit = MAX_TILE if interleave == 1 else MAX_TILE_INTERLEAVED
-    if not 1 <= T <= limit:
-        raise ValueError(f"{what}: tile size {T} outside 1..{limit} at "
-                         f"interleave {interleave}")
+    if on_card:
+        check_tile_size(T, what, interleave)
 
 
 def align_tiles_plain(ref: torch.Tensor, query: torch.Tensor,
@@ -103,9 +113,7 @@ def run_kernel(ref: torch.Tensor, query: torch.Tensor,
         _build.launch(
             "dtt_align_tiles", dev, *args, B, T, match, mismatch,
             gap_open, gap_extend, FORMAT_CODES[fmt], interleave, warps,
-            out["dir"].data_ptr(),
-            out["dir2"].data_ptr() if fmt == "plane2" else None,
-            *(out[k].data_ptr() for k in _STATS))
+            out["dir"], out.get("dir2"), *(out[k] for k in _STATS))
     return out
 
 
@@ -124,7 +132,8 @@ def align_tiles(ref: torch.Tensor, query: torch.Tensor,
     kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
               gap_extend=gap_extend)
     if ref.device.type == "cpu":
-        check_geometry(ref.shape[0], ref.shape[1], interleave, "align_tiles")
+        check_geometry(ref.shape[0], ref.shape[1], interleave, "align_tiles",
+                       on_card=False)
         return align_tiles_plain(ref, query, ref_len, query_len,
                                  dir_format=dir_format, **kw)
     out = run_kernel(ref, query, ref_len, query_len, fmt=dir_format,

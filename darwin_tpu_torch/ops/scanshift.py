@@ -46,7 +46,7 @@ def _scan(x: torch.Tensor, steps: int, lowering: str) -> torch.Tensor:
     out = torch.empty_like(x)
     if B:
         _build.launch("dtt_scanshift", dev, xp, B, C, steps,
-                      _LOWERINGS[lowering], out.data_ptr())
+                      _LOWERINGS[lowering], out)
     return out
 
 

@@ -64,7 +64,7 @@ def _span_set(bank, start, length, pad, B, T, dev, what):
             bank.shape[0], n_read,
             _build.arg(start, "start", torch.int64, (B,), dev),
             _build.arg(length, "length", torch.int32, (B,), dev), pad,
-            out.data_ptr()], out
+            out], out
 
 
 def _launch(sets: list, backward: torch.Tensor, T: int, what: str) -> list:

@@ -10,7 +10,8 @@ them.
   gather: traceback_packed_jax;
 * traceback_packed6 (csrc/traceback_words.cu; plain
   traceback_packed6_torch) walks pack_dir_words6 words, two to four
-  steps a gather: traceback_packed6_jax.
+  steps a gather: traceback_packed6_jax; both word walkers also one warp
+  a tile over shared-memory windows, of words.
 
 Semantics of AlignWithBT's traceback loop (reference
 align.cpp:185-231), as the JAX walkers implement them: walk from the
@@ -42,6 +43,10 @@ WORD_FORMATS = {"packed": 1, "packed6": 2}
 # window, four warps a block, fits a block's 227 KB of shared memory up
 # to MAX_ET.
 MAX_ET = 16384
+# The word walkers' op buffer of `width` bytes a warp (rounded up to 16),
+# beside its 32 x 64 window of int32 words, four warps a block, fits the
+# same 227 KB up to this width (packed: ET <= 24960; packed6: ET <= 12479).
+MAX_WORD_WIDTH = 227 * 1024 // 4 - 32 * 64 * 4
 
 
 def traceback_torch(dirm: torch.Tensor, ref_len: torch.Tensor,
@@ -129,9 +134,8 @@ def traceback(dirm: torch.Tensor, ref_len: torch.Tensor,
     i_steps = torch.empty(B, dtype=I32, device=dev)
     j_steps = torch.empty(B, dtype=I32, device=dev)
     if B:
-        _build.launch("dtt_traceback", dev, *args, B, T, ET,
-                      raw.data_ptr(), i_steps.data_ptr(),
-                      j_steps.data_ptr())
+        _build.launch("dtt_traceback", dev, *args, B, T, ET, raw, i_steps,
+                      j_steps)
         traceback.launches += 1
     return raw, i_steps, j_steps
 
@@ -345,6 +349,9 @@ def _walk_words(fmt: str, words, ref_len, query_len, first, max_i, max_j,
                          f"{tuple(words.shape)}")
     if ET < 1:
         raise ValueError(f"{what}: early_terminate {ET} < 1")
+    if -(-width // 16) * 16 > MAX_WORD_WIDTH:
+        raise ValueError(f"{what}: early_terminate {ET} gives {width} op "
+                         f"slots, more than {MAX_WORD_WIDTH}")
     B, T = words.shape[:2]
     args = [_build.arg(words, "words", I32, (B, T, T + 1), dev),
             _build.arg(ref_len, "ref_len", I32, (B,), dev),
@@ -357,8 +364,7 @@ def _walk_words(fmt: str, words, ref_len, query_len, first, max_i, max_j,
     j_steps = torch.empty(B, dtype=I32, device=dev)
     if B:
         _build.launch("dtt_traceback_words", dev, *args, B, T, ET,
-                      WORD_FORMATS[fmt], width, raw.data_ptr(),
-                      i_steps.data_ptr(), j_steps.data_ptr())
+                      WORD_FORMATS[fmt], width, raw, i_steps, j_steps)
     return raw, i_steps, j_steps
 
 
@@ -368,8 +374,8 @@ def traceback_packed(words: torch.Tensor, ref_len: torch.Tensor,
                      early_terminate: int, unroll: int = 1):
     """Same contract as traceback_packed_torch; words must be
     [B, T, T+1] int32 (the DP kernel's "packed" layout).  The kernel
-    walks each tile on its own thread, so `unroll`, which only spaces
-    the lockstep loop's termination checks, does not change it."""
+    walks each tile on its own warp, so `unroll`, which only spaces the
+    lockstep loop's termination checks, does not change it."""
     if words.device.type == "cpu":
         return traceback_packed_torch(words, ref_len, query_len, first,
                                       max_i, max_j,
@@ -391,7 +397,7 @@ def traceback_packed6(words: torch.Tensor, ref_len: torch.Tensor,
                       early_terminate: int, compact_b: int = 0):
     """Same contract as traceback_packed6_torch; words must be
     [B, T, T+1] int32 (the DP kernel's "packed6" layout).  The kernel
-    gives compaction's output width, but each thread retires on its own,
+    gives compaction's output width, but each warp retires on its own,
     so there is nothing to compact."""
     if words.device.type == "cpu":
         return traceback_packed6_torch(words, ref_len, query_len, first,

@@ -164,7 +164,7 @@ def make_aligner(params: Params, device: torch.device | str
         early_terminate=params.early_terminate,
         match=params.match, mismatch=params.mismatch,
         gap_open=params.gap_open, gap_extend=params.gap_extend,
-        device=device)
+        device=device, tile_size=params.tile_size)
 
 
 def run_host(genome: Genome, table: SeedTable, fwd_bank: SeqBank,
@@ -225,22 +225,41 @@ def run_pipeline(ref_records: list[FastaRecord],
                  metrics: dict | None = None) -> PipelineResult:
     """All reads against the reference on one device, by the device
     engine or the host-stepped one; record lines in the reference's
-    darwin.<i>.out format."""
+    darwin.<i>.out format.
+
+    The engine (or the host engine's aligner) is built before the seed
+    table, so that a tile size the device cannot take fails first.  With
+    metrics, adds darwin_tpu.pipeline.run_pipeline's genome_banks_s,
+    engine_build_s, table_s and format_s to what the engine adds."""
     if engine not in ("device", "host"):
         raise ValueError(f"engine {engine!r}: device or host")
+    t0 = time.perf_counter()
     genome = Genome(ref_records, params.bin_size)
+    fwd_bank, rev_bank = read_banks(read_records)
+    t1 = time.perf_counter()
+    kw = dict(same_file=same_file, batch_size=batch_size,
+              compute_score=compute_score, metrics=metrics)
+    if engine == "device":
+        built = dict(prebuilt=make_merged_engine(
+            genome, fwd_bank, rev_bank, params, same_file=same_file,
+            batch_size=batch_size, compute_score=compute_score,
+            device=device))
+    else:
+        built = dict(aligner=make_aligner(params, device))
+    t2 = time.perf_counter()
     if table is None:
         table = SeedTable.build(genome.concat, params.seed_size,
                                 params.seed_occurence_multiple,
                                 params.bin_size, params.window_size)
-    fwd_bank, rev_bank = read_banks(read_records)
-    kw = dict(same_file=same_file, batch_size=batch_size,
-              compute_score=compute_score, metrics=metrics)
-    if engine == "device":
-        recs, counts = run_device_merged(genome, table, fwd_bank, rev_bank,
-                                         params, device=device, **kw)
-    else:
-        recs, counts = run_host(genome, table, fwd_bank, rev_bank, params,
-                                aligner=make_aligner(params, device), **kw)
-    return PipelineResult(format_records(genome, read_records, recs),
-                          counts[0], counts[1])
+    t3 = time.perf_counter()
+    if metrics is not None:
+        metrics.update(genome_banks_s=t1 - t0, engine_build_s=t2 - t1,
+                       table_s=t3 - t2)
+    run = run_device_merged if engine == "device" else run_host
+    recs, counts = run(genome, table, fwd_bank, rev_bank, params, **built,
+                       **kw)
+    t4 = time.perf_counter()
+    records = format_records(genome, read_records, recs)
+    if metrics is not None:
+        metrics["format_s"] = time.perf_counter() - t4
+    return PipelineResult(records, counts[0], counts[1])

@@ -12,7 +12,9 @@
 * a seed table saved by darwin_tpu.cli --seed-table loads into the port
   and gives the same records;
 * in a fresh interpreter, importing the port and running tiny end to
-  end on both engines never imports jax.
+  end on both engines never imports jax;
+* --metrics-json writes every key darwin_tpu.cli writes (but the
+  XLA-only engine_compiles), with the same counts.
 """
 
 import json
@@ -47,7 +49,9 @@ def jax_run(data_dir, tmp_path_factory):
     table = out / "table.npz"
     assert jax_cli.main(_args(d, out, "--engine", "device", "--backend",
                               "lax", "--seed-table", str(table),
-                              "--paf-out", str(out / "paf"))) == 0
+                              "--paf-out", str(out / "paf"),
+                              "--metrics-json",
+                              str(out / "metrics.json"))) == 0
     return d, out, table
 
 
@@ -73,8 +77,19 @@ def _same_files(got: Path, want: Path, names=FILES):
 def test_cli_files_match_jax_cli(jax_run, tmp_path):
     d, jout, _ = jax_run
     assert cli.main(_args(d, tmp_path, "--device", "cpu", "--paf-out",
-                          str(tmp_path / "paf"))) == 0
+                          str(tmp_path / "paf"), "--metrics-json",
+                          str(tmp_path / "metrics.json"))) == 0
     _same_files(tmp_path, jout)
+    got = json.loads((tmp_path / "metrics.json").read_text())
+    want = json.loads((jout / "metrics.json").read_text())
+    want.pop("engine_compiles")
+    assert want.keys() <= got.keys(), sorted(want.keys() - got.keys())
+    for k in ("batch_size", "ref_length", "num_reads", "num_candidates",
+              "num_records", "engine", "dsoft"):
+        assert got[k] == want[k], k
+    assert got["seed_ms"] == pytest.approx(got["seed_s"] * 1e3)
+    assert got["gact_ms"] == pytest.approx(got["align_s"] * 1e3)
+    assert got["seed_table_ms"] == pytest.approx(got["seed_table_s"] * 1e3)
     merged = (tmp_path / "merged").read_text().splitlines()
     assert merged == sorted(set((d / "out.darwin").read_text()
                                 .splitlines()))

@@ -9,6 +9,7 @@ one.  The file imports no JAX, so it also runs where JAX is absent:
 All outputs are integers: the tolerance is 0.
 """
 
+import json
 import warnings
 from pathlib import Path
 
@@ -30,7 +31,8 @@ from darwin_tpu_torch.io.fasta import parse_fasta
 from darwin_tpu_torch.pipeline import run_pipeline
 
 pytestmark = pytest.mark.cuda
-TINY = Path(__file__).resolve().parent / "data" / "tiny"
+REPO = Path(__file__).resolve().parent.parent
+TINY = REPO / "tests" / "data" / "tiny"
 SCORINGS = [(1, -1, -1, -1), (2, -3, -4, -2), (3, -1, -2, -1),
             (2, 1, -3, -1), (2, -1, 1, -2)]
 
@@ -210,6 +212,142 @@ def test_word_walker_kernels_match_plain(cuda, T, et):
                 for a, b in zip(got, want):
                     assert torch.equal(a, b), (sc, fmt, opt)
                 assert (got[0] != 0).any()
+
+
+@pytest.mark.parametrize("B", [1, 36, 64])
+def test_swscore_kernel_edge_shapes_match_plain(cuda, B):
+    """The block-a-pair SW kernel at its tiling's edges
+    (chip_smoke.sw_edge_shapes: one below, at and one above a pass of
+    the least and the most columns a lane, two and three passes under
+    short and long refs, refs shorter than the warps, one-row and
+    one-column pairs), with empty and full-length lanes, under three
+    scorings."""
+    import chip_smoke
+
+    rng = np.random.default_rng(B)
+    for LR, LQ in chip_smoke.sw_edge_shapes():
+        t = [torch.from_numpy(x).to(cuda)
+             for x in chip_smoke.sw_edge_pairs(rng, B, LR, LQ)]
+        for sc in SCORINGS[:3]:
+            kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                          sc))
+            n = swscore.local_score_batch.launches
+            got = swscore.local_score_batch(*t, **kw)
+            assert swscore.local_score_batch.launches == n + 1
+            want = swscore.local_score_batch_torch(*t, **kw)
+            assert torch.equal(got, want), (LR, LQ, sc)
+
+
+@pytest.mark.parametrize("warps", [1, 3, 4, 16])
+def test_swscore_kernel_warps_a_block_give_the_same_result(cuda, warps):
+    """Any warps a block, one pass or several (32 * 16 * warps columns
+    a pass), short and long refs."""
+    import chip_smoke
+
+    rng = np.random.default_rng(warps)
+    kw = dict(match=2, mismatch=-3, gap_open=-4, gap_extend=-2)
+    one = 32 * 16 * warps
+    for LR, LQ in [(37, one - 5), (9, one + 1), (200, 2 * one + 7),
+                   (900, 40)]:
+        t = [torch.from_numpy(x).to(cuda)
+             for x in chip_smoke.sw_edge_pairs(rng, 8, LR, LQ)]
+        got = swscore.run_kernel(*t, warps=warps, **kw)
+        assert torch.equal(got, swscore.local_score_batch_torch(*t, **kw)), \
+            (LR, LQ)
+    with pytest.raises(ValueError, match="warps"):
+        swscore.run_kernel(*t, warps=17, **kw)
+
+
+@pytest.mark.parametrize("B", [1, 36, 512])
+@pytest.mark.parametrize("T", [1, 32, 64, 320, 376, dp.MAX_TILE])
+def test_windowed_word_walkers_match_plain(cuda, T, B):
+    """Both word walkers (one warp a tile over shared-memory windows of
+    words) against their plain versions at two early_terminates: on
+    chip_smoke.walk_cases lanes packed by the plain packers, and on the
+    DP's words of related tiles under three scorings; packed6 also with
+    compaction's wider stream."""
+    import chip_smoke
+
+    rng = np.random.default_rng(T * 11 + B)
+    dirm, *rest = (torch.from_numpy(x).to(cuda)
+                   for x in chip_smoke.walk_case_batch(rng, T, B))
+    lanes = slice(None, B) if B >= 3 else slice(-B, None)
+    ref, query, rlen, qlen, first = (x[lanes] for x in
+                                     _tiles(T + B + 1, max(B, 3), T, cuda))
+    for fmt, walk, plain, opts in (
+            ("packed", traceback.traceback_packed,
+             traceback.traceback_packed_torch, [{}]),
+            ("packed6", traceback.traceback_packed6,
+             traceback.traceback_packed6_torch,
+             [{}, dict(compact_b=max(1, B // 8))])):
+        inputs = [(dp.PACKERS[fmt](dirm), *rest)]
+        for sc in SCORINGS[:3]:
+            kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                          sc))
+            out = dp.align_tiles(ref, query, rlen, qlen, dir_format=fmt,
+                                 **kw)
+            inputs.append((out["dir_words"], rlen, qlen, first,
+                           out["max_i"], out["max_j"]))
+        for k, args in enumerate(inputs):
+            for et in sorted({max(1, T * 5 // 8), T}):
+                for opt in opts:
+                    want = plain(*args, early_terminate=et, **opt)
+                    n = walk.launches
+                    got = walk(*args, early_terminate=et, **opt)
+                    assert walk.launches == n + 1
+                    for g, w in zip(got, want):
+                        assert torch.equal(g, w), (fmt, k, et, opt)
+
+
+def test_swscore_kernel_reads_a_ref_past_the_staged_prefix(cuda):
+    """A ref longer than the kernel stages in shared memory (kRefCap,
+    160 KiB): a 40-base query copied, two bases changed, from row
+    164000 of a 165000-base random ref scores as the plain version does
+    on a 200-row window around the copy."""
+    rng = np.random.default_rng(165)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ref = acgt[rng.integers(0, 4, size=(2, 165_000))]
+    query = ref[:, 164_000:164_040].copy()
+    query[:, [7, 30]] = np.where(query[:, [7, 30]] == ord("A"), ord("C"),
+                                 ord("A"))
+    lens = [np.full(2, n, np.int32) for n in (165_000, 40, 200)]
+    kw = dict(match=1, mismatch=-1, gap_open=-1, gap_extend=-1)
+    got = swscore.local_score_batch(
+        *(torch.from_numpy(x).to(cuda) for x in (ref, query, *lens[:2])),
+        **kw)
+    want = swscore.local_score_batch_torch(
+        *(torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+          for x in (ref[:, 163_900:164_100], query, lens[2], lens[1])), **kw)
+    assert torch.equal(got, want) and int(want.min()) >= 34
+
+
+def test_word_walkers_reject_too_wide_streams(cuda):
+    words = torch.zeros((2, 8, 9), dtype=torch.int32, device=cuda)
+    n2 = torch.zeros(2, dtype=torch.int32, device=cuda)
+    args = (words, n2, n2, n2.bool(), n2, n2)
+    limit = traceback.MAX_WORD_WIDTH
+    traceback.traceback_packed(*args, early_terminate=(limit + 1) // 2)
+    with pytest.raises(ValueError, match="op slots"):
+        traceback.traceback_packed(*args, early_terminate=limit // 2 + 1)
+    with pytest.raises(ValueError, match="op slots"):
+        traceback.traceback_packed6(*args, early_terminate=limit // 4 + 1)
+
+
+def test_checked_library_matches_normal(cuda):
+    """chip_smoke.checked_digests at one small input a kernel (the DP in
+    every format and plane 2, the three walkers on its output and on
+    walk_cases, the fetch pair and one set at both bank ends, SW at its
+    edge shapes): a child process on the checked library exits 0 and
+    gives the normal library's outputs; a launch past its tensors'
+    allocations (chip_smoke.checked_trap) ends another."""
+    import chip_smoke
+
+    want = chip_smoke.checked_digests(cuda, small=True)
+    r = chip_smoke._checked_child("--small")
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == want
+    # The control: a launch past its tensors' allocations traps there.
+    assert chip_smoke._checked_child("--trap").returncode != 0
 
 
 def test_swscore_kernel_matches_plain(cuda):

@@ -183,6 +183,25 @@ def test_check_geometry_limits(B, T, interleave, ok):
             dp.check_geometry(B, T, interleave, "test")
 
 
+def test_align_tiles_takes_any_tile_size_on_the_cpu():
+    """The plain version has no tile limit, as the JAX lax DP has none:
+    T = 1100, past the CUDA kernel's MAX_TILE, equals align_tiles_jax in
+    every format; the limit is the kernel's (check_tile_size)."""
+    rng = np.random.default_rng(1100)
+    B, T = 2, 1100
+    ref, query, rlen, qlen = make_batch(rng, B, T)
+    kw = _scoring((MATCH, MISMATCH, GO, GE))
+    want = align_tiles_jax(ref, query, rlen, qlen, **kw)
+    args = [torch.from_numpy(x) for x in (ref, query, rlen, qlen)]
+    got = {k: v.numpy() for k, v in dp.align_tiles(*args, **kw).items()}
+    _assert_same(got, want)
+    words = dp.align_tiles(*args, dir_format="packed6", **kw)["dir_words"]
+    assert torch.equal(words, dp.PACKERS["packed6"](
+        torch.from_numpy(np.array(want["dir"]))))
+    with pytest.raises(ValueError, match="1023"):
+        dp.check_tile_size(T, "test")
+
+
 def test_run_kernel_checks_warps_before_the_device():
     args = [torch.zeros((4, 8), dtype=torch.uint8)] * 2 + [
         torch.zeros(4, dtype=torch.int32)] * 2

@@ -7,7 +7,11 @@
   record for record and in the same order, in the byte format and in
   both word formats (tb_format "packed", "packed6") against the JAX
   engine in the same format;
-* run_pipeline on tiny against the reference binary's out.darwin.
+* run_pipeline on tiny against the reference binary's out.darwin;
+* a tile size past the CUDA DP kernel's limit fails when the engine or
+  the host engine's aligner is built on a CUDA device, before any seed
+  work, through the constructors, run_pipeline and the CLI; the CPU
+  takes it.
 """
 
 import numpy as np
@@ -26,6 +30,8 @@ from darwin_tpu_torch.engine.seqbank import SeqBank
 from darwin_tpu_torch.index.genome import Genome
 from darwin_tpu_torch.index.seed_table import SeedTable
 from darwin_tpu_torch.io.fasta import parse_fasta, revcomp
+from darwin_tpu_torch import cli, pipeline
+from darwin_tpu_torch.engine.aligner import TorchTileAligner
 from darwin_tpu_torch.pipeline import collect_calls, run_pipeline
 from tests._torch_threads import one_torch_thread  # noqa: F401
 from tests.test_dp import make_batch
@@ -132,6 +138,9 @@ def test_run_pipeline_tiny_matches_reference(data_dir):
                                    .splitlines())
     assert res.num_candidates_for + res.num_candidates_rev > 0
     assert metrics["engine_iters"] > 0 and metrics["align_s"] > 0
+    # darwin_tpu.pipeline.run_pipeline's keys.
+    assert {"genome_banks_s", "engine_build_s", "table_s", "seed_s",
+            "align_s", "format_s"} <= metrics.keys()
 
 
 def test_engine_rejects_pieces_past_int32(tiny_calls):
@@ -148,3 +157,45 @@ def test_engine_rejects_pieces_past_int32(tiny_calls):
         DeviceGactEngine(genome, SeqBank(seqs), tb_format="words", **kw)
     eng = DeviceGactEngine(genome, SeqBank(seqs), **kw)
     assert [eng.slots(n) for n in (1, 90, 100, 300)] == [64, 96, 128, 256]
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_tile_size_past_the_kernel_fails_before_seed_work(
+        data_dir, tmp_path, monkeypatch, engine):
+    """tile_size 1024 in params.cfg: on "cuda" the engine (or aligner)
+    raises naming the limit, before the seed table or D-SOFT run (no
+    card is touched: the check comes first); on the CPU it is built."""
+    d = data_dir / "tiny"
+    cfg = tmp_path / "params.cfg"
+    cfg.write_text((d / "params.cfg").read_text()
+                   .replace("tile_size = 64", "tile_size = 1024"))
+    params = Params.from_cfg(cfg)
+    assert params.tile_size == 1024
+    reads = parse_fasta(d / "reads.fasta")
+
+    def no_seed_work(*a, **k):
+        raise AssertionError("seed work before the engine check")
+
+    monkeypatch.setattr(SeedTable, "build", no_seed_work)
+    monkeypatch.setattr(pipeline, "collect_calls", no_seed_work)
+    with pytest.raises(ValueError, match="1023"):
+        run_pipeline(reads, reads, params, True, engine=engine,
+                     device="cuda")
+    monkeypatch.setattr(cli.torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="1023"):
+        cli.main([str(d / "reads.fasta"), str(d / "reads.fasta"),
+                  "--params", str(cfg), "--engine", engine, "--out-dir",
+                  str(tmp_path / "out")])
+    kw = dict(early_terminate=params.early_terminate, match=1, mismatch=-1,
+              gap_open=-1, gap_extend=-1, tile_size=1024)
+    with pytest.raises(ValueError, match="TorchTileAligner.*1023"):
+        TorchTileAligner(device="cuda", **kw)
+    TorchTileAligner(device="cpu", **kw)
+    genome = Genome(reads, params.bin_size)
+    bank = SeqBank([seq_to_bytes(r.seq) for r in reads])
+    ekw = dict(tile_size=1024, early_terminate=params.early_terminate,
+               first_tile_score_threshold=0, match=1, mismatch=-1,
+               gap_open=-1, gap_extend=-1, same_file=True)
+    with pytest.raises(ValueError, match="DeviceGactEngine.*1023"):
+        DeviceGactEngine(genome, bank, device="cuda", **ekw)
+    DeviceGactEngine(genome, bank, device="cpu", **ekw)

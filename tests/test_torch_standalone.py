@@ -112,6 +112,24 @@ def test_parse_fasta_native_and_pure_equal_jax(name):
 
 
 @pytest.mark.parametrize("name", FIXTURES)
+def test_check_reference_wrap_equals_jax(name, tmp_path):
+    """The fixture's FASTA files, and copies rewrapped at 60, 70 and 80
+    columns (a short line before a long one, a line past 70), both
+    with CRLF line ends."""
+    files = sorted((DATA / name).glob("*.fasta"))
+    reads = fasta.parse_fasta(files[0], native=False)[:5]
+    for wrap in (60, 70, 80):
+        f = tmp_path / f"w{wrap}.fasta"
+        fasta.write_fasta(f, [(r.name, r.seq) for r in reads], wrap=wrap)
+        crlf = tmp_path / f"w{wrap}_crlf.fasta"
+        crlf.write_bytes(f.read_bytes().replace(b"\n", b"\r\n"))
+        files += [f, crlf]
+    results = [fasta.check_reference_wrap(f) for f in files]
+    assert results == [jax_fasta.check_reference_wrap(f) for f in files]
+    assert results[-6:] == [False, False, True, True, False, False]
+
+
+@pytest.mark.parametrize("name", FIXTURES)
 def test_minimizers_and_bytes_equal_jax(name):
     params, _, reads, _ = _fixture(name)
     k, w = params.seed_size, params.window_size

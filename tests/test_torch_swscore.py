@@ -62,6 +62,26 @@ def test_local_score_matches_jax(sc, B, LR, LQ, seed):
     assert (want > 0).sum() >= B - 2
 
 
+@pytest.mark.parametrize("sc", [(1, -1, -1, -1), (2, -3, -4, -2)])
+def test_local_score_matches_jax_at_kernel_edge_shapes(sc):
+    """chip_smoke.sw_edge_shapes, where the card kernel's passes, column
+    strips and warps end (a query one below, at and one above a pass,
+    several passes, refs shorter than the warps, one row, one column),
+    with empty and full-length lanes, at B = 4."""
+    import chip_smoke
+
+    rng = np.random.default_rng(sum(sc) + 20)
+    kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"), sc))
+    for LR, LQ in chip_smoke.sw_edge_shapes():
+        ref, query, rlen, qlen = chip_smoke.sw_edge_pairs(rng, 4, LR, LQ)
+        want = np.asarray(jax_local_score(ref, query, rlen, qlen, **kw))
+        got = swscore.local_score_batch_torch(
+            *(torch.from_numpy(x) for x in (ref, query, rlen, qlen)), **kw)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=str((LR,
+                                                                     LQ)))
+        assert want[0] == want[1] == 0 and want[2] > 0
+
+
 def test_local_score_dispatch():
     ref, query, rlen, qlen = (torch.from_numpy(x) for x in
                               _pairs(2, 4, 40, 30))

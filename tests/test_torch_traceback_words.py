@@ -79,6 +79,35 @@ def test_word_walkers_match_jax(fmt, T, div, ragged, et):
 
 
 @pytest.mark.parametrize("fmt", ["packed", "packed6"])
+@pytest.mark.parametrize("T", [24, 64])
+def test_word_walkers_match_jax_on_walk_cases(fmt, T):
+    """chip_smoke.walk_cases, the adversarial tiles the card runs the
+    windowed word walkers on, packed by the port's packers: the plain
+    word walkers equal the JAX's on the JAX's packing of the same bytes,
+    at two early_terminates (gap runs past a window's 32 rows and 64
+    columns at T = 64, walks across row 0 and column 0, cut-offs on
+    either axis, empty walks, clipped starts)."""
+    import chip_smoke
+    from darwin_tpu_torch.ops.dp import PACKERS
+
+    cases = chip_smoke.walk_cases(np.random.default_rng(T + 1), T)
+    dirm, rest = cases[0], cases[1:]
+    words = PACKERS[fmt](torch.from_numpy(dirm))
+    pack, jwalk = JAX_WALKERS[fmt]
+    np.testing.assert_array_equal(words.numpy(), np.asarray(pack(dirm)))
+    for et in (T * 5 // 8, T):
+        got = [x.numpy() for x in PLAIN[fmt](
+            words, *(torch.from_numpy(x) for x in rest), early_terminate=et)]
+        want = [np.asarray(x) for x in jwalk(np.asarray(pack(dirm)), *rest,
+                                              early_terminate=et)]
+        _assert_same(got, want)
+        wi, wj = want[2], want[3]
+        assert ((wi == et) & (wj < et)).any()
+        assert ((wj == et) & (wi < et)).any()
+        assert not got[0][11:13].any() and not got[0][15].any()
+
+
+@pytest.mark.parametrize("fmt", ["packed", "packed6"])
 def test_word_walkers_degenerate_first_tiles(fmt):
     """All-mismatch first tiles start at (0, 0) and walk nothing."""
     B, T = 8, 24
