@@ -25,7 +25,8 @@ Phases; any failure ends the run with a nonzero exit code:
    for the span fetch, the time of one advanced-index gather of the
    banks (never taken on the path); the main path's kernels, SW, the
    word walkers and the gathers also as device time (device_ms: a CUDA
-   graph of 50 launches, replayed, over 50);
+   graph of 50 launches, replayed, over 50), SW also on 8 times the
+   pairs;
 3. fixtures: darwin_tpu_torch.pipeline.run_pipeline on every
    tests/data fixture that has an out.darwin (the reference binary's
    output), under the device engine and under the host-stepped engine;
@@ -67,7 +68,8 @@ Phases; any failure ends the run with a nonzero exit code:
    the SW kernel must equal the plain version's;
 7. the checked library, whose every global access traps out of its
    allocation: an out-of-bounds launch (checked_trap) must end a child
-   process on it; then phase 2's inputs (checked_digests: the DP in
+   process on it in a trap's launch failure (trapped); then phase 2's
+   inputs (checked_digests: the DP in
    three formats and plane 2 at every TILES entry, the three walkers on
    the DP's output and on walk_cases, the fetch at both bank ends, SW
    at B = 64 and at its tiling's edges) run in another child
@@ -561,7 +563,6 @@ def phase_kernels(dev) -> dict:
     from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
     from darwin_tpu_torch.ops.swscore import (local_score_batch,
                                               local_score_batch_torch)
-    from darwin_tpu_torch.ops.swscore import run_kernel as sw_kernel
     from darwin_tpu_torch.ops.tile_fetch import (fetch_tile_pair,
                                                  fetch_tile_pair_torch,
                                                  fetch_tiles,
@@ -721,17 +722,16 @@ def phase_kernels(dev) -> dict:
         log(f"  {name} at {shape}: kernel {r['ms']:.4f} ms{device}, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-    # SW's device time by warps a block (local_score_batch takes
-    # swscore.WARPS) on the timed pairs, and at the default on eight times
-    # as many (the same pairs repeated: blocks share SMs).
-    by_warps = {w: graph_ms(lambda w=w: sw_kernel(*sw, warps=w, **kw))
-                for w in (4, 8, 16)}
+    # SW's device time on eight times the timed pairs (the same pairs
+    # repeated: blocks share SMs), whose scores repeat the timed ones'.
     sw8 = [x.repeat(8, *[1] * (x.dim() - 1)) for x in sw]
-    b8 = graph_ms(lambda: sw_kernel(*sw8, **kw), n=10)
-    res["local_score_batch"].update(device_ms_by_warps=by_warps,
-                                    device_ms_8x_pairs=b8)
-    log(f"  local_score_batch device ms by warps a block: {by_warps}; "
-        f"B={8 * SW_B} at {SW_LEN}x{SW_LEN}: {b8:.4f} ms")
+    if not torch.equal(local_score_batch(*sw8, **kw),
+                       local_score_batch(*sw, **kw).repeat(8)):
+        raise AssertionError("SW's scores of repeated pairs differ")
+    b8 = graph_ms(lambda: local_score_batch(*sw8, **kw), n=10)
+    res["local_score_batch"]["device_ms_8x_pairs"] = b8
+    log(f"  local_score_batch B={8 * SW_B} at {SW_LEN}x{SW_LEN}: device "
+        f"{b8:.4f} ms")
     one_set = res.pop(ONE_SET)
     res["fetch_tiles"]["one_set"] = one_set
     log(f"  fetch: the pair's device time is "
@@ -1236,16 +1236,32 @@ def _checked_child(*flags) -> subprocess.CompletedProcess:
                           text=True, timeout=900, cwd=REPO)
 
 
+# PyTorch's message for cudaErrorLaunchFailure, the error a kernel's
+# __trap() leaves on its context, and the line a --trap child prints when
+# its launch did not trap.
+TRAP_ERROR = "CUDA error: unspecified launch failure"
+NO_TRAP = "checked_trap: no trap"
+
+
+def trapped(r: subprocess.CompletedProcess) -> bool:
+    """Whether a `--checked --trap` child ended in the launch failure of
+    a trap, not in another error (a failed build, an exception before
+    the launch) nor after a launch that did not trap."""
+    return (r.returncode != 0 and TRAP_ERROR in r.stderr
+            and NO_TRAP not in r.stderr)
+
+
 def phase_checked(dev) -> dict:
     """Phase 7: checked_trap must end a child process on the checked
     library; then checked_digests in another, against this process's on
     the normal library.  Returns {kernel: cases} run."""
     r = _checked_child("--trap")
-    if r.returncode == 0:
-        raise AssertionError("the checked library did not trap on an "
-                             "out-of-bounds launch")
-    log(f"  control: an out-of-bounds launch ends its process (exit "
-        f"{r.returncode}: {r.stderr.strip().splitlines()[-1][-120:]})")
+    if not trapped(r):
+        raise AssertionError(f"the checked library did not trap on an "
+                             f"out-of-bounds launch (exit {r.returncode}):"
+                             f"\n{r.stderr[-3000:]}")
+    log(f"  control: an out-of-bounds launch ends its process in a trap "
+        f"(exit {r.returncode}, \"{TRAP_ERROR}\")")
     want = checked_digests(dev)
     t0 = time.perf_counter()
     r = _checked_child()
@@ -1361,7 +1377,7 @@ def main(argv=None) -> int:
         _build.CHECKED = True
         if args.trap:
             checked_trap(dev)
-            print("checked_trap: no trap", file=sys.stderr)
+            print(NO_TRAP, file=sys.stderr)
             return 0
         print(json.dumps(checked_digests(dev, small=args.small)))
         return 0

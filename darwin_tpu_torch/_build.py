@@ -13,9 +13,8 @@ The checked library, ``_build/libdtt_kernels_checked.so``, is the same
 sources built with ``-DDTT_CHECKED`` (csrc/checked.cuh): every global
 load and store of the kernels traps when it falls outside the
 allocation it addresses.  ``launch`` takes it instead of the normal
-one while ``CHECKED`` is true (the environment's ``DTT_CHECKED=1`` sets
-it at import), and hands the kernels each tensor argument's storage
-extent first.  A trap ends the process's CUDA context: run the checked
+one while ``CHECKED`` is true (``chip_smoke.py --checked`` sets it), and
+hands the kernels each tensor argument's storage extent first.  A trap ends the process's CUDA context: run the checked
 library in a process of its own (``python3 chip_smoke.py --checked``).
 """
 
@@ -35,7 +34,7 @@ CSRC = _DIR / "csrc"
 LIB = _DIR / "_build" / "libdtt_kernels.so"
 LIB_CHECKED = _DIR / "_build" / "libdtt_kernels_checked.so"
 # Whether launch() takes the checked library.
-CHECKED = os.environ.get("DTT_CHECKED", "") == "1"
+CHECKED = False
 # -Xptxas -v reports registers / shared memory / spills per kernel;
 # build() returns that report.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -54,7 +53,7 @@ _SIGNATURES = {
     "dtt_scanshift": [_P, _I, _I, _I, _I, _P, _P],
     "dtt_traceback_words": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _P, _P, _P, _P],
-    "dtt_local_score": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    "dtt_local_score": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P],
 }
 # The checked library's one more entry: the extents of the next launch.

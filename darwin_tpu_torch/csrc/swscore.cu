@@ -29,7 +29,8 @@
 // sequences once and, for queries longer than one pass, a boundary
 // column a pass.
 //
-// Design: one block of W warps (8) a pair.  Lane l of warp w owns C
+// Design: one block of W = kWarps (8) warps a pair.  Lane l of warp w
+// owns C
 // contiguous columns of its strip in registers (C from the query width,
 // so that W * 32 * C columns, one pass, cover it where C <= 16), with
 // their M + gap_open, I and H of the row above, their query characters
@@ -51,7 +52,7 @@
 // barrier before it is read.  The ref is staged in shared memory once
 // (up to kRefCap bytes; a longer ref takes the BIG instantiation, whose
 // rows past that read global memory).  4 and 16 warps a block measured
-// slower than 8, and a cluster of two blocks a pair no faster (PERF.md).
+// slower than 8 (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -65,7 +66,7 @@ using dtt::at;
 
 constexpr int NEG_INF = 1 << 30;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int kMaxWarps = 16;
+constexpr int kWarps = 8;     // warps a block, one block a pair
 constexpr int K = 8;           // steps between block barriers
 constexpr int L = 31 + K;      // steps warp w runs behind warp w - 1
 constexpr int RING = 64;       // boundary rows a ring holds (>= 2 K)
@@ -97,7 +98,7 @@ __device__ __forceinline__ void sts_v4(unsigned a, int4 v) {
 // BIG: the ref is longer than kRefCap, and its rows past that are read
 // from global memory.
 template <int C, bool BIG>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32)
     sw_kernel(const uint8_t* __restrict__ ref,
               const uint8_t* __restrict__ query,
               const int* __restrict__ ref_len,
@@ -105,7 +106,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
               int mismatch, int go, int ge, int4* __restrict__ scratch,
               int* __restrict__ best_out) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const int W = blockDim.x >> 5;
+  constexpr int W = kWarps;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x;
@@ -119,7 +120,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   // (M + go, D, H of the row above) by running step.
   int4* rings = reinterpret_cast<int4*>(smem);
   int* red = reinterpret_cast<int*>(rings + W * RING);
-  uint8_t* sref = reinterpret_cast<uint8_t*>(red + kMaxWarps);
+  uint8_t* sref = reinterpret_cast<uint8_t*>(red + W);
   // This warp's ring (read by lane 0) and the next warp's (written by
   // lane 31), and the staged ref, as shared-window addresses.
   const unsigned ring_in =
@@ -240,10 +241,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 template <int C, bool BIG>
 int launch(const uint8_t* ref, const uint8_t* query, const int* ref_len,
            const int* query_len, int B, int LR, int LQ, int match,
-           int mismatch, int go, int ge, int warps, int4* scratch,
-           int* best, cudaStream_t stream) {
-  const int smem = warps * RING * static_cast<int>(sizeof(int4)) +
-                   kMaxWarps * static_cast<int>(sizeof(int)) +
+           int mismatch, int go, int ge, int4* scratch, int* best,
+           cudaStream_t stream) {
+  const int smem = kWarps * RING * static_cast<int>(sizeof(int4)) +
+                   kWarps * static_cast<int>(sizeof(int)) +
                    round16(min(LR, kRefCap));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -251,7 +252,7 @@ int launch(const uint8_t* ref, const uint8_t* query, const int* ref_len,
         smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  sw_kernel<C, BIG><<<B, 32 * warps, smem, stream>>>(
+  sw_kernel<C, BIG><<<B, 32 * kWarps, smem, stream>>>(
       ref, query, ref_len, query_len, LR, LQ, match, mismatch, go, ge,
       scratch, best);
   return static_cast<int>(cudaGetLastError());
@@ -259,28 +260,26 @@ int launch(const uint8_t* ref, const uint8_t* query, const int* ref_len,
 
 }  // namespace
 
-// warps: warps a block (1..16).  scratch: B * (LR + 1) * 4 ints, 16-byte
-// aligned, used only by queries wider than one pass (warps * 32 * 16
-// columns).
+// scratch: B * (LR + 1) * 4 ints, 16-byte aligned, used only by queries
+// wider than one pass (kWarps * 32 * 16 columns).
 extern "C" int dtt_local_score(const uint8_t* ref, const uint8_t* query,
                                const int* ref_len, const int* query_len,
                                int B, int LR, int LQ, int match,
                                int mismatch, int gap_open, int gap_extend,
-                               int warps, int* scratch, int* best,
-                               void* stream) {
-  if (B <= 0 || LR < 0 || LQ < 0 || warps < 1 || warps > kMaxWarps) {
+                               int* scratch, int* best, void* stream) {
+  if (B <= 0 || LR < 0 || LQ < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   DTT_UPLOAD_EXTENTS(st);
   // The least C of 2, 4, 6, 8, 12, 16 with one pass over LQ columns.
-  const int c = (LQ + 32 * warps - 1) / (32 * warps);
+  const int c = (LQ + 32 * kWarps - 1) / (32 * kWarps);
   const auto run = [&](auto kernel_c) {
     constexpr int C = decltype(kernel_c)::value;
     const auto go = LR > kRefCap ? launch<C, true> : launch<C, false>;
     return go(ref, query, ref_len, query_len, B, LR, LQ, match, mismatch,
-              gap_open, gap_extend, warps, reinterpret_cast<int4*>(scratch),
-              best, st);
+              gap_open, gap_extend, reinterpret_cast<int4*>(scratch), best,
+              st);
   };
   if (c <= 2) return run(std::integral_constant<int, 2>{});
   if (c <= 4) return run(std::integral_constant<int, 4>{});

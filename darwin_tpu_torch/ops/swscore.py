@@ -16,12 +16,11 @@ from darwin_tpu_torch import _build
 from darwin_tpu_torch.ops.common import NEG_INF
 
 I32 = torch.int32
-# Warps a block, one block a pair (csrc/swscore.cu kMaxWarps: 16).
+# Warps a block, one block a pair (csrc/swscore.cu kWarps).
 WARPS = 8
-MAX_WARPS = 16
 # Columns a lane holds: the least of SW_STRIPS with one pass over the
 # query (csrc/swscore.cu dtt_local_score); wider queries take passes of
-# warps * 32 * 16 columns.
+# WARPS * 32 * 16 columns.
 SW_STRIPS = (2, 4, 6, 8, 12, 16)
 
 
@@ -67,15 +66,16 @@ def local_score_batch_torch(ref: torch.Tensor, query: torch.Tensor,
     return best
 
 
-def run_kernel(ref: torch.Tensor, query: torch.Tensor,
-               ref_len: torch.Tensor, query_len: torch.Tensor, *,
-               match: int, mismatch: int, gap_open: int, gap_extend: int,
-               warps: int = WARPS) -> torch.Tensor:
-    """Launch csrc/swscore.cu on CUDA tensors, one block of `warps`
-    warps a pair (the caller counts the launch)."""
-    if not 1 <= warps <= MAX_WARPS:
-        raise ValueError(f"local_score_batch: {warps} warps a block, not "
-                         f"in 1..{MAX_WARPS}")
+def local_score_batch(ref: torch.Tensor, query: torch.Tensor,
+                      ref_len: torch.Tensor, query_len: torch.Tensor, *,
+                      match: int, mismatch: int, gap_open: int,
+                      gap_extend: int) -> torch.Tensor:
+    """Same contract as local_score_batch_torch; ref_len / query_len
+    must be int32."""
+    kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
+              gap_extend=gap_extend)
+    if ref.device.type == "cpu":
+        return local_score_batch_torch(ref, query, ref_len, query_len, **kw)
     dev = _build.require_cuda(ref, "local_score_batch")
     if ref.dim() != 2 or query.dim() != 2:
         raise ValueError("local_score_batch: ref and query must be 2-D")
@@ -90,22 +90,7 @@ def run_kernel(ref: torch.Tensor, query: torch.Tensor,
     best = torch.empty(B, dtype=I32, device=dev)
     if B:
         _build.launch("dtt_local_score", dev, *args, B, LR, LQ, match,
-                      mismatch, gap_open, gap_extend, warps, scratch, best)
-    return best
-
-
-def local_score_batch(ref: torch.Tensor, query: torch.Tensor,
-                      ref_len: torch.Tensor, query_len: torch.Tensor, *,
-                      match: int, mismatch: int, gap_open: int,
-                      gap_extend: int) -> torch.Tensor:
-    """Same contract as local_score_batch_torch; ref_len / query_len
-    must be int32."""
-    kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
-              gap_extend=gap_extend)
-    if ref.device.type == "cpu":
-        return local_score_batch_torch(ref, query, ref_len, query_len, **kw)
-    best = run_kernel(ref, query, ref_len, query_len, **kw)
-    if ref.shape[0]:
+                      mismatch, gap_open, gap_extend, scratch, best)
         local_score_batch.launches += 1
     return best
 
