@@ -53,14 +53,6 @@
 // (up to kRefCap bytes; a longer ref takes the BIG instantiation, whose
 // rows past that read global memory).  4 and 16 warps a block measured
 // slower than 8 (PERF.md).
-//
-// A batch of at most half as many pairs as the card has SMs runs each
-// pair on a cluster of CL = 2 blocks of kWarps / 2 warps instead, so that
-// the idle SMs take half of each pair: the warps are the pair's warps
-// 0..kWarps-1 as before, the ring that crosses from block 0 to block 1 is
-// written into block 1's shared memory (distributed shared memory), and
-// the barrier every K steps is the cluster's, whose release and acquire
-// order the ring and the pass boundary as the block barrier does.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -81,36 +73,6 @@ constexpr int RING = 64;       // boundary rows a ring holds (>= 2 K)
 constexpr int kRefCap = 160 * 1024;  // ref bytes staged in shared memory
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
-
-// The K-step barrier of a pair's CL blocks.
-template <int CL>
-__device__ __forceinline__ void pair_sync() {
-  if constexpr (CL == 1) {
-    __syncthreads();
-  } else {
-    asm volatile(
-        "barrier.cluster.arrive.release.aligned;\n\t"
-        "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-  }
-}
-
-// The shared::cluster address of shared::cta address a in block rank of
-// the cluster.
-__device__ __forceinline__ unsigned map_rank(unsigned a, int rank) {
-  unsigned v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(v) : "r"(a), "r"(rank));
-  return v;
-}
-__device__ __forceinline__ void st_cluster_v4(unsigned a, int4 v) {
-  asm volatile("st.shared::cluster.v4.s32 [%0], {%1, %2, %3, %4};" ::"r"(a),
-               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-               : "memory");
-}
-__device__ __forceinline__ void st_cluster_s32(unsigned a, int v) {
-  asm volatile("st.shared::cluster.s32 [%0], %1;" ::"r"(a), "r"(v)
-               : "memory");
-}
 
 // Shared memory by 32-bit shared-window addresses, taken once: through a
 // generic pointer the compiler forms the window address anew every step.
@@ -134,10 +96,9 @@ __device__ __forceinline__ void sts_v4(unsigned a, int4 v) {
 }
 
 // BIG: the ref is longer than kRefCap, and its rows past that are read
-// from global memory.  CL: blocks a pair (1, or a cluster of 2), each of
-// kWarps / CL warps.
-template <int C, bool BIG, int CL>
-__global__ void __launch_bounds__(kWarps / CL * 32)
+// from global memory.
+template <int C, bool BIG>
+__global__ void __launch_bounds__(kWarps * 32)
     sw_kernel(const uint8_t* __restrict__ ref,
               const uint8_t* __restrict__ query,
               const int* __restrict__ ref_len,
@@ -145,34 +106,26 @@ __global__ void __launch_bounds__(kWarps / CL * 32)
               int mismatch, int go, int ge, int4* __restrict__ scratch,
               int* __restrict__ best_out) {
   extern __shared__ __align__(16) uint8_t smem[];
-  constexpr int W = kWarps;      // warps a pair
-  constexpr int WB = kWarps / CL;  // warps a block
+  constexpr int W = kWarps;
   const int lane = threadIdx.x & 31;
-  const int rank = blockIdx.x % CL;  // the block's rank in its cluster
-  const int lw = threadIdx.x >> 5;   // the warp in its block
-  const int warp = rank * WB + lw;   // the warp in its pair
-  const int b = blockIdx.x / CL;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x;
   const int rows = min(max(at(ref_len, b), 0), LR);
   const int cols = min(max(at(query_len, b), 0), LQ);
-  if (rows == 0 || cols == 0) {  // the pair's every block
-    if (threadIdx.x == 0 && rank == 0) at(best_out, b) = 0;
+  if (rows == 0 || cols == 0) {  // the whole block
+    if (threadIdx.x == 0) at(best_out, b) = 0;
     return;
   }
-  // Ring lw (warp >= 1) carries warp - 1's right boundary to warp:
+  // Ring w (w >= 1) carries warp w - 1's right boundary to warp w:
   // (M + go, D, H of the row above) by running step.
   int4* rings = reinterpret_cast<int4*>(smem);
-  int* red = reinterpret_cast<int*>(rings + WB * RING);
+  int* red = reinterpret_cast<int*>(rings + W * RING);
   uint8_t* sref = reinterpret_cast<uint8_t*>(red + W);
   // This warp's ring (read by lane 0) and the next warp's (written by
-  // lane 31; in the next block of the cluster for its last warp), and
-  // the staged ref, as shared-window addresses.
+  // lane 31), and the staged ref, as shared-window addresses.
   const unsigned ring_in =
-      static_cast<unsigned>(__cvta_generic_to_shared(rings + lw * RING));
-  const bool remote = CL > 1 && lw + 1 == WB && rank + 1 < CL;
-  const unsigned ring_out =
-      remote ? map_rank(static_cast<unsigned>(__cvta_generic_to_shared(
-                            rings)), rank + 1)
-             : ring_in + RING * sizeof(int4);
+      static_cast<unsigned>(__cvta_generic_to_shared(rings + warp * RING));
+  const unsigned ring_out = ring_in + RING * sizeof(int4);
   const unsigned sref_s =
       static_cast<unsigned>(__cvta_generic_to_shared(sref)) - 1;
   const uint8_t* r = ref + static_cast<int64_t>(b) * LR;
@@ -183,9 +136,7 @@ __global__ void __launch_bounds__(kWarps / CL * 32)
   for (int x = threadIdx.x; x < min(rows, kRefCap); x += blockDim.x) {
     sref[x] = at(r, x);
   }
-  // Also: the cluster's blocks have all started before one writes into
-  // another's shared memory.
-  pair_sync<CL>();
+  __syncthreads();
 
   const int span = W * 32 * C;  // columns a pass
   const int npass = (cols + span - 1) / span;
@@ -267,72 +218,44 @@ __global__ void __launch_bounds__(kWarps / CL * 32)
           out_hd = diag;
           const int4 v = make_int4(mgo, d, diag, 0);
           if (lane == 31 && warp + 1 < W) {
-            const unsigned a =
-                ring_out + ((t - 31) & (RING - 1)) * sizeof(int4);
-            if (remote) {
-              st_cluster_v4(a, v);
-            } else {
-              sts_v4(a, v);
-            }
+            sts_v4(ring_out + ((t - 31) & (RING - 1)) * sizeof(int4), v);
           }
           if (lane == 31 && warp + 1 == W && p + 1 < npass) at(bnd, i) = v;
         }
       }
     }
-    if ((g & (K - 1)) == 0) pair_sync<CL>();
+    if ((g & (K - 1)) == 0) __syncthreads();
   }
   fold();
   for (int o = 16; o > 0; o >>= 1) {
     best = max(best, __shfl_xor_sync(FULL, best, o));
   }
-  // Each warp's maximum into block 0's red.  The barrier also keeps
-  // every block alive until the last write into its shared memory.
-  if (lane == 0) {
-    if constexpr (CL == 1) {
-      red[warp] = best;
-    } else {
-      st_cluster_s32(map_rank(static_cast<unsigned>(
-                                  __cvta_generic_to_shared(red + warp)), 0),
-                     best);
-    }
-  }
-  pair_sync<CL>();
-  if (threadIdx.x == 0 && rank == 0) {
+  if (lane == 0) red[warp] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
     for (int w = 1; w < W; ++w) best = max(best, red[w]);
     at(best_out, b) = best;
   }
 }
 
-template <int C, bool BIG, int CL>
+template <int C, bool BIG>
 int launch(const uint8_t* ref, const uint8_t* query, const int* ref_len,
            const int* query_len, int B, int LR, int LQ, int match,
            int mismatch, int go, int ge, int4* scratch, int* best,
            cudaStream_t stream) {
-  const auto kernel = sw_kernel<C, BIG, CL>;
-  const int smem = kWarps / CL * RING * static_cast<int>(sizeof(int4)) +
+  const int smem = kWarps * RING * static_cast<int>(sizeof(int4)) +
                    kWarps * static_cast<int>(sizeof(int)) +
                    round16(min(LR, kRefCap));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        sw_kernel<C, BIG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * CL);
-  cfg.blockDim = dim3(32 * kWarps / CL);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = CL;
-  cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = CL > 1 ? 1 : 0;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kernel, ref, query, ref_len, query_len, LR, LQ, match, mismatch,
-      go, ge, scratch, best);
-  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  sw_kernel<C, BIG><<<B, 32 * kWarps, smem, stream>>>(
+      ref, query, ref_len, query_len, LR, LQ, match, mismatch, go, ge,
+      scratch, best);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -349,23 +272,11 @@ extern "C" int dtt_local_score(const uint8_t* ref, const uint8_t* query,
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   DTT_UPLOAD_EXTENTS(st);
-  // A cluster of two blocks a pair while the batch leaves half the SMs
-  // idle.
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const bool pair_of_blocks = 2 * B <= sms;
   // The least C of 2, 4, 6, 8, 12, 16 with one pass over LQ columns.
   const int c = (LQ + 32 * kWarps - 1) / (32 * kWarps);
   const auto run = [&](auto kernel_c) {
     constexpr int C = decltype(kernel_c)::value;
-    const auto go =
-        LR > kRefCap
-            ? (pair_of_blocks ? launch<C, true, 2> : launch<C, true, 1>)
-            : (pair_of_blocks ? launch<C, false, 2> : launch<C, false, 1>);
+    const auto go = LR > kRefCap ? launch<C, true> : launch<C, false>;
     return go(ref, query, ref_len, query_len, B, LR, LQ, match, mismatch,
               gap_open, gap_extend, reinterpret_cast<int4*>(scratch), best,
               st);
