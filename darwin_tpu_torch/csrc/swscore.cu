@@ -51,8 +51,9 @@
 // 31, (W - 1) L + 31 + K) steps, so that scratch row i is written a
 // barrier before it is read.  The ref is staged in shared memory once
 // (up to kRefCap bytes; a longer ref takes the BIG instantiation, whose
-// rows past that read global memory).  4 and 16 warps a block measured
-// slower than 8 (PERF.md).
+// rows past that read global memory).  4 and 16 warps a block, and a
+// cluster of two blocks of 4 warps a pair at B = 64, measured slower than
+// one block of 8 (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
