@@ -26,24 +26,35 @@ Phases; any failure ends the run with a nonzero exit code:
    banks (never taken on the path); the main path's kernels, SW, the
    word walkers and the gathers also as device time (device_ms: a CUDA
    graph of 50 launches, replayed, over 50), SW also on 8 times the
-   pairs;
+   pairs; the three walkers at early terminates past their old caps
+   (LARGE_ET: 30000, packed6 16000) on walk_cases and DP tiles, T =
+   320, B = 16; the D-SOFT kernel (csrc/dsoft.cu) under each index mode
+   on the E.coli slice's 920 read-strands and on dsoft_cases
+   (tests/test_dsoft_device.py's cases, made from the port's golden
+   table; where no read overflowed, also equal to dsoft_scalar), timed
+   at the E.coli shape under the default index mode;
 3. fixtures: darwin_tpu_torch.pipeline.run_pipeline on every
    tests/data fixture that has an out.darwin (the reference binary's
-   output), under the device engine and under the host-stepped engine;
-   record sets must be equal;
+   output), under the device engine, the host-stepped engine and the
+   device engine with the device D-SOFT (dsoft="device"); record sets
+   must be equal;
 4. the E.coli-shaped slice: a 4.6 Mb synthetic genome, 460 x 10 kb
    reads at 12% error (seed 42), self-overlap, default params, 512
    slots, made once; its sha256 must equal
-   tests/data/ecoli_shape/dataset.sha256.  Four runs, each with the
+   tests/data/ecoli_shape/dataset.sha256.  Five runs, each with the
    launch counters zeroed just before it and read just after: the CLI
    (device engine, dir bytes), the device engine with tb_format
-   "packed" and "packed6" through pipeline.run_device_merged, and the
-   CLI with --engine host --paf-out.  Every run's merged records must
-   equal tests/data/ecoli_shape/jax_cpu.darwin (darwin_tpu's own output
-   on a CPU), the host stages must have run the port's native library
+   "packed" and "packed6" through pipeline.run_device_merged, the CLI
+   with --engine host --paf-out, and the CLI with --dsoft device.
+   Every run's merged records must equal
+   tests/data/ecoli_shape/jax_cpu.darwin (darwin_tpu's own output on a
+   CPU), the host stages must have run the port's native library
    (host_native), not their NumPy fallbacks, every kernel a run uses
-   must have launched in it, and the device engine's runs must launch
-   the span fetch once an engine iteration;
+   must have launched in it, the device engine's runs must launch the
+   span fetch once an engine iteration, and the --dsoft device run's
+   dsoft_overflow_reads must be the plain version's count (phase 2).
+   Then each run's seed_s, and the records' sensitivity and specificity
+   (eval/sensitivity.py, the read names' coordinates as the truth);
 5. the kernel lab (darwin_tpu_torch.lab): with the counters zeroed
    again, its geometry sweep (every dir format and interleave 1, 2, 4,
    each output checked bit-exact against the plain version), the `ilp`
@@ -71,10 +82,16 @@ Phases; any failure ends the run with a nonzero exit code:
    process on it in a trap's launch failure (trapped); then phase 2's
    inputs (checked_digests: the DP in
    three formats and plane 2 at every TILES entry, the three walkers on
-   the DP's output and on walk_cases, the fetch at both bank ends, SW
-   at B = 64 and at its tiling's edges) run in another child
+   the DP's output, on walk_cases and at LARGE_ET, the fetch at both
+   bank ends, SW at B = 64 and at its tiling's edges, the D-SOFT kernel
+   on dsoft_cases and the E.coli read-strands) run in another child
    (``--checked``), which must exit 0 with every output equal to the
-   normal library's.
+   normal library's;
+8. the golden soak: tests/test_fuzz_pipeline.py's pinned instances
+   (tools/torch_fuzz_soak.py's copies of its generators) through the
+   port's pipeline on the card, each record set equal to the golden
+   spec's (golden/, computed in spawned processes from phase 3 on) and
+   each instance's device D-SOFT calls equal to the host D-SOFT's.
 
 The last three lines are a JSON summary of the kernels, nvidia-smi's
 name and power limit, and {"ok": true, "device": {...}}.  Without a
@@ -94,13 +111,22 @@ sitting.
 runs checked_digests on the checked library (phase 7's child; --small:
 one small input a kernel) and prints the digests as its last line, or
 (--trap) checked_trap, an out-of-bounds launch that must end it.
+
+    python3 chip_smoke.py --index-modes
+
+only times the E.coli slice's D-SOFT on its merged bank, the native host
+collect_calls beside collect_calls_device cold and warm under each index
+mode, with each mode's kernel time (seed_times), and prints them as JSON.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import hashlib
 import json
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -158,6 +184,8 @@ KERNELS = {
                           "traceback_packed6_jax"),
     "fetch_tiles": ("darwin_tpu_torch/csrc/tile_fetch.cu",
                     "darwin_tpu/ops/tile_fetch.py:161", "pallas_call"),
+    "dsoft_device": ("darwin_tpu_torch/csrc/dsoft.cu",
+                     "darwin_tpu/dsoft/device.py:341", "dsoft_device_batch"),
     "local_score_batch": ("darwin_tpu_torch/csrc/swscore.cu",
                           "darwin_tpu/ops/swscore.py:33",
                           "local_score_batch"),
@@ -174,7 +202,8 @@ KERNELS = {
 # the span fetch also in its one-set form, ONE_SET.
 ONE_SET = "fetch_tiles[one set]"
 DEVICE_TIMED = ("align_tiles", "traceback", "fetch_tiles", ONE_SET,
-                "traceback_packed", "traceback_packed6", "local_score_batch")
+                "traceback_packed", "traceback_packed6", "local_score_batch",
+                "dsoft_device")
 # The keys of each entry of the kernels line.
 KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -185,7 +214,20 @@ ECOLI_RUNS = {
     "packed": ("align_tiles", "fetch_tiles", "traceback_packed"),
     "packed6": ("align_tiles", "fetch_tiles", "traceback_packed6"),
     "cli host --paf-out": ("align_tiles", "traceback_packed6"),
+    "cli bytes --dsoft device": ("dsoft_device", "align_tiles",
+                                 "fetch_tiles", "traceback"),
 }
+# The E.coli-shaped slice's reads (phase 4) and the device D-SOFT's
+# budgets there (collect_calls_device's defaults).
+ECOLI_READS = 460
+TUP_MAX, CAND_MAX = 8192, 512
+# Early terminates past every walker's old shared-buffer cap, at T = 320
+# and B = 16 (bytes and packed; packed6, whose stream is twice as wide),
+# and at the edge of the walkers' op buffer (2048 slots a stretch): the
+# last stream that fits it and the first that takes two stretches.
+LARGE_ET = {"bytes": 30000, "packed": 30000, "packed6": 16000}
+EDGE_ET = {"bytes": (1024, 1025), "packed": (1024, 1025),
+           "packed6": (512, 513)}
 
 
 def log(*a):
@@ -548,6 +590,420 @@ def gather_yardstick(sets, back, T: int, want):
     return lambda: cat[idx]
 
 
+def large_et_walks(dev):
+    """[(name, fmt, walker args, ET)]: the three walkers at LARGE_ET on B
+    = 16 walk_cases tiles (gap runs past row 0 and column 0 go on to ET
+    steps) and on the DP's output of 16 related tiles, T = 320, then at
+    EDGE_ET on the walk_cases tiles."""
+    import numpy as np
+    import torch
+
+    from darwin_tpu_torch.ops.dp import PACKERS, align_tiles
+
+    rng = np.random.default_rng(8)
+    dirm, *rest = (torch.from_numpy(x).to(dev)
+                   for x in walk_case_batch(rng, T_MAIN, 16))
+    ref, query, rlen, qlen = (torch.from_numpy(x).to(dev)
+                              for x in related_tiles(rng, 16, T_MAIN))
+    first = torch.from_numpy(rng.random(16) < 0.5).to(dev)
+    cases = []
+    edges = []
+    for fmt, ET in LARGE_ET.items():
+        packer = PACKERS[fmt]
+        tiles = (dirm if packer is None else packer(dirm), *rest)
+        cases.append((f"{WALKERS[fmt]} ET={ET} walk_cases", fmt, tiles, ET))
+        out = align_tiles(ref, query, rlen, qlen, dir_format=fmt, match=1,
+                          mismatch=-1, gap_open=-1, gap_extend=-1)
+        cases.append((f"{WALKERS[fmt]} ET={ET} dp",
+                      fmt, (out["dir" if fmt == "bytes" else "dir_words"],
+                            rlen, qlen, first, out["max_i"], out["max_j"]),
+                      ET))
+        edges += [(f"{WALKERS[fmt]} ET={et} walk_cases", fmt, tiles, et)
+                  for et in EDGE_ET[fmt]]
+    return cases + edges
+
+
+def dsoft_fixture(seed, n_reads=10, ref_len=30000, err=0.12, n_frac=0.0):
+    """tests/test_dsoft_device.py's instances on the port's golden table:
+    (GoldenSeedTable of a random 30 kb reference, k 12, w 4, bin 64;
+    reads of 400-2500 bases from it at err substitutions)."""
+    import numpy as np
+
+    from darwin_tpu_torch.golden.dsoft import GoldenSeedTable
+
+    alpha = np.frombuffer(b"ACGTN", dtype=np.uint8)
+    rng = np.random.default_rng(seed)
+    p = [(1 - n_frac) / 4] * 4 + [n_frac]
+    ref = rng.choice(alpha, size=ref_len, p=p).astype(np.uint8)
+    gt = GoldenSeedTable(ref, 12, 32, 64, 4)
+    reads = []
+    for _ in range(n_reads):
+        s = int(rng.integers(0, max(1, ref_len - 3000)))
+        r = ref[s:s + int(rng.integers(400, 2500))].copy()
+        mut = rng.random(len(r)) < err
+        r[mut] = rng.choice(alpha[:4], size=int(mut.sum()))
+        reads.append(r)
+    return gt, reads
+
+
+def dsoft_cases() -> list:
+    """The D-SOFT kernel's small cases, tests/test_dsoft_device.py's:
+    [(name, GoldenSeedTable, reads, {threshold, num_seeds_cap,
+    max_candidates, tup_max, cand_max})].  Three seeds and thresholds;
+    N bases with a num_seeds cap of 40; max_candidates 2; tup_max 8
+    (overflow raised); cand_max 1; empty and 4-base reads; a table past
+    2^31; tup_max 32768 (the kernel's arrays in device memory).  Imports
+    nothing that needs a card."""
+    import numpy as np
+
+    def kw(threshold=18, cap=800, cand=10**6, tup_max=TUP_MAX, cand_max=256):
+        return dict(threshold=threshold, num_seeds_cap=cap,
+                    max_candidates=cand, tup_max=tup_max, cand_max=cand_max)
+
+    cases = [(f"seed {s} threshold {t}", *dsoft_fixture(s), kw(t))
+             for s, t in ((3, 18), (7, 12), (11, 21))]
+    cases += [
+        ("N bases, num_seeds 40", *dsoft_fixture(19, n_frac=0.03),
+         kw(15, cap=40)),
+        ("max_candidates 2", *dsoft_fixture(23), kw(12, cand=2)),
+        ("tup_max 8", *dsoft_fixture(5, n_reads=4), kw(12, tup_max=8)),
+        ("cand_max 1", *dsoft_fixture(29, err=0.02), kw(12, cand_max=1)),
+        ("tup_max 32768", *dsoft_fixture(3), kw(tup_max=32768)),
+    ]
+    gt, _ = dsoft_fixture(31, n_reads=1)
+    cases.append(("empty and short reads", gt,
+                  [np.frombuffer(b"ACGT", np.uint8).copy(),
+                   np.frombuffer(b"A" * 40, np.uint8).copy(),
+                   np.zeros(0, np.uint8)], kw()))
+    gt, reads = dsoft_fixture(13)
+    shift = np.uint64(2_600_000_000)
+    gt.pos_table = (gt.pos_table.astype(np.uint64) + shift).astype(np.uint32)
+    gt.ref_size += int(shift)
+    cases.append(("positions past 2^31", gt, reads, kw()))
+    return cases
+
+
+def dsoft_case_args(gt, reads, kw: dict, index: str, dev):
+    """(args, kwargs) of dsoft_device_batch on one dsoft_cases entry."""
+    import torch
+
+    from darwin_tpu_torch.dsoft.device import device_index, pad_reads
+    from darwin_tpu_torch.engine.seqbank import SeqBank
+
+    Q, lens = pad_reads(SeqBank(reads), range(len(reads)))
+    th, tpos, steps = device_index(gt.hashes, gt.pos_table, k=gt.k,
+                                   index=index, device=dev)
+    return ((torch.from_numpy(Q).to(dev), torch.from_numpy(lens).to(dev),
+             th, tpos),
+            dict(k=gt.k, w=gt.w, bin_size=gt.bin_size,
+                 kmer_max_occ=gt.kmer_max_occurence, index=index,
+                 tl_steps=steps, **kw))
+
+
+@functools.lru_cache(maxsize=1)
+def ecoli_reads() -> list:
+    """The E.coli-shaped dataset (tools/ecoli_shape.py makes the same),
+    made once a process; [(name, seq)], not to be changed."""
+    import numpy as np
+
+    from darwin_tpu_torch.eval.datagen import sample_reads, synth_genome
+
+    rng = np.random.default_rng(42)
+    genome = synth_genome(4_600_000, rng)
+    return sample_reads(genome, ECOLI_READS, 10_000, rng, error_rate=0.12,
+                        rc_fraction=0.5)
+
+
+@functools.lru_cache(maxsize=1)
+def _ecoli_seed_inputs():
+    """The E.coli-shaped slice's default params, genome, seed table,
+    merged bank (its read-strands, as the device engine seeds them) and
+    that bank padded, made once a process."""
+    from darwin_tpu_torch.config import Params
+    from darwin_tpu_torch.dsoft.device import pad_reads
+    from darwin_tpu_torch.engine.seqbank import SeqBank
+    from darwin_tpu_torch.index.genome import Genome
+    from darwin_tpu_torch.index.seed_table import SeedTable
+    from darwin_tpu_torch.io.fasta import FastaRecord
+    from darwin_tpu_torch.pipeline import read_banks
+
+    params = Params()
+    recs = [FastaRecord([n], s) for n, s in ecoli_reads()]
+    genome = Genome(recs, params.bin_size)
+    table = SeedTable.build(genome.concat, params.seed_size,
+                            params.seed_occurence_multiple, params.bin_size,
+                            params.window_size)
+    merged = SeqBank.concat(*read_banks(recs))
+    return (params, genome, table, merged,
+            *pad_reads(merged, range(len(merged.lengths))))
+
+
+def ecoli_dsoft_inputs(dev, index: str):
+    """(args, kwargs) of dsoft_device_batch on the E.coli-shaped slice's
+    920 read-strands, default params, collect_calls_device's budgets."""
+    import torch
+
+    from darwin_tpu_torch.dsoft.device import device_index
+
+    params, _, table, _, Q, lens = _ecoli_seed_inputs()
+    th, tpos, steps = device_index(table.hashes, table.pos, k=table.k,
+                                   index=index, device=dev)
+    return ((torch.from_numpy(Q).to(dev), torch.from_numpy(lens).to(dev),
+             th, tpos),
+            dict(k=table.k, w=table.w, bin_size=table.bin_size,
+                 kmer_max_occ=table.kmer_max_occurence,
+                 num_seeds_cap=params.num_seeds, threshold=params.threshold,
+                 max_candidates=params.max_candidates, tup_max=TUP_MAX,
+                 cand_max=CAND_MAX, index=index, tl_steps=steps))
+
+
+def _lookup_sectors(hv, th, index: str, steps: int) -> dict:
+    """The 32-byte sectors, by array (int32 entry index // 8), that the
+    kernel's lookups of the hashes hv [n] (int64 uint32 values) load:
+    csrc/dsoft.cu's lookup, its loads recorded."""
+    import torch
+
+    from darwin_tpu_torch.dsoft.device import _u32
+
+    if index == "dense":
+        return {"csr": torch.cat([hv, hv + 1]) >> 3}
+    if index == "searchsorted":
+        hs = _u32(th)
+        n = hs.shape[0]
+        mids = []
+        for right in (False, True):  # lower, then upper bound
+            lo, hi = torch.zeros_like(hv), torch.full_like(hv, n)
+            while bool((lo < hi).any()):
+                act = lo < hi
+                mid = (lo + hi) >> 1
+                mids.append(mid[act])
+                v = hs[mid.clamp(max=n - 1)]
+                go = (v <= hv) if right else (v < hv)
+                lo = torch.where(act & go, mid + 1, lo)
+                hi = torch.where(act & ~go, mid, hi)
+        return {"h": torch.cat(mids) >> 3}
+    hd, crs, bkt, base, shift = th
+    hdv = _u32(hd)
+    nd, nb = hd.shape[0], bkt.shape[0] - 1
+    rel = hv - base.long()[0]
+    b = rel.clamp(min=0) >> int(shift[0])
+    bc = b.clamp(max=nb - 1)
+    lo, hi = bkt.long()[bc], bkt.long()[bc + 1]
+    hd_ids = []
+    for _ in range(steps):
+        act = lo < hi
+        mid = ((lo + hi) >> 1).clamp(0, nd - 1)
+        hd_ids.append(mid[act])
+        less = hdv[mid] < hv
+        lo = torch.where(act & less, mid + 1, lo)
+        hi = torch.where(act & ~less, mid, hi)
+    d = lo.clamp(max=nd - 1)
+    probe = (rel >= 0) & (b < nb) & (lo < nd)
+    hd_ids.append(d[probe])
+    found = probe & (hdv[d] == hv)
+    zero = torch.zeros(1, dtype=torch.long, device=hv.device)
+    return {"base": zero, "shift": zero, "bkt": torch.cat([bc, bc + 1]) >> 3,
+            "hd": torch.cat(hd_ids) >> 3,
+            "crs": torch.cat([d[found], d[found] + 1]) >> 3}
+
+
+def dsoft_work(args, kw: dict) -> dict:
+    """The work a D-SOFT call's data needs, from the plain version's
+    steps (dsoft/device.py).  A read-strand's scan can stop at its
+    (num_seeds_cap + 1)-th passing minimizer, or at the kept minimizer
+    whose tuples pass tup_max: nothing after it changes the output.
+    Returns "read_bytes" [R] (a read's bytes up to the last k-mer its
+    scan needs), "scanned" (positions), "tuples" [R] (min(total,
+    tup_max)) and "sectors": by array, the distinct 32-byte sectors
+    (int32 entry index // 8) of the index entries the needed lookups
+    load and of the table_pos runs of the kept minimizers' tuples."""
+    import torch
+
+    from darwin_tpu_torch.dsoft import device as dd
+
+    queries, qlens, th, tpos = args
+    k, w, tup_max = kw["k"], kw["w"], kw["tup_max"]
+    cap1 = kw["num_seeds_cap"] + 1
+    LP = queries.shape[1] + 16
+    emit, pos, mhash = dd._query_minimizers_fixed(
+        dd._codes(queries, qlens, LP), qlens, k, w)
+    start, end = dd._lookup(mhash, th, kw["index"], kw["tl_steps"])
+    occ = end - start
+    passing = emit & (occ <= kw["kmer_max_occ"])
+    rank = torch.cumsum(passing.long(), dim=1)
+    keep = passing & (rank <= cap1)
+    cnt = torch.where(keep, occ, 0)
+    cum = torch.cumsum(cnt, dim=1)
+    last = (passing & (rank == cap1)) | (keep & (cum > tup_max))
+    stop = torch.where(last, pos, LP).min(dim=1).values
+    hi = 16 * ((qlens.long() + 15) // 16) - k - w
+    end_p = torch.minimum(stop + 1, hi)  # the scan needs [w-1, end_p)
+    scanned = (end_p - (w - 1)).clamp(min=0)
+    read_bytes = torch.where(
+        scanned > 0, torch.minimum(end_p - 1 + k, qlens.long()), 0)
+    sectors = _lookup_sectors(
+        mhash[emit & (pos[None, :] < end_p[:, None])], th, kw["index"],
+        kw["tl_steps"])
+    # Each kept minimizer's hits below tup_max: one run of table_pos.
+    n = torch.where(keep, cum.clamp(max=tup_max) - (cum - cnt), 0)
+    first = start[n > 0] >> 3
+    nsec = ((start[n > 0] + n[n > 0] - 1) >> 3) - first + 1
+    within = torch.arange(int(nsec.sum()), device=first.device)
+    sectors["table_pos"] = (
+        torch.repeat_interleave(first, nsec) + within
+        - torch.repeat_interleave(torch.cumsum(nsec, 0) - nsec, nsec))
+    return {"read_bytes": read_bytes.tolist(),
+            "scanned": int(scanned.sum()),
+            "tuples": cum[:, -1].clamp(max=tup_max).tolist(),
+            "sectors": {a: torch.unique(v) for a, v in sectors.items()}}
+
+
+def dsoft_bound(args, kw: dict, out) -> dict:
+    """A D-SOFT call's bound from the work its data needs (dsoft_work).
+    Bytes: the lengths, the reads up to each scan's stop, the distinct
+    32-byte sectors of the index and table_pos (each once a call), the
+    outputs.
+    Operations: a scanned position's k-mer, hash and window minimum (2k
+    + 20 + 2w), the bitonic sort's compare-exchanges (3 each) over
+    next_pow2 of each read's tuples, and 30 a tuple for its scans."""
+    work = dsoft_work(args, kw)
+    read_bytes = sum(work["read_bytes"])
+    sectors = sum(v.numel() for v in work["sectors"].values())
+    k, w = kw["k"], kw["w"]
+    ce = sum(p * max(1, p.bit_length() - 1) * p.bit_length() // 4
+             for p in (1 << max(0, n - 1).bit_length()
+                       for n in work["tuples"]))
+    ops = (work["scanned"] * (2 * k + 20 + 2 * w) + 3 * ce
+           + 30 * sum(work["tuples"]))
+    res = bound(nbytes(args[1], *out) + read_bytes + 32 * sectors, ops)
+    log(f"  dsoft_device bound: {read_bytes} read bytes, {sectors} "
+        f"sectors, {work['scanned']} scanned positions, "
+        f"{sum(work['tuples'])} tuples")
+    return res
+
+
+def _same(got, want) -> bool:
+    """Whether two tuples of tensors are equal, shapes and values."""
+    import torch
+
+    return all(g.shape == w.shape and torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
+def phase_dsoft(dev) -> tuple:
+    """The D-SOFT kernel against its plain version (all four outputs,
+    tolerance 0) under each index mode on the E.coli slice's read-strands
+    and on dsoft_cases (where no read overflowed, also the golden
+    dsoft_scalar's candidates); then timed at the E.coli shape under the
+    default index mode.  Returns (its kernels-line numbers, the plain
+    version's overflowed reads at that shape)."""
+    import numpy as np
+
+    from darwin_tpu_torch.dsoft.device import (default_index_mode,
+                                               dsoft_device_batch,
+                                               dsoft_device_batch_torch)
+    from darwin_tpu_torch.golden.dsoft import dsoft_scalar
+
+    res = {"max_abs_err": 0, "library_ms": None}
+    default = default_index_mode(_ecoli_seed_inputs()[2].k)
+    for index in ("twolevel", "searchsorted", "dense"):
+        t0 = time.perf_counter()
+        args, kw = ecoli_dsoft_inputs(dev, index)
+        want = dsoft_device_batch_torch(*args, **kw)
+        got = dsoft_device_batch(*args, **kw)
+        if not _same(got, want):
+            raise AssertionError(f"dsoft_device differs on the E.coli "
+                                 f"read-strands ({index})")
+        log(f"  dsoft_device, E.coli {args[0].shape[0]} read-strands, "
+            f"{index}: exact, {int(got[2].sum())} candidates, "
+            f"{int(got[3].sum())} overflowed "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if index == default:
+            timed = (args, kw, got)
+    for name, gt, reads, ckw in dsoft_cases():
+        gold = [dsoft_scalar(gt, r, ckw["num_seeds_cap"], ckw["threshold"],
+                             ckw["max_candidates"]) for r in reads]
+        for index in ("twolevel", "searchsorted", "dense"):
+            args, kw = dsoft_case_args(gt, reads, ckw, index, dev)
+            got = dsoft_device_batch(*args, **kw)
+            if not _same(got, dsoft_device_batch_torch(*args, **kw)):
+                raise AssertionError(f"dsoft_device differs: {name}, "
+                                     f"{index}")
+            hits, offs, counts, over = (x.cpu().numpy() for x in got)
+            for i, g in enumerate(gold):
+                if not over[i] and list(zip(
+                        hits[i, :counts[i]].tolist(),
+                        offs[i, :counts[i]].tolist())) != g:
+                    raise AssertionError(f"dsoft_device != dsoft_scalar: "
+                                         f"{name}, {index}, read {i}")
+        log(f"  dsoft_device, {name}: exact under each index mode, "
+            f"{int(over.sum())} of {len(reads)} reads overflowed, "
+            f"{int(counts.sum())} candidates")
+    args, kw, got = timed
+    res.update(dsoft_bound(args, kw, got))
+    res["ms"] = median_ms(lambda: dsoft_device_batch(*args, **kw), 20)
+    res["plain_ms"] = median_ms(
+        lambda: dsoft_device_batch_torch(*args, **kw), 3)
+    res["device_ms"] = graph_ms(lambda: dsoft_device_batch(*args, **kw),
+                                n=10)
+    log(f"  dsoft_device at R={args[0].shape[0]} L={args[0].shape[1]} "
+        f"({default}, tup_max {TUP_MAX}, cand_max {CAND_MAX}): kernel "
+        f"{res['ms']:.4f} ms (graph {res['device_ms']:.4f} ms), plain "
+        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']})")
+    return res, int(np.asarray(got[3].cpu()).sum())
+
+
+def seed_times(dev) -> dict:
+    """`--index-modes`: the E.coli slice's D-SOFT on its merged bank in
+    one process: the
+    native host collect_calls, and collect_calls_device under each index
+    mode on a table with nothing cached (its index built and uploaded:
+    "cold"), then again ("warm"), each call ending in its GACT calls on
+    the host, which must equal collect_calls'; with each mode's kernel
+    time (CUDA events, median of 20).  Returns {mode: {cold_s, warm_s,
+    kernel_ms}} and "host_s"."""
+    import copy
+
+    import torch
+
+    from darwin_tpu_torch.dsoft.device import dsoft_device_batch
+    from darwin_tpu_torch.pipeline import (collect_calls,
+                                           collect_calls_device)
+
+    params, genome, table, merged, _, _ = _ecoli_seed_inputs()
+    fields = ("ref_id", "query_id", "ref_pos", "query_pos")
+    collect_calls(table, genome, merged, params)  # warm the native library
+    t0 = time.perf_counter()
+    host = collect_calls(table, genome, merged, params)
+    out = {"host_s": time.perf_counter() - t0}
+    for index in ("twolevel", "searchsorted", "dense"):
+        fresh = copy.copy(table)
+        fresh.__dict__.pop("_device_index", None)
+        fresh.__dict__.pop("_twolevel", None)
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            calls = collect_calls_device(fresh, genome, merged, params,
+                                         index=index, device=dev)
+            times.append(time.perf_counter() - t0)
+            if len(calls) != len(host) or any(
+                    (getattr(calls, f) != getattr(host, f)).any()
+                    for f in fields):
+                raise AssertionError(f"collect_calls_device ({index}) != "
+                                     f"collect_calls on the E.coli slice")
+        args, kw = ecoli_dsoft_inputs(dev, index)
+        out[index] = dict(cold_s=times[0], warm_s=times[1],
+                          kernel_ms=median_ms(
+                              lambda: dsoft_device_batch(*args, **kw), 20))
+        log(f"  collect_calls_device, E.coli merged bank, {index}: cold "
+            f"{times[0]:.4f} s, warm {times[1]:.4f} s, kernel "
+            f"{out[index]['kernel_ms']:.4f} ms; the native host "
+            f"collect_calls {out['host_s']:.4f} s; calls equal")
+    return out
+
+
 def phase_kernels(dev) -> dict:
     """Each main-path kernel against its plain version on the card;
     returns {kernel: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
@@ -626,6 +1082,19 @@ def phase_kernels(dev) -> dict:
             if e:
                 raise AssertionError(f"{name} mismatch on walk_cases, T={T}")
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"], e)
+    # Early terminates past the walkers' old shared-buffer caps.
+    for case, fmt, args, ET in large_et_walks(dev):
+        kernel, plain = _walker_pairs(fmt, ET, args)
+        t0 = time.perf_counter()
+        g = kernel()
+        e = max_abs_err(dict(enumerate(g)), dict(enumerate(plain())))
+        log(f"  {case}: error {e}, longest walk "
+            f"{int((g[1] + g[2]).max())} steps "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if e:
+            raise AssertionError(f"{case} differs from its plain version")
+        name = WALKERS[fmt]
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], e)
 
     # The span fetch in both forms: the pair (the engine's one launch an
     # iteration) and one set.
@@ -754,29 +1223,18 @@ def phase_fixtures(dev) -> None:
         same_file = not (d / "ref.fasta").exists()
         ref = reads if same_file else parse_fasta(d / "ref.fasta")
         want = set((d / "out.darwin").read_text().splitlines())
-        for engine in ("device", "host"):
+        for engine, dsoft in (("device", "host"), ("host", "host"),
+                              ("device", "device")):
             t0 = time.perf_counter()
             res = run_pipeline(ref, reads, params, same_file, batch_size=64,
-                               engine=engine, device=dev)
+                               engine=engine, dsoft=dsoft, device=dev)
             got = set(res.records)
-            log(f"  {d.name} ({engine}): {len(got)}/{len(want)} records, "
-                f"{time.perf_counter() - t0:.2f} s")
+            log(f"  {d.name} ({engine}, --dsoft {dsoft}): {len(got)}/"
+                f"{len(want)} records, {time.perf_counter() - t0:.2f} s")
             if got != want:
                 raise AssertionError(
-                    f"{d.name} ({engine}): missing {sorted(want - got)[:3]} "
-                    f"extra {sorted(got - want)[:3]}")
-
-
-def ecoli_reads() -> list:
-    """The E.coli-shaped dataset (tools/ecoli_shape.py makes the same)."""
-    import numpy as np
-
-    from darwin_tpu_torch.eval.datagen import sample_reads, synth_genome
-
-    rng = np.random.default_rng(42)
-    genome = synth_genome(4_600_000, rng)
-    return sample_reads(genome, 460, 10_000, rng, error_rate=0.12,
-                        rc_fraction=0.5)
+                    f"{d.name} ({engine}, --dsoft {dsoft}): missing "
+                    f"{sorted(want - got)[:3]} extra {sorted(got - want)[:3]}")
 
 
 def _counted(counters: dict, run) -> tuple:
@@ -788,11 +1246,14 @@ def _counted(counters: dict, run) -> tuple:
     return out, {name: c.launches for name, c in counters.items()}
 
 
-def phase_ecoli(dev, counters: dict) -> dict:
-    """The four E.coli-shaped runs; returns {kernel: launches} summed
-    over them."""
+def phase_ecoli(dev, counters: dict, plain_overflow: int) -> dict:
+    """The five E.coli-shaped runs; returns {kernel: launches} summed
+    over them.  The --dsoft device run must report plain_overflow
+    overflowed reads (the plain version's count on the same
+    read-strands, phase 2)."""
     from darwin_tpu_torch import cli, native
     from darwin_tpu_torch.config import Params
+    from darwin_tpu_torch.eval.sensitivity import measure_sensitivity
     from darwin_tpu_torch.index.genome import Genome
     from darwin_tpu_torch.index.seed_table import SeedTable
     from darwin_tpu_torch.io.fasta import parse_fasta, write_fasta
@@ -854,7 +1315,10 @@ def phase_ecoli(dev, counters: dict) -> dict:
             "cli host --paf-out": lambda: cli_run(
                 "host", "--engine", "host", "--paf-out",
                 str(td / "host" / "merged.paf")),
+            "cli bytes --dsoft device": lambda: cli_run(
+                "dsoft_device", "--dsoft", "device"),
         }
+        seed_s = {}
         for tag, run in runs.items():
             t0 = time.perf_counter()
             (got, m), launches = _counted(counters, run)
@@ -888,6 +1352,21 @@ def phase_ecoli(dev, counters: dict) -> dict:
                     f"once an iteration")
             for k, n in launches.items():
                 total[k] += n
+            seed_s[tag] = m["seed_s"]
+            if "--dsoft device" in tag:
+                log(f"    dsoft_overflow_reads {m['dsoft_overflow_reads']} "
+                    f"(the plain version flags {plain_overflow})")
+                if m["dsoft_overflow_reads"] != plain_overflow:
+                    raise AssertionError(f"{tag}: dsoft_overflow_reads "
+                                         f"{m['dsoft_overflow_reads']}, the "
+                                         f"plain version {plain_overflow}")
+        log("  seed_s: " + ", ".join(f"{t} {v:.4f} s"
+                                     for t, v in seed_s.items()))
+        names = [r.name for r in parse_fasta(fa)]
+        ev = measure_sensitivity(want.splitlines(), names)
+        log(f"  sensitivity {ev.sensitivity:.6f}, specificity "
+            f"{ev.specificity:.6f} (TP {ev.tp}, FN {ev.fn}, FP {ev.fp}; "
+            f"the same for every run: their records are equal)")
         paf = (td / "host" / "merged.paf").read_text().splitlines()
     # PAF lines also carry nmatch and ncols, so records that print the
     # same .out line may be distinct PAF lines: compare what both carry.
@@ -1105,6 +1584,46 @@ def phase_scoreeval(dev) -> int:
     return launches
 
 
+def _fuzz_soak():
+    """tools/torch_fuzz_soak.py as a module (its directory put on
+    sys.path, which spawned workers inherit)."""
+    tools = str(REPO / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import torch_fuzz_soak
+
+    return torch_fuzz_soak
+
+
+def golden_soak_start(pool) -> dict:
+    """The golden spec's record sets of tests/test_fuzz_pipeline.py's
+    pinned instances, submitted to pool: {(seed, guided): future}."""
+    fz = _fuzz_soak()
+    return {(seed, guided): pool.submit(fz.golden_records, seed, guided)
+            for guided, seeds in ((False, fz.PINNED),
+                                  (True, fz.PINNED_GUIDED))
+            for seed in seeds}
+
+
+def phase_golden(dev, futures: dict) -> None:
+    """Each pinned fuzz instance through the port's pipeline on the card
+    against the golden spec's records (from futures), and its device
+    D-SOFT's calls against the host D-SOFT's (torch_fuzz_soak.check)."""
+    fz = _fuzz_soak()
+    for (seed, guided), fut in futures.items():
+        t0 = time.perf_counter()
+        want = fut.result()
+        waited = time.perf_counter() - t0
+        bad = fz.check(seed, guided, dev, want)
+        log(f"  seed {seed}{' guided' if guided else ''}: {len(want)} "
+            f"records, {'exact' if not bad else bad} "
+            f"({time.perf_counter() - t0:.1f} s, {waited:.1f} s of it "
+            f"waiting for the golden spec)")
+        if bad:
+            raise AssertionError(f"golden soak seed {seed} (guided "
+                                 f"{guided}): {bad}")
+
+
 def _digest(outs) -> str:
     """sha256 (16 hex digits) of a kernel's outputs: a tensor, a tuple of
     them or a dict of them in key order."""
@@ -1125,12 +1644,16 @@ def checked_digests(dev, small: bool = False) -> dict:
     at every TILES entry and scoring, each walker on the DP's output and
     on walk_cases, the span fetch (pair and one set) at every TILES
     entry on both bank ends, SW on phase 2's pairs and at its tiling's
-    edges.  small: B = 36, the tile size 64 and one scoring.  On the
-    checked library each case's name goes to stderr before it runs, so
-    that a trap names it."""
+    edges, the walkers at LARGE_ET (large_et_walks), the D-SOFT kernel
+    on dsoft_cases under each index mode and on the E.coli read-strands.
+    small: B = 36, the tile size 64 and one scoring, one large-ET walk,
+    the D-SOFT cases under the two-level index only and no E.coli batch.
+    On the checked library each case's name goes to stderr before it
+    runs, so that a trap names it."""
     import numpy as np
     import torch
 
+    from darwin_tpu_torch.dsoft.device import dsoft_device_batch
     from darwin_tpu_torch.ops.common import PAD_QUERY, PAD_REF
     from darwin_tpu_torch.ops.dp import PACKERS, align_tiles
     from darwin_tpu_torch.ops.plane2 import plane2
@@ -1209,6 +1732,19 @@ def checked_digests(dev, small: bool = False) -> dict:
                           sc))
             run(f"local_score_batch {tag} {sc}",
                 lambda: local_score_batch(*pairs, **kw))
+
+    for case, fmt, args, ET in large_et_walks(dev)[:1 if small else None]:
+        run(case, lambda: WALK_FNS[fmt][1](*args, early_terminate=ET))
+    modes = ("twolevel",) if small else ("twolevel", "searchsorted", "dense")
+    for name, gt, reads, ckw in dsoft_cases():
+        for index in modes:
+            args, kw = dsoft_case_args(gt, reads, ckw, index, dev)
+            run(f"dsoft_device {name} {index}",
+                lambda: dsoft_device_batch(*args, **kw))
+    if not small:
+        args, kw = ecoli_dsoft_inputs(dev, "twolevel")
+        run("dsoft_device E.coli twolevel",
+            lambda: dsoft_device_batch(*args, **kw))
     return res
 
 
@@ -1345,6 +1881,68 @@ def phase_ab(dev, reps: int = 20) -> dict:
     return res
 
 
+def run_phases(dev, golden_pool) -> tuple:
+    """Phases 1 (the build) to 8, phase 8's golden spec computed by
+    golden_pool; returns the kernels line's numbers and launches, the
+    main paths' first, then the lab's."""
+    from darwin_tpu_torch import _build
+    from darwin_tpu_torch.dsoft.device import dsoft_device_batch
+    from darwin_tpu_torch.ops import traceback as tb
+    from darwin_tpu_torch.ops.dp import align_tiles
+    from darwin_tpu_torch.ops.tile_fetch import fetch_tiles
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        checked = pool.submit(_build.build, True)
+        report = _build.build()
+        checked.result()
+    _build.lib()
+    log(f"  kernels built in {time.perf_counter() - t0:.1f} s -> {_build.LIB} "
+        f"and {_build.LIB_CHECKED.name}")
+    for line in _registers(report):
+        log("  " + line)
+
+    log("[2/8] kernels against their plain versions (tolerance 0)")
+    kres = phase_kernels(dev)
+    kres["dsoft_device"], plain_overflow = phase_dsoft(dev)
+    golden = golden_soak_start(golden_pool)
+    log("[3/8] fixtures against the reference binary's out.darwin, both "
+        "engines, and the device engine with --dsoft device")
+    t0 = time.perf_counter()
+    phase_fixtures(dev)
+    log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
+    log("[4/8] E.coli-shaped slice: device engine in each tb_format, host "
+        "engine, device engine with --dsoft device")
+    counters = {"align_tiles": align_tiles, "traceback": tb.traceback,
+                "traceback_packed": tb.traceback_packed,
+                "traceback_packed6": tb.traceback_packed6,
+                "fetch_tiles": fetch_tiles,
+                "dsoft_device": dsoft_device_batch}
+    launches = phase_ecoli(dev, counters, plain_overflow)
+    log("[5/8] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
+        "against its plain version")
+    t0 = time.perf_counter()
+    lres, llaunches = phase_lab(dev)
+    log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
+    log("[6/8] score evaluator (darwin_tpu_torch.eval.score_eval)")
+    launches["local_score_batch"] = phase_scoreeval(dev)
+    log("[7/8] phase 2's inputs through the checked library, in a child "
+        "process")
+    phase_checked(dev)
+    log("[8/8] golden soak: tests/test_fuzz_pipeline.py's pinned instances "
+        "on the card against the golden spec")
+    t0 = time.perf_counter()
+    phase_golden(dev, golden)
+    log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+    # The main paths' numbers first; the lab's for the kernels only the
+    # lab runs.
+    for k, v in lres.items():
+        kres.setdefault(k, v)
+    for k, v in llaunches.items():
+        launches.setdefault(k, v)
+    return kres, launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1360,6 +1958,9 @@ def main(argv=None) -> int:
                     help="with --checked: one small input a kernel")
     ap.add_argument("--trap", action="store_true",
                     help="with --checked: run checked_trap instead")
+    ap.add_argument("--index-modes", action="store_true",
+                    help="time only collect_calls_device cold and warm "
+                         "under each index mode (seed_times)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1368,9 +1969,6 @@ def main(argv=None) -> int:
     root = Path(args.root).resolve() if args.root else REPO
     sys.path.insert(0, str(root))
     from darwin_tpu_torch import _build
-    from darwin_tpu_torch.ops import traceback as tb
-    from darwin_tpu_torch.ops.dp import align_tiles
-    from darwin_tpu_torch.ops.tile_fetch import fetch_tiles
 
     dev = torch.device("cuda", 0)
     if args.checked:
@@ -1391,52 +1989,24 @@ def main(argv=None) -> int:
                           "registers": _registers(report),
                           **phase_ab(dev)}))
         return 0
-    log(f"[1/7] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
+    if args.index_modes:
+        print(json.dumps({"device": smi, **seed_times(dev)}))
+        return 0
+    log(f"[1/8] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        checked = pool.submit(_build.build, True)
-        report = _build.build()
-        checked.result()
-    _build.lib()
-    log(f"  kernels built in {time.perf_counter() - t0:.1f} s -> {_build.LIB} "
-        f"and {_build.LIB_CHECKED.name}")
-    for line in _registers(report):
-        log("  " + line)
-
-    log("[2/7] kernels against their plain versions (tolerance 0)")
-    kres = phase_kernels(dev)
-    log("[3/7] fixtures against the reference binary's out.darwin, both "
-        "engines")
-    t0 = time.perf_counter()
-    phase_fixtures(dev)
-    log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
-    log("[4/7] E.coli-shaped slice: device engine in each tb_format, host "
-        "engine")
-    counters = {"align_tiles": align_tiles, "traceback": tb.traceback,
-                "traceback_packed": tb.traceback_packed,
-                "traceback_packed6": tb.traceback_packed6,
-                "fetch_tiles": fetch_tiles}
-    launches = phase_ecoli(dev, counters)
-    log("[5/7] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
-        "against its plain version")
-    t0 = time.perf_counter()
-    lres, llaunches = phase_lab(dev)
-    log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
-    log("[6/7] score evaluator (darwin_tpu_torch.eval.score_eval)")
-    launches["local_score_batch"] = phase_scoreeval(dev)
-    log("[7/7] phase 2's inputs through the checked library, in a child "
-        "process")
-    phase_checked(dev)
+    # Phase 8's golden spec runs on the host's cores from phase 3 on
+    # (after phase 2's timings), in spawned processes (no CUDA state is
+    # forked).
+    golden_pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=min(8, os.cpu_count() or 1),
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        kres, launches = run_phases(dev, golden_pool)
+    finally:
+        golden_pool.shutdown(wait=True, cancel_futures=True)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    # The main paths' numbers first; the lab's for the kernels only the
-    # lab runs.
-    for k, v in lres.items():
-        kres.setdefault(k, v)
-    for k, v in llaunches.items():
-        launches.setdefault(k, v)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **kres[name])
                for name, (src, rep, _) in KERNELS.items()]

@@ -55,7 +55,14 @@ _SIGNATURES = {
                             _P, _P, _P, _P],
     "dtt_local_score": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P],
+    # queries, qlens, R, L, the index (h, csr, bkt, base, shift, nh, nb,
+    # steps), table_pos, D-SOFT's nine ints, index mode, grid, scratch,
+    # the four outputs.
+    "dtt_dsoft": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                  *[_I] * 9, _I, _I, _P, _P, _P, _P, _P, _P],
 }
+# Host-only entries (no stream, nothing launched): argtypes, restype.
+_HOST_ENTRIES = {"dtt_dsoft_scratch_bytes": ([_I, _I], _L)}
 # The checked library's one more entry: the extents of the next launch.
 _SET_EXTENTS = ("dtt_set_extents", [_I, _P, _P])
 
@@ -137,6 +144,10 @@ def lib(checked: bool = False) -> ctypes.CDLL:
                     fn = getattr(so, name)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
+                for name, (argtypes, restype) in _HOST_ENTRIES.items():
+                    fn = getattr(so, name)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
                 _libs[checked] = so
     return so
 
@@ -176,6 +187,12 @@ def _set_extents(tensors: list) -> None:
     rc = lib(True).dtt_set_extents(n, lo, hi)
     if rc != 0:
         raise RuntimeError(f"dtt_set_extents: error {rc} ({n} extents)")
+
+
+def host_call(entry: str, *args):
+    """Call one host-only C entry of the library launch takes and
+    return its result."""
+    return getattr(lib(CHECKED), entry)(*args)
 
 
 def launch(entry: str, device: torch.device, *args) -> None:

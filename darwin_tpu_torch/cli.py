@@ -85,6 +85,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="write phase timings/counters as JSON")
     p.add_argument("--device", default="cuda",
                    help="torch device of the GACT loop (default cuda)")
+    p.add_argument("--dsoft", default="host", choices=["host", "device"],
+                   help="seeding engine: host = native C++/NumPy, device "
+                        "= D-SOFT on --device (dsoft/device.py)")
     return p
 
 
@@ -137,9 +140,11 @@ def main(argv: list[str] | None = None) -> int:
     engine = "device" if args.engine == "auto" else args.engine
     # darwin_tpu.cli's keys (seconds as *_ms), and the port's own:
     # host_native says whether the host stages ran the native library or
-    # their NumPy fallbacks.  dsoft: the port's D-SOFT runs on the host.
+    # their NumPy fallbacks; dsoft_overflow_reads counts the reads the
+    # device D-SOFT's budgets sent to the host D-SOFT (0 on the host).
     metrics: dict = {"batch_size": batch_size, "device": str(device),
-                     "engine": engine, "dsoft": "host",
+                     "engine": engine, "dsoft": args.dsoft,
+                     "dsoft_overflow_reads": 0,
                      "host_native": native.available()}
 
     t_start = time.perf_counter()
@@ -213,7 +218,8 @@ def main(argv: list[str] | None = None) -> int:
         in it) on the engine."""
         kw = dict(same_file=same_file, batch_size=batch_size,
                   compute_score=not args.noscore, read_ids=read_ids,
-                  num_threads=args.threads, metrics=metrics)
+                  num_threads=args.threads, dsoft=args.dsoft,
+                  metrics=metrics)
         if engine == "device":
             return run_device_merged(genome, table, fwd, rev, params,
                                      prebuilt=prebuilt, device=device, **kw)

@@ -35,7 +35,14 @@
 // The walker tracks its offset in the window and issues each step's
 // shared read before the bounds checks that may drop it.  Op records
 // go to a shared buffer of 2*ET-1 bytes a warp, written out coalesced
-// with the zero tail when the walk ends.
+// with the zero tail when the walk ends.  Past kRecChunk records
+// (STRETCH) the buffer holds kRecChunk and is written out whenever it
+// fills, the zero tail stored straight to the output row, so any ET is
+// taken: the tile does not bound a walk's records (a gap run that
+// leaves row 0 or column 0 reads ZERO bytes, whose cleared gap-open
+// flag keeps the state, so it goes on until an axis takes ET steps).
+// Short streams keep the one-buffer flow, whose step loop carries no
+// stretch bookkeeping.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,6 +59,8 @@ constexpr int MATCH_BIT = 16;
 constexpr int WARPS = 4;
 constexpr int WIN_R = 32;
 constexpr int WIN_C = 64;
+// A warp's op buffer holds at most this many records between flushes.
+constexpr int kRecChunk = 2048;
 
 // Copies the window ending at DP cell (ai, aj) of one tile's matrix d:
 // win[dr * WIN_C + dc] = cell (ai - dr, aj - dc).  Every load is of a
@@ -81,11 +90,12 @@ __device__ __forceinline__ void load_window(const uint8_t* __restrict__ d,
   __syncwarp();
 }
 
+template <bool STRETCH>
 __global__ void __launch_bounds__(WARPS * 32) traceback_kernel(
     const uint8_t* __restrict__ dir, const int* __restrict__ ref_len,
     const int* __restrict__ query_len, const uint8_t* __restrict__ first,
     const int* __restrict__ max_i, const int* __restrict__ max_j, int B,
-    int T, int ET, int per_warp, uint8_t* __restrict__ ops,
+    int T, int ET, int chunk, int per_warp, uint8_t* __restrict__ ops,
     int* __restrict__ i_steps, int* __restrict__ j_steps) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int lane = threadIdx.x & 31;
@@ -121,35 +131,52 @@ __global__ void __launch_bounds__(WARPS * 32) traceback_kernel(
     return v;
   };
 
+  uint8_t* out = ops + static_cast<size_t>(b) * S;
   int val = enter();
   int state = val & 3;
-  int is = 0, js = 0, s = 0;
-  for (; s < S; ++s) {
-    if (state == 0 || is >= ET || js >= ET) break;
-    if (lane == 0)
-      rec[s] = static_cast<uint8_t>(state + (state == 3 ? val & MATCH_BIT
-                                                         : 0));
-    const int di = state >> 1;  // MATCH and INSERT move up
-    const int dj = state & 1;   // MATCH and DELETE move left
-    i -= di;
-    j -= dj;
-    off += di * WIN_C + dj;
-    const int nval = enter();
-    if (state == 2) {
-      state = (val & GAP_OPEN_FLAG_I) ? 3 : 2;
-    } else if (state == 1) {
-      state = (val & GAP_OPEN_FLAG_D) ? 3 : 1;
-    } else {
-      state = nval & 3;
+  // The walk in stretches of at most `chunk` records (one stretch unless
+  // STRETCH): rec[k] holds slot base + k, and a full buffer is written
+  // out before the walk goes on.
+  int is = 0, js = 0, s = 0, base = 0;
+  for (;;) {
+    const int lim = STRETCH ? min(S, base + chunk) : S;
+    for (; s < lim; ++s) {
+      if (state == 0 || is >= ET || js >= ET) break;
+      if (lane == 0)
+        rec[s - base] = static_cast<uint8_t>(
+            state + (state == 3 ? val & MATCH_BIT : 0));
+      const int di = state >> 1;  // MATCH and INSERT move up
+      const int dj = state & 1;   // MATCH and DELETE move left
+      i -= di;
+      j -= dj;
+      off += di * WIN_C + dj;
+      const int nval = enter();
+      if (state == 2) {
+        state = (val & GAP_OPEN_FLAG_I) ? 3 : 2;
+      } else if (state == 1) {
+        state = (val & GAP_OPEN_FLAG_D) ? 3 : 1;
+      } else {
+        state = nval & 3;
+      }
+      val = nval;
+      is += di;
+      js += dj;
     }
-    val = nval;
-    is += di;
-    js += dj;
+    if (!STRETCH || s < lim || s == S) break;  // the walk ended
+    __syncwarp();
+    for (int k = lane; k < chunk; k += 32) at(out, base + k) = rec[k];
+    __syncwarp();
+    base += chunk;
   }
-  for (int k = s + lane; k < S; k += 32) rec[k] = 0;
-  __syncwarp();
-  uint8_t* out = ops + static_cast<size_t>(b) * S;
-  for (int k = lane; k < S; k += 32) at(out, k) = rec[k];
+  if constexpr (STRETCH) {
+    __syncwarp();
+    for (int k = lane; k < s - base; k += 32) at(out, base + k) = rec[k];
+    for (int k = s + lane; k < S; k += 32) at(out, k) = 0;
+  } else {
+    for (int k = s + lane; k < S; k += 32) rec[k] = 0;
+    __syncwarp();
+    for (int k = lane; k < S; k += 32) at(out, k) = rec[k];
+  }
   if (lane == 0) {
     at(i_steps, b) = is;
     at(j_steps, b) = js;
@@ -163,18 +190,19 @@ extern "C" int dtt_traceback(const uint8_t* dir, const int* ref_len,
                              const int* max_i, const int* max_j, int B,
                              int T, int ET, uint8_t* ops, int* i_steps,
                              int* j_steps, void* stream) {
-  // A warp's window, then its op buffer rounded up to 16 bytes.
-  const int per_warp = WIN_R * WIN_C + ((2 * ET - 1 + 15) & ~15);
-  const int smem = WARPS * per_warp;
+  if (B <= 0 || T < 1 || ET < 1 || ET > (1 << 29)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // A warp's window, then its op buffer (16 KB a block at most).
+  const bool stretch = 2 * ET - 1 > kRecChunk;
+  const int chunk = stretch ? kRecChunk : (2 * ET - 1 + 15) & ~15;
+  const int per_warp = WIN_R * WIN_C + chunk;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   DTT_UPLOAD_EXTENTS(st);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        traceback_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  traceback_kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, smem, st>>>(
-      dir, ref_len, query_len, first, max_i, max_j, B, T, ET, per_warp, ops,
-      i_steps, j_steps);
+  const auto kernel =
+      stretch ? traceback_kernel<true> : traceback_kernel<false>;
+  kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, WARPS * per_warp, st>>>(
+      dir, ref_len, query_len, first, max_i, max_j, B, T, ET, chunk,
+      per_warp, ops, i_steps, j_steps);
   return static_cast<int>(cudaGetLastError());
 }

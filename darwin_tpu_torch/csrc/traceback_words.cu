@@ -40,7 +40,9 @@
 // the window ending there.  Each word read is issued before the checks
 // that may drop it.  The walk's state update is selects, not branches.
 // Op records go to a shared buffer of `width` bytes a warp, written out
-// coalesced with the zero tail when the walk ends.  The slot layout is
+// coalesced with the zero tail when the walk ends; past kRecChunk slots
+// (STRETCH) the buffer holds kRecChunk and is written out whenever it
+// fills, so any ET is taken (see csrc/traceback.cu).  The slot layout is
 // the JAX's: the packed walker's pair p at slots 2p, 2p+1, the packed6
 // walker's group g at slots 4g..4g+3; each warp stops with its own walk,
 // so the JAX's lockstep exit test and its packed6 lane compaction, which
@@ -61,7 +63,9 @@ constexpr int MATCH_BIT = 16;
 constexpr int WARPS = 4;
 constexpr int WIN_R = 32;
 constexpr int WIN_C = 64;
-constexpr int kMaxSmem = 227 * 1024;
+// A warp's op buffer holds at most this many slots between flushes (a
+// multiple of 4, so a packed pair or a packed6 group never straddles).
+constexpr int kRecChunk = 2048;
 
 // Copies the window ending at walk cell (ai, aj) of one tile's words w
 // ([T, T+1]): win[dr * WIN_C + dc] = the word of cell (ai - dr, aj - dc),
@@ -126,14 +130,14 @@ __device__ __forceinline__ int substep(Walker& w, bool have, int v_next,
   return rec;
 }
 
-template <int FMT>
+template <int FMT, bool STRETCH>
 __global__ void __launch_bounds__(WARPS * 32)
     walk_kernel(const int* __restrict__ words,
                 const int* __restrict__ ref_len,
                 const int* __restrict__ query_len,
                 const uint8_t* __restrict__ first,
                 const int* __restrict__ max_i, const int* __restrict__ max_j,
-                int B, int T, int ET, int width, int per_warp,
+                int B, int T, int ET, int width, int chunk, int per_warp,
                 uint8_t* __restrict__ ops, int* __restrict__ i_steps,
                 int* __restrict__ j_steps) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -169,55 +173,73 @@ __global__ void __launch_bounds__(WARPS * 32)
     return v;
   };
 
-  int s = 0;
-  bool chained;
-  if (FMT == 1) {
-    // Pairs of steps; the JAX keeps the first 2*ET-1 = width slots.
-    for (; s < width; s += 2) {
-      if (!(w.state != 0 && w.is < ET && w.js < ET)) break;
-      const int wd = gather(w.i, w.j);
-      const int val = (wd >> 8) & 0xFF;
-      w.state = resolve(w.state, w.val, val);
-      w.val = val;
-      const int moved = w.state == 3   ? (wd >> 16) & 0xFF
-                        : w.state == 2 ? (wd >> 24) & 0xFF
-                                       : wd & 0xFF;
-      const int rec_a = substep(w, true, moved, true, ET, &chained);
-      const int rec_b = substep(w, true, 0, false, ET, &chained);
-      if (lane == 0) {
-        rec[s] = static_cast<uint8_t>(rec_a);
-        if (s + 1 < width) rec[s + 1] = static_cast<uint8_t>(rec_b);
-      }
-    }
-  } else {
-    // 4-slot groups; width is a multiple of 4.
-    for (; s < width; s += 4) {
-      if (!(w.state != 0 && w.is < ET && w.js < ET)) break;
-      const int wd = gather(w.i, w.j);
-      const int val = (wd >> 5) & 31;
-      w.state = resolve(w.state, w.val, val);
-      w.val = val;
-      const bool m_a = w.state == 3;
-      const int vb1 = w.state == 3   ? (wd >> 10) & 31
-                      : w.state == 2 ? (wd >> 15) & 31
-                                     : wd & 31;
-      bool h1, h2, h3;
-      const int ra = substep(w, true, vb1, true, ET, &h1);
-      // Step B chains only on the MM diagonal, C on MMM, D never.
-      const int rb = substep(w, h1, (wd >> 20) & 31, m_a && w.state == 3,
-                             ET, &h2);
-      const int rc = substep(w, h2, (wd >> 25) & 31, w.state == 3, ET, &h3);
-      const int rd = substep(w, h3, 0, false, ET, &chained);
-      if (lane == 0) {
-        *reinterpret_cast<uint32_t*>(rec + s) =
-            static_cast<uint32_t>(ra | rb << 8 | rc << 16 | rd << 24);
-      }
-    }
-  }
-  for (int k = s + lane; k < width; k += 32) rec[k] = 0;
-  __syncwarp();
   uint8_t* out = ops + static_cast<size_t>(b) * width;
-  for (int k = lane; k < width; k += 32) at(out, k) = rec[k];
+  // The walk in stretches of at most `chunk` slots (one stretch unless
+  // STRETCH): rec[k] holds slot base + k, and a full buffer is written
+  // out before the walk goes on.
+  int s = 0, base = 0;
+  bool chained;
+  for (;;) {
+    const int lim = STRETCH ? min(width, base + chunk) : width;
+    if (FMT == 1) {
+      // Pairs of steps; the JAX keeps the first 2*ET-1 = width slots.
+      for (; s < lim; s += 2) {
+        if (!(w.state != 0 && w.is < ET && w.js < ET)) break;
+        const int wd = gather(w.i, w.j);
+        const int val = (wd >> 8) & 0xFF;
+        w.state = resolve(w.state, w.val, val);
+        w.val = val;
+        const int moved = w.state == 3   ? (wd >> 16) & 0xFF
+                          : w.state == 2 ? (wd >> 24) & 0xFF
+                                         : wd & 0xFF;
+        const int rec_a = substep(w, true, moved, true, ET, &chained);
+        const int rec_b = substep(w, true, 0, false, ET, &chained);
+        if (lane == 0) {
+          rec[s - base] = static_cast<uint8_t>(rec_a);
+          if (s + 1 < width) rec[s - base + 1] = static_cast<uint8_t>(rec_b);
+        }
+      }
+    } else {
+      // 4-slot groups; width is a multiple of 4.
+      for (; s < lim; s += 4) {
+        if (!(w.state != 0 && w.is < ET && w.js < ET)) break;
+        const int wd = gather(w.i, w.j);
+        const int val = (wd >> 5) & 31;
+        w.state = resolve(w.state, w.val, val);
+        w.val = val;
+        const bool m_a = w.state == 3;
+        const int vb1 = w.state == 3   ? (wd >> 10) & 31
+                        : w.state == 2 ? (wd >> 15) & 31
+                                       : wd & 31;
+        bool h1, h2, h3;
+        const int ra = substep(w, true, vb1, true, ET, &h1);
+        // Step B chains only on the MM diagonal, C on MMM, D never.
+        const int rb = substep(w, h1, (wd >> 20) & 31, m_a && w.state == 3,
+                               ET, &h2);
+        const int rc = substep(w, h2, (wd >> 25) & 31, w.state == 3, ET, &h3);
+        const int rd = substep(w, h3, 0, false, ET, &chained);
+        if (lane == 0) {
+          *reinterpret_cast<uint32_t*>(rec + s - base) =
+              static_cast<uint32_t>(ra | rb << 8 | rc << 16 | rd << 24);
+        }
+      }
+    }
+    if (!STRETCH || s < lim || s >= width) break;  // the walk ended
+    __syncwarp();
+    for (int k = lane; k < chunk; k += 32) at(out, base + k) = rec[k];
+    __syncwarp();
+    base += chunk;
+  }
+  if constexpr (STRETCH) {
+    __syncwarp();
+    for (int k = lane; k < s - base && base + k < width; k += 32)
+      at(out, base + k) = rec[k];
+    for (int k = s + lane; k < width; k += 32) at(out, k) = 0;
+  } else {
+    for (int k = s + lane; k < width; k += 32) rec[k] = 0;
+    __syncwarp();
+    for (int k = lane; k < width; k += 32) at(out, k) = rec[k];
+  }
   if (lane == 0) {
     at(i_steps, b) = w.is;
     at(j_steps, b) = w.js;
@@ -234,24 +256,21 @@ extern "C" int dtt_traceback_words(const int* words, const int* ref_len,
                                    int fmt, int width, uint8_t* ops,
                                    int* i_steps, int* j_steps,
                                    void* stream) {
-  // A warp's window, then its op buffer rounded up to 16 bytes.
-  const int per_warp =
-      WIN_R * WIN_C * static_cast<int>(sizeof(int)) + ((width + 15) & ~15);
-  const int smem = WARPS * per_warp;
-  if (B <= 0 || T < 1 || ET < 1 || width < 1 || smem > kMaxSmem ||
-      (fmt != 1 && fmt != 2) || (fmt == 2 && width % 4 != 0)) {
+  if (B <= 0 || T < 1 || ET < 1 || width < 1 || (fmt != 1 && fmt != 2) ||
+      (fmt == 2 && width % 4 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // A warp's window, then its op buffer (40 KB a block at most).
+  const bool stretch = width > kRecChunk;
+  const int chunk = stretch ? kRecChunk : (width + 15) & ~15;
+  const int per_warp = WIN_R * WIN_C * static_cast<int>(sizeof(int)) + chunk;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   DTT_UPLOAD_EXTENTS(st);
-  const auto kernel = fmt == 1 ? walk_kernel<1> : walk_kernel<2>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, smem, st>>>(
-      words, ref_len, query_len, first, max_i, max_j, B, T, ET, width,
+  const auto kernel =
+      fmt == 1 ? (stretch ? walk_kernel<1, true> : walk_kernel<1, false>)
+               : (stretch ? walk_kernel<2, true> : walk_kernel<2, false>);
+  kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, WARPS * per_warp, st>>>(
+      words, ref_len, query_len, first, max_i, max_j, B, T, ET, width, chunk,
       per_warp, ops, i_steps, j_steps);
   return static_cast<int>(cudaGetLastError());
 }

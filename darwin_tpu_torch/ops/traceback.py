@@ -39,14 +39,6 @@ from darwin_tpu_torch.ops.common import (GAP_OPEN_FLAG_D, GAP_OPEN_FLAG_I,
 I32 = torch.int32
 # The word walkers' format codes in csrc/traceback_words.cu.
 WORD_FORMATS = {"packed": 1, "packed6": 2}
-# The byte walker's op buffer of 2*ET-1 bytes a warp, beside its 32 x 64
-# window, four warps a block, fits a block's 227 KB of shared memory up
-# to MAX_ET.
-MAX_ET = 16384
-# The word walkers' op buffer of `width` bytes a warp (rounded up to 16),
-# beside its 32 x 64 window of int32 words, four warps a block, fits the
-# same 227 KB up to this width (packed: ET <= 24960; packed6: ET <= 12479).
-MAX_WORD_WIDTH = 227 * 1024 // 4 - 32 * 64 * 4
 
 
 def traceback_torch(dirm: torch.Tensor, ref_len: torch.Tensor,
@@ -121,9 +113,8 @@ def traceback(dirm: torch.Tensor, ref_len: torch.Tensor,
                          f"{tuple(dirm.shape)}")
     B, T = dirm.shape[:2]
     ET = early_terminate
-    if not 1 <= ET <= MAX_ET:
-        raise ValueError(f"traceback: early_terminate {ET} outside "
-                         f"1..{MAX_ET}")
+    if ET < 1:
+        raise ValueError(f"traceback: early_terminate {ET} < 1")
     args = [_build.arg(dirm, "dirm", torch.uint8, (B, T, T + 1), dev),
             _build.arg(ref_len, "ref_len", I32, (B,), dev),
             _build.arg(query_len, "query_len", I32, (B,), dev),
@@ -349,9 +340,6 @@ def _walk_words(fmt: str, words, ref_len, query_len, first, max_i, max_j,
                          f"{tuple(words.shape)}")
     if ET < 1:
         raise ValueError(f"{what}: early_terminate {ET} < 1")
-    if -(-width // 16) * 16 > MAX_WORD_WIDTH:
-        raise ValueError(f"{what}: early_terminate {ET} gives {width} op "
-                         f"slots, more than {MAX_WORD_WIDTH}")
     B, T = words.shape[:2]
     args = [_build.arg(words, "words", I32, (B, T, T + 1), dev),
             _build.arg(ref_len, "ref_len", I32, (B,), dev),

@@ -10,7 +10,9 @@ per strand, the tiles aligned on the device each iteration.  The host
 stages (FASTA, seed table, D-SOFT) run the port's own build of the
 native library (darwin_tpu_torch.native) and fall back to NumPy without
 it (io/fasta.py, index/seed_table.py, dsoft/filter.py: the port's copies
-of darwin_tpu's host modules).
+of darwin_tpu's host modules).  With dsoft="device" both engines seed on
+the device instead (collect_calls_device: dsoft/device.py, one launch a
+batch).
 """
 
 from __future__ import annotations
@@ -26,11 +28,11 @@ from darwin_tpu_torch.coding import seq_to_bytes
 from darwin_tpu_torch.config import Params
 from darwin_tpu_torch.dsoft import dsoft
 from darwin_tpu_torch.engine.aligner import TorchTileAligner
-from darwin_tpu_torch.engine.batch import (GactCalls, format_record,
-                                           run_gact_batch)
+from darwin_tpu_torch.engine.batch import GactCalls, run_gact_batch
 from darwin_tpu_torch.engine.device_batch import DeviceGactEngine
 from darwin_tpu_torch.engine.scoring import ScoreParams
 from darwin_tpu_torch.engine.seqbank import SeqBank
+from darwin_tpu_torch.golden.gact import format_record
 from darwin_tpu_torch.index.genome import Genome
 from darwin_tpu_torch.index.seed_table import SeedTable
 from darwin_tpu_torch.io.fasta import FastaRecord, revcomp
@@ -90,6 +92,86 @@ def collect_calls(table: SeedTable, genome: Genome, queries: SeqBank,
                      np.concatenate(rpos), np.concatenate(qpos))
 
 
+def _index_on(table: SeedTable, index: str, device: torch.device):
+    """The seed table's index and positions on device for
+    dsoft_device_batch, built once a (table, index, device): the
+    two-level index's host arrays are cached on the table as
+    darwin_tpu caches them (table._twolevel), the device copies beside
+    them (table._device_index)."""
+    from darwin_tpu_torch.dsoft.device import (device_index,
+                                               make_twolevel_index)
+
+    cache = table.__dict__.setdefault("_device_index", {})
+    key = (index, str(device))
+    if key not in cache:
+        tl = None
+        if index == "twolevel":
+            tl = getattr(table, "_twolevel", None)
+            if tl is None:
+                tl = table._twolevel = make_twolevel_index(
+                    np.asarray(table.hashes))
+        cache[key] = device_index(table.hashes, table.pos, k=table.k,
+                                  index=index, device=device, twolevel=tl)
+    return cache[key]
+
+
+def collect_calls_device(table: SeedTable, genome: Genome, queries: SeqBank,
+                         params: Params, read_ids=None, *,
+                         tup_max: int = 8192, cand_max: int = 512,
+                         index: str = "auto",
+                         device: torch.device | str = "cuda",
+                         metrics: dict | None = None) -> GactCalls:
+    """D-SOFT on the device for every query (or read_ids), decoded to
+    GACT anchors: darwin_tpu.pipeline.collect_calls_device without mesh=.
+
+    The whole batch is one dsoft_device_batch call (no slicing, no shape
+    buckets: those served XLA's compiles).  Reads whose fixed tuple or
+    candidate budget overflowed take the exact host D-SOFT, as in
+    darwin_tpu, so the calls equal collect_calls'; with metrics, their
+    number is added to dsoft_overflow_reads."""
+    from darwin_tpu_torch.dsoft.device import (default_index_mode,
+                                               dsoft_device_batch, pad_reads)
+
+    ids = (np.arange(len(queries.lengths), dtype=np.int64)
+           if read_ids is None else np.asarray(list(read_ids), np.int64))
+    if metrics is not None:
+        metrics.setdefault("dsoft_overflow_reads", 0)
+    if len(ids) == 0:
+        return _no_calls()
+    device = torch.device(device)
+    if index == "auto":
+        index = default_index_mode(table.k)
+    th, tpos, tl_steps = _index_on(table, index, device)
+    Q, lens = pad_reads(queries, ids)
+    hits, offs, counts, over = (x.cpu().numpy() for x in dsoft_device_batch(
+        torch.from_numpy(Q).to(device), torch.from_numpy(lens).to(device),
+        th, tpos, k=table.k, w=table.w, bin_size=table.bin_size,
+        kmer_max_occ=table.kmer_max_occurence,
+        num_seeds_cap=params.num_seeds, threshold=params.threshold,
+        max_candidates=params.max_candidates, tup_max=tup_max,
+        cand_max=cand_max, index=index, tl_steps=tl_steps))
+    if metrics is not None:
+        metrics["dsoft_overflow_reads"] += int(over.sum())
+    h_all, o_all, q_all = [], [], []
+    for r in np.flatnonzero(over | (counts > 0)):
+        k = ids[r]
+        if over[r]:  # exact host fallback, never truncate silently
+            seq = queries.slice(k, 0, int(queries.lengths[k]))
+            h, o = dsoft(table, seq, params.num_seeds, params.threshold,
+                         params.max_candidates)
+        else:
+            h, o = hits[r, :counts[r]], offs[r, :counts[r]]
+        h_all.append(np.asarray(h, np.int64))
+        o_all.append(np.asarray(o, np.int64))
+        q_all.append(np.full(len(h), k, dtype=np.int64))
+    if not h_all or not sum(len(h) for h in h_all):
+        return _no_calls()
+    hits_m = np.concatenate(h_all)
+    chr_id, local = genome.decode_hits(hits_m)
+    return GactCalls(chr_id, np.concatenate(q_all), local,
+                     np.concatenate(o_all))
+
+
 def make_merged_engine(genome: Genome, fwd_bank: SeqBank,
                        rev_bank: SeqBank, params: Params, *,
                        same_file: bool, batch_size: int,
@@ -116,13 +198,17 @@ def run_device_merged(genome: Genome, table: SeedTable,
                       params: Params, *, same_file: bool,
                       batch_size: int, compute_score: bool = True,
                       read_ids=None, num_threads: int | None = None,
-                      prebuilt=None, device: torch.device | str = "cuda",
+                      dsoft: str = "host", prebuilt=None,
+                      device: torch.device | str = "cuda",
                       metrics: dict | None = None):
-    """Both strands as ONE merged engine batch.
+    """Both strands as ONE merged engine batch, seeded by the native
+    host D-SOFT (dsoft="host") or on the device (dsoft="device":
+    collect_calls_device over the merged bank).
 
     Returns (records, [n_fwd_candidates, n_rev_candidates]).  With
     metrics, adds seed_s, align_s, engine_iters and engine_active_sum
-    (slot-iterations with a call in flight) to it.
+    (slot-iterations with a call in flight) to it, and with the device
+    D-SOFT dsoft_overflow_reads.
     """
     if prebuilt is not None:
         dev, merged, num_reads = prebuilt
@@ -137,8 +223,8 @@ def run_device_merged(genome: Genome, table: SeedTable,
         ids = np.asarray(list(read_ids), dtype=np.int64)
         merged_ids = np.concatenate([ids, ids + num_reads])
     t0 = time.perf_counter()
-    calls_m = collect_calls(table, genome, merged, params,
-                            read_ids=merged_ids, num_threads=num_threads)
+    calls_m = _seed(table, genome, merged, params, merged_ids, dsoft,
+                    num_threads, dev.device, metrics)
     t1 = time.perf_counter()
     comp = (calls_m.query_id >= num_reads).astype(np.int32)
     counts = [int((comp == 0).sum()), int((comp == 1).sum())]
@@ -157,6 +243,19 @@ def run_device_merged(genome: Genome, table: SeedTable,
     return recs, counts
 
 
+def _seed(table, genome, bank, params, read_ids, dsoft: str, num_threads,
+          device, metrics) -> GactCalls:
+    """The D-SOFT calls of read_ids in bank, on the host or the device."""
+    if dsoft == "device":
+        return collect_calls_device(table, genome, bank, params,
+                                    read_ids=read_ids, device=device,
+                                    metrics=metrics)
+    if dsoft != "host":
+        raise ValueError(f"dsoft {dsoft!r}: host or device")
+    return collect_calls(table, genome, bank, params, read_ids=read_ids,
+                         num_threads=num_threads)
+
+
 def make_aligner(params: Params, device: torch.device | str
                  ) -> TorchTileAligner:
     """The host-stepped engine's tile aligner on device."""
@@ -171,20 +270,23 @@ def run_host(genome: Genome, table: SeedTable, fwd_bank: SeqBank,
              rev_bank: SeqBank, params: Params, *, same_file: bool,
              batch_size: int, aligner: TorchTileAligner,
              compute_score: bool = True, read_ids=None,
-             num_threads: int | None = None, metrics: dict | None = None):
+             num_threads: int | None = None, dsoft: str = "host",
+             metrics: dict | None = None):
     """The host-stepped engine over both strands, one after the other
-    (darwin_tpu.pipeline.run_pipeline's host branch): D-SOFT, then
-    run_gact_batch, forward reads first.
+    (darwin_tpu.pipeline.run_pipeline's host branch): D-SOFT (on the
+    host, or with dsoft="device" collect_calls_device on the aligner's
+    device), then run_gact_batch, forward reads first.
 
     Returns (records, [n_fwd_candidates, n_rev_candidates]).  With
-    metrics, adds seed_s, align_s and engine_iters (aligner calls)."""
+    metrics, adds seed_s, align_s and engine_iters (aligner calls), and
+    with the device D-SOFT dsoft_overflow_reads."""
     sp = ScoreParams(params.match, params.mismatch, params.gap_open,
                      params.gap_extend)
     recs, counts = [], []
     for comp, bank in ((False, fwd_bank), (True, rev_bank)):
         t0 = time.perf_counter()
-        calls = collect_calls(table, genome, bank, params, read_ids=read_ids,
-                              num_threads=num_threads)
+        calls = _seed(table, genome, bank, params, read_ids, dsoft,
+                      num_threads, aligner.device, metrics)
         t1 = time.perf_counter()
         counts.append(len(calls))
         iters = aligner.calls
@@ -221,10 +323,11 @@ def run_pipeline(ref_records: list[FastaRecord],
                  same_file: bool, *, batch_size: int = 512,
                  table: SeedTable | None = None,
                  compute_score: bool = True, engine: str = "device",
-                 device: torch.device | str = "cuda",
+                 dsoft: str = "host", device: torch.device | str = "cuda",
                  metrics: dict | None = None) -> PipelineResult:
     """All reads against the reference on one device, by the device
-    engine or the host-stepped one; record lines in the reference's
+    engine or the host-stepped one, seeded by the host D-SOFT or (dsoft=
+    "device") on the device; record lines in the reference's
     darwin.<i>.out format.
 
     The engine (or the host engine's aligner) is built before the seed
@@ -238,7 +341,7 @@ def run_pipeline(ref_records: list[FastaRecord],
     fwd_bank, rev_bank = read_banks(read_records)
     t1 = time.perf_counter()
     kw = dict(same_file=same_file, batch_size=batch_size,
-              compute_score=compute_score, metrics=metrics)
+              compute_score=compute_score, dsoft=dsoft, metrics=metrics)
     if engine == "device":
         built = dict(prebuilt=make_merged_engine(
             genome, fwd_bank, rev_bank, params, same_file=same_file,

@@ -302,15 +302,131 @@ def test_swscore_kernel_reads_a_ref_past_the_staged_prefix(cuda):
 
 
 def test_word_walkers_reject_too_wide_streams(cuda):
+    """The word walkers refuse an early_terminate below 1, and take the
+    stream widths their shared op buffer once refused (packed past ET
+    24960, packed6 past 12479): the buffer is written out in chunks."""
     words = torch.zeros((2, 8, 9), dtype=torch.int32, device=cuda)
-    n2 = torch.zeros(2, dtype=torch.int32, device=cuda)
+    n2 = torch.full((2,), 8, dtype=torch.int32, device=cuda)
     args = (words, n2, n2, n2.bool(), n2, n2)
-    limit = traceback.MAX_WORD_WIDTH
-    traceback.traceback_packed(*args, early_terminate=(limit + 1) // 2)
-    with pytest.raises(ValueError, match="op slots"):
-        traceback.traceback_packed(*args, early_terminate=limit // 2 + 1)
-    with pytest.raises(ValueError, match="op slots"):
-        traceback.traceback_packed6(*args, early_terminate=limit // 4 + 1)
+    for walk, plain, et in (
+            (traceback.traceback_packed, traceback.traceback_packed_torch,
+             24961),
+            (traceback.traceback_packed6, traceback.traceback_packed6_torch,
+             12480)):
+        with pytest.raises(ValueError, match="early_terminate"):
+            walk(*args, early_terminate=0)
+        got = walk(*args, early_terminate=et)
+        for g, w in zip(got, plain(*args, early_terminate=et)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("fmt", ["bytes", "packed", "packed6"])
+def test_walkers_take_any_early_terminate(cuda, fmt):
+    """Each walker at chip_smoke.LARGE_ET (30000; packed6 16000), T = 320,
+    B = 16, on walk_cases tiles (gap runs past row 0 and column 0 go on
+    to ET steps, past many flushes of the op buffer) and on the DP's
+    output of related tiles, and at chip_smoke.EDGE_ET (the last stream
+    one op buffer holds, the first that takes two): bit-exact against
+    its plain version."""
+    import chip_smoke
+
+    cases = [c for c in chip_smoke.large_et_walks(cuda) if c[1] == fmt]
+    assert len(cases) == 4
+    walk = traceback.WALKERS[fmt][1]
+    for case, _, args, et in cases:
+        n = walk.launches
+        got = walk(*args, early_terminate=et)
+        assert walk.launches == n + 1
+        want = chip_smoke._walker_pairs(fmt, et, args)[1]()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), case
+    assert int((got[1] + got[2]).max()) > 0
+
+
+@pytest.mark.parametrize("index", ["twolevel", "searchsorted", "dense"])
+def test_dsoft_kernel_matches_plain_and_golden(cuda, index):
+    """csrc/dsoft.cu on chip_smoke.dsoft_cases (tests/test_dsoft_device.py's
+    cases: three seeds, N bases with a num_seeds cap of 40,
+    max_candidates 2, tup_max 8, cand_max 1, empty and 4-base reads, a
+    table past 2^31, tup_max 32768 in device memory): all four outputs
+    equal the plain version's, the candidates of every read that did not
+    overflow equal dsoft_scalar's, one launch a call."""
+    import chip_smoke
+    from darwin_tpu_torch.dsoft.device import (dsoft_device_batch,
+                                               dsoft_device_batch_torch)
+    from darwin_tpu_torch.golden.dsoft import dsoft_scalar
+
+    overflowed = 0
+    for name, gt, reads, kw in chip_smoke.dsoft_cases():
+        args, akw = chip_smoke.dsoft_case_args(gt, reads, kw, index, cuda)
+        n = dsoft_device_batch.launches
+        got = dsoft_device_batch(*args, **akw)
+        assert dsoft_device_batch.launches == n + 1
+        want = dsoft_device_batch_torch(*args, **akw)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), name
+        hits, offs, counts, over = (x.cpu().numpy() for x in got)
+        overflowed += int(over.sum())
+        for i, r in enumerate(reads):
+            if not over[i]:
+                gold = dsoft_scalar(gt, r, kw["num_seeds_cap"],
+                                    kw["threshold"], kw["max_candidates"])
+                assert list(zip(hits[i, :counts[i]].tolist(),
+                                offs[i, :counts[i]].tolist())) == gold, name
+    assert overflowed > 0
+
+
+def test_dsoft_kernel_rejects_bad_arguments(cuda):
+    import chip_smoke
+    from darwin_tpu_torch.dsoft.device import dsoft_device_batch
+
+    name, gt, reads, kw = chip_smoke.dsoft_cases()[0]
+    args, akw = chip_smoke.dsoft_case_args(gt, reads[:2], kw, "searchsorted",
+                                           cuda)
+    q, qlens, th, tpos = args
+    with pytest.raises(TypeError):
+        dsoft_device_batch(q, qlens.long(), th, tpos, **akw)
+    with pytest.raises(ValueError):
+        dsoft_device_batch(q, qlens, th.cpu(), tpos, **akw)
+    with pytest.raises(ValueError):
+        dsoft_device_batch(q, qlens, th, tpos, **dict(akw, index="hashmap"))
+    with pytest.raises(ValueError):
+        dsoft_device_batch(q, qlens, th, tpos, **dict(akw, k=16))
+    out = dsoft_device_batch(q[:0], qlens[:0], th, tpos, **akw)
+    assert [tuple(x.shape) for x in out] == [(0, 256), (0, 256), (0,), (0,)]
+
+
+def test_dsoft_device_pipeline_on_card(cuda):
+    """tiny with --dsoft device under both engines gives the reference
+    binary's records; collect_calls_device on the card gives the host
+    D-SOFT's calls, and caches the index's device copies."""
+    from darwin_tpu_torch.engine.seqbank import SeqBank
+    from darwin_tpu_torch.pipeline import (collect_calls,
+                                           collect_calls_device, read_banks)
+
+    params = Params.from_cfg(TINY / "params.cfg")
+    reads = parse_fasta(TINY / "reads.fasta")
+    want = set((TINY / "out.darwin").read_text().splitlines())
+    for engine in ("device", "host"):
+        m = {}
+        res = run_pipeline(reads, reads, params, True, batch_size=16,
+                           engine=engine, dsoft="device", device=cuda,
+                           metrics=m)
+        assert set(res.records) == want, engine
+        assert m["dsoft_overflow_reads"] == 0
+    genome = Genome(reads, params.bin_size)
+    table = SeedTable.build(genome.concat, params.seed_size,
+                            params.seed_occurence_multiple,
+                            params.bin_size, params.window_size)
+    merged = SeqBank.concat(*read_banks(reads))
+    host = collect_calls(table, genome, merged, params)
+    for index in ("auto", "searchsorted", "dense"):
+        dev_calls = collect_calls_device(table, genome, merged, params,
+                                         index=index, device=cuda)
+        for f in ("ref_id", "query_id", "ref_pos", "query_pos"):
+            np.testing.assert_array_equal(getattr(dev_calls, f),
+                                          getattr(host, f))
+    assert len(table._device_index) == 3
 
 
 def test_checked_library_matches_normal(cuda):
@@ -483,7 +599,7 @@ def test_walker_and_fetch_reject_bad_arguments(cuda):
     dirm = torch.zeros((2, 8, 9), dtype=torch.uint8, device=cuda)
     n2 = torch.zeros(2, dtype=torch.int32, device=cuda)
     args = (dirm, n2, n2, n2.bool(), n2, n2)
-    for et in (0, traceback.MAX_ET + 1):
+    for et in (0, -3):
         with pytest.raises(ValueError):
             traceback.traceback(*args, early_terminate=et)
     bank = torch.zeros(64, dtype=torch.uint8, device=cuda)

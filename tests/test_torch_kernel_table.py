@@ -28,11 +28,13 @@ def test_every_dp_variant_and_main_kernel_is_listed():
     assert set(chip_smoke.DP_VARIANTS.values()) <= names
     assert {"traceback", "traceback_packed", "traceback_packed6",
             "fetch_tiles", "local_score_batch", "plane2", "scanshift_shfl",
-            "scanshift_smem"} <= names
+            "scanshift_smem", "dsoft_device"} <= names
     for kernels in chip_smoke.ECOLI_RUNS.values():
         assert set(kernels) <= names
+    assert "dsoft_device" in chip_smoke.ECOLI_RUNS["cli bytes --dsoft device"]
     # One JAX function, one kernel: no two main kernels share a line.
     main = [chip_smoke.KERNELS[k][1] for k in
             ("traceback", "traceback_packed", "traceback_packed6",
-             "local_score_batch", "fetch_tiles", "align_tiles")]
+             "local_score_batch", "fetch_tiles", "align_tiles",
+             "dsoft_device")]
     assert len(set(main)) == len(main)

@@ -1,8 +1,13 @@
 """darwin_tpu_torch stands alone: it imports nothing of darwin_tpu and
 never jax, and its copies of darwin_tpu's host modules (config, coding,
 io.fasta, index, dsoft, format_record, eval helpers and datagen) give
-darwin_tpu's results on every fixture.  Every output is an integer, a
-string or a byte: the comparisons are exact."""
+darwin_tpu's results on every fixture; tools/torch_fuzz_soak.py's
+copies of tests/test_fuzz_pipeline.py's instance generators give its
+instances.  (The copies of golden/, eval/sensitivity.py and
+dsoft/device.py's host helpers are held to theirs in
+test_torch_golden.py, test_torch_sensitivity.py and
+test_torch_dsoft_device.py.)  Every output is an integer, a string or a
+byte: the comparisons are exact."""
 
 import ast
 import dataclasses
@@ -25,7 +30,7 @@ from darwin_tpu.index.seed_table import SeedTable as JaxSeedTable
 from darwin_tpu.io import fasta as jax_fasta
 from darwin_tpu_torch import coding, config, native, utils
 from darwin_tpu_torch.dsoft import filter as dsoft_filter
-from darwin_tpu_torch.engine.batch import format_record
+from darwin_tpu_torch.golden.gact import format_record
 from darwin_tpu_torch.eval import datagen, score_eval
 from darwin_tpu_torch.index.genome import Genome
 from darwin_tpu_torch.index.seed_table import SeedTable
@@ -57,17 +62,32 @@ def _imports_darwin_tpu(path: Path) -> list[str]:
     return bad
 
 
+PORT_TOOLS = ("torch_profile_ecoli.py", "torch_fuzz_soak.py")
+
+
+def _tool(name: str):
+    """tools/<name>.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def test_no_source_of_the_port_imports_darwin_tpu():
     files = [*sorted((REPO / "darwin_tpu_torch").rglob("*.py")),
-             REPO / "chip_smoke.py", REPO / "tools" / "torch_profile_ecoli.py"]
+             REPO / "chip_smoke.py",
+             *(REPO / "tools" / t for t in PORT_TOOLS)]
     bad = {str(f.relative_to(REPO)): _imports_darwin_tpu(f) for f in files}
     assert not {f: m for f, m in bad.items() if m}
 
 
 def test_importing_the_port_loads_no_jax_and_no_darwin_tpu():
     """A fresh interpreter imports every module of darwin_tpu_torch,
-    chip_smoke and tools/torch_profile_ecoli; none of them loads jax or
-    a darwin_tpu module (the modules loaded before the imports, by the
+    chip_smoke and the port's tools; none of them loads jax or a
+    darwin_tpu module (the modules loaded before the imports, by the
     interpreter's own start-up, are not counted)."""
     code = """
 import importlib, importlib.util, pkgutil, sys
@@ -79,9 +99,10 @@ names = [m.name for m in pkgutil.walk_packages(darwin_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-spec = importlib.util.spec_from_file_location(
-    "torch_profile_ecoli", sys.argv[1] + "/tools/torch_profile_ecoli.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for tool in ("torch_profile_ecoli", "torch_fuzz_soak"):
+    spec = importlib.util.spec_from_file_location(
+        tool, sys.argv[1] + "/tools/" + tool + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in ("jax", "darwin_tpu"))
 print(len(names), bad)
@@ -220,3 +241,35 @@ def test_datagen_byte_equal_jax(seed):
     assert score_eval.theoretical_pairs(names, [n for n, _ in b], 300) == \
         jax_score_eval.theoretical_pairs(names, [n for n, _ in b], 300)
     assert score_eval._ints(names[0]) == jax_score_eval._ints(names[0])
+
+
+@pytest.mark.parametrize("seed", [101, 202, 303, 404, 505, 7032])
+def test_fuzz_instances_equal_the_jax_tests(seed):
+    """tools/torch_fuzz_soak.py's _instance gives
+    tests/test_fuzz_pipeline.py's params and reads for its pinned seeds,
+    and the same batch size."""
+    from tests import test_fuzz_pipeline as jfz
+
+    fz = _tool("torch_fuzz_soak")
+    params, reads = fz._instance(seed)
+    jparams, jreads = jfz._instance(seed)
+    assert dataclasses.asdict(params) == dataclasses.asdict(jparams)
+    assert [(r.fields, r.seq) for r in reads] == \
+        [(r.fields, r.seq) for r in jreads]
+    assert fz.instance(seed, False)[4] == int(
+        np.random.default_rng(seed).choice([8, 32, 64]))
+    assert seed in fz.PINNED
+
+
+@pytest.mark.parametrize("seed", [606, 707, 808])
+def test_guided_fuzz_instances_equal_the_jax_tests(seed):
+    from tests import test_fuzz_pipeline as jfz
+
+    fz = _tool("torch_fuzz_soak")
+    params, chroms, reads = fz._guided_instance(seed)
+    jparams, jchroms, jreads = jfz._guided_instance(seed)
+    assert dataclasses.asdict(params) == dataclasses.asdict(jparams)
+    for got, want in ((chroms, jchroms), (reads, jreads)):
+        assert [(r.fields, r.seq) for r in got] == \
+            [(r.fields, r.seq) for r in want]
+    assert seed in fz.PINNED_GUIDED
