@@ -31,8 +31,11 @@ Phases; any failure ends the run with a nonzero exit code:
    320, B = 16; the D-SOFT kernel (csrc/dsoft.cu) under each index mode
    on the E.coli slice's 920 read-strands and on dsoft_cases
    (tests/test_dsoft_device.py's cases, made from the port's golden
-   table; where no read overflowed, also equal to dsoft_scalar), timed
-   at the E.coli shape under the default index mode;
+   table, and dsoft_budget_cases, reads on both sides of the kernel's
+   shared-memory tuple budget; where no read overflowed, also equal to
+   dsoft_scalar), timed at the E.coli shape under the default index
+   mode (with the read-strands' tuple counts: max, p99, mean) and at ten
+   times its read-strands (R = 9200);
 3. fixtures: darwin_tpu_torch.pipeline.run_pipeline on every
    tests/data fixture that has an out.darwin (the reference binary's
    output), under the device engine, the host-stepped engine and the
@@ -67,7 +70,8 @@ Phases; any failure ends the run with a nonzero exit code:
    the plane-2 kernel and both scan lowerings must have launched.  Then
    each lab kernel against its plain version: the DP variants and
    plane 2 at TILES x SCORINGS (B = 512, tiles with rlen < T), plane 2
-   also at B = 2048, T = 376, the scans at B = 2048, TJP = 384; with
+   also at B = 2048, T = 376, the scans at B = 2048, TJP = 384 and at
+   SCAN_WIDTHS (B = SCAN_EDGE_B); with
    kernel and plain times (CUDA events, median) and bounds: the DP
    variants at B = 512, T = 320, plane 2 and the scans at B = 2048, the
    scans beside one torch.cummax;
@@ -83,8 +87,10 @@ Phases; any failure ends the run with a nonzero exit code:
    inputs (checked_digests: the DP in
    three formats and plane 2 at every TILES entry, the three walkers on
    the DP's output, on walk_cases and at LARGE_ET, the fetch at both
-   bank ends, SW at B = 64 and at its tiling's edges, the D-SOFT kernel
-   on dsoft_cases and the E.coli read-strands) run in another child
+   bank ends, SW at B = 64 and at its tiling's edges, both scan
+   lowerings at B = 2048, C = 384 and at SCAN_WIDTHS, the D-SOFT kernel
+   on dsoft_cases and the E.coli read-strands, once and ten times over)
+   run in another child
    (``--checked``), which must exit 0 with every output equal to the
    normal library's;
 8. the golden soak: tests/test_fuzz_pipeline.py's pinned instances
@@ -102,9 +108,9 @@ CUDA device it prints no result and exits 1.  It imports no JAX.
 instead builds and imports TREE's darwin_tpu_torch (an older commit
 unpacked beside the repo, or the repo itself), prints its normal
 library's registers a kernel (when it builds it), and only times its
-byte walker, span fetch, word walkers and SW on phase 2's inputs
-(phase_ab), so that two trees run in turns compare on one card in one
-sitting.
+byte walker, span fetch, word walkers, SW, D-SOFT (R = 920 and 9200)
+and scan lowerings (phase_ab), so that two trees run in turns compare
+on one card in one sitting.
 
     python3 chip_smoke.py --checked [--small | --trap]
 
@@ -221,6 +227,23 @@ ECOLI_RUNS = {
 # budgets there (collect_calls_device's defaults).
 ECOLI_READS = 460
 TUP_MAX, CAND_MAX = 8192, 512
+# csrc/dsoft.cu's kSmemTuples: a read-strand whose min(total, tup_max)
+# exceeds it leaves the shared-memory path for the large one
+# (tests/test_torch_dsoft_device.py holds the two equal).
+DSOFT_SMEM_TUPLES = 1024
+# The num_seeds cap of dsoft_budget_reads' cases: above any of their
+# reads' passing minimizers.
+BUDGET_CAP = 5000
+# Their tuple budgets: the default (the reads past the shared-memory
+# budget take the large path), one between the reads' totals (the
+# largest overflows from the large path) and the shared-memory budget
+# itself (no large path; the reads past it overflow).
+BUDGET_TUP_MAX = (TUP_MAX, 1200, DSOFT_SMEM_TUPLES)
+# The scan probe's widths checked on the card: each side of one, two and
+# 12 columns a lane and of 32, at a batch that is no multiple of the
+# kernel's 8 rows a block.
+SCAN_WIDTHS = (1, 31, 32, 33, 64, 65, 383, 384, 1023, 1024)
+SCAN_EDGE_B = 37
 # Early terminates past every walker's old shared-buffer cap, at T = 320
 # and B = 16 (bytes and packed; packed6, whose stream is twice as wide),
 # and at the edge of the walkers' op buffer (2048 slots a stretch): the
@@ -680,7 +703,65 @@ def dsoft_cases() -> list:
     gt.pos_table = (gt.pos_table.astype(np.uint64) + shift).astype(np.uint32)
     gt.ref_size += int(shift)
     cases.append(("positions past 2^31", gt, reads, kw()))
-    return cases
+    return cases + dsoft_budget_cases()
+
+
+def dsoft_budget_cases() -> list:
+    """dsoft_cases' entries on dsoft_budget_reads, one a BUDGET_TUP_MAX
+    (threshold 18, cand_max 256)."""
+    gt, reads = dsoft_budget_reads()
+    return [(f"budget edge, tup_max {t}", gt, list(reads),
+             dict(threshold=18, num_seeds_cap=BUDGET_CAP,
+                  max_candidates=10**6, tup_max=t, cand_max=256))
+            for t in BUDGET_TUP_MAX]
+
+
+@functools.lru_cache(maxsize=1)
+def dsoft_budget_reads() -> tuple:
+    """(GoldenSeedTable, reads) for one batch that straddles the
+    kernel's shared-memory tuple budget (DSOFT_SMEM_TUPLES): a 300-base
+    read, then prefixes of one 8 kb read (1% substitutions) of a random
+    30 kb reference (dsoft_fixture's table) whose tuple totals under a
+    num_seeds cap of BUDGET_CAP are the budget less one, the budget, the
+    least above it, and about 1.6 times it (the plain version's steps on
+    the CPU pick the lengths).  Under tup_max 1200 the last read
+    overflows from the large path, under tup_max = the budget the last
+    two from the shared-memory one."""
+    import numpy as np
+    import torch
+
+    from darwin_tpu_torch.golden.dsoft import GoldenSeedTable
+
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    rng = np.random.default_rng(37)
+    ref = acgt[rng.integers(0, 4, size=30000)]
+    gt = GoldenSeedTable(ref, 12, 32, 64, 4)
+    s = int(rng.integers(0, 30000 - 8000))
+    full = ref[s:s + 8000].copy()
+    mut = rng.random(8000) < 0.01
+    full[mut] = acgt[rng.integers(0, 4, size=int(mut.sum()))]
+    ckw = dict(threshold=18, num_seeds_cap=BUDGET_CAP, max_candidates=10**6,
+               tup_max=TUP_MAX, cand_max=256)
+
+    def totals(lengths) -> list:
+        args, kw = dsoft_case_args(gt, [full[:n] for n in lengths], ckw,
+                                   "searchsorted", torch.device("cpu"))
+        return _dsoft_steps(args, kw)["cum"][:, -1].tolist()
+
+    coarse = list(range(64, 8001, 64))
+    at_coarse = totals(coarse)
+    picks = []
+    tb = DSOFT_SMEM_TUPLES
+    # (total wanted, whether it must lie above the budget): the nearest
+    # total to each, the shortest read at a tie.
+    for want, above in ((tb - 1, False), (tb, False), (tb + 1, True),
+                        (tb * 8 // 5, True)):
+        i = next(i for i, t in enumerate(at_coarse) if t >= want)
+        fine = list(range(coarse[max(i - 1, 0)], coarse[i] + 1))
+        got = totals(fine)
+        picks.append(min(zip(fine, got), key=lambda nt: (
+            above and nt[1] <= tb, abs(nt[1] - want), nt[0]))[0])
+    return gt, tuple([full[:300].copy()] + [full[:n].copy() for n in picks])
 
 
 def dsoft_case_args(gt, reads, kw: dict, index: str, dev):
@@ -698,6 +779,21 @@ def dsoft_case_args(gt, reads, kw: dict, index: str, dev):
             dict(k=gt.k, w=gt.w, bin_size=gt.bin_size,
                  kmer_max_occ=gt.kmer_max_occurence, index=index,
                  tl_steps=steps, **kw))
+
+
+def scan_edge_input(C: int, dev):
+    """[SCAN_EDGE_B, C] int32 values in -1000..999 (seed C) on dev."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(C).integers(
+        -1000, 1000, size=(SCAN_EDGE_B, C), dtype=np.int32)).to(dev)
+
+
+def ecoli_x10(args):
+    """dsoft_device_batch's arguments with the read-strands ten times
+    over (the E.coli slice's 920 as R = 9200)."""
+    return (args[0].repeat(10, 1), args[1].repeat(10), *args[2:])
 
 
 @functools.lru_cache(maxsize=1)
@@ -807,9 +903,32 @@ def _lookup_sectors(hv, th, index: str, steps: int) -> dict:
             "crs": torch.cat([d[found], d[found] + 1]) >> 3}
 
 
+def _dsoft_steps(args, kw: dict) -> dict:
+    """The plain version's first steps (dsoft/device.py) on a D-SOFT
+    call's inputs: the minimizer scan, the lookups, the passing and kept
+    minimizers, and each read-strand's tuple count cum[:, -1]."""
+    import torch
+
+    from darwin_tpu_torch.dsoft import device as dd
+
+    queries, qlens, th, _ = args
+    LP = queries.shape[1] + 16
+    emit, pos, mhash = dd._query_minimizers_fixed(
+        dd._codes(queries, qlens, LP), qlens, kw["k"], kw["w"])
+    start, end = dd._lookup(mhash, th, kw["index"], kw["tl_steps"])
+    occ = end - start
+    passing = emit & (occ <= kw["kmer_max_occ"])
+    rank = torch.cumsum(passing.long(), dim=1)
+    keep = passing & (rank <= kw["num_seeds_cap"] + 1)
+    cnt = torch.where(keep, occ, 0)
+    return dict(LP=LP, emit=emit, pos=pos, mhash=mhash, start=start,
+                passing=passing, rank=rank, keep=keep, cnt=cnt,
+                cum=torch.cumsum(cnt, dim=1))
+
+
 def dsoft_work(args, kw: dict) -> dict:
     """The work a D-SOFT call's data needs, from the plain version's
-    steps (dsoft/device.py).  A read-strand's scan can stop at its
+    steps (_dsoft_steps).  A read-strand's scan can stop at its
     (num_seeds_cap + 1)-th passing minimizer, or at the kept minimizer
     whose tuples pass tup_max: nothing after it changes the output.
     Returns "read_bytes" [R] (a read's bytes up to the last k-mer its
@@ -819,21 +938,14 @@ def dsoft_work(args, kw: dict) -> dict:
     load and of the table_pos runs of the kept minimizers' tuples."""
     import torch
 
-    from darwin_tpu_torch.dsoft import device as dd
-
-    queries, qlens, th, tpos = args
+    _, qlens, th, _ = args
     k, w, tup_max = kw["k"], kw["w"], kw["tup_max"]
     cap1 = kw["num_seeds_cap"] + 1
-    LP = queries.shape[1] + 16
-    emit, pos, mhash = dd._query_minimizers_fixed(
-        dd._codes(queries, qlens, LP), qlens, k, w)
-    start, end = dd._lookup(mhash, th, kw["index"], kw["tl_steps"])
-    occ = end - start
-    passing = emit & (occ <= kw["kmer_max_occ"])
-    rank = torch.cumsum(passing.long(), dim=1)
-    keep = passing & (rank <= cap1)
-    cnt = torch.where(keep, occ, 0)
-    cum = torch.cumsum(cnt, dim=1)
+    s = _dsoft_steps(args, kw)
+    LP, emit, pos, mhash, start = (s[x] for x in ("LP", "emit", "pos",
+                                                  "mhash", "start"))
+    passing, rank, keep, cnt, cum = (s[x] for x in ("passing", "rank",
+                                                    "keep", "cnt", "cum"))
     last = (passing & (rank == cap1)) | (keep & (cum > tup_max))
     stop = torch.where(last, pos, LP).min(dim=1).values
     hi = 16 * ((qlens.long() + 15) // 16) - k - w
@@ -876,9 +988,12 @@ def dsoft_bound(args, kw: dict, out) -> dict:
     ops = (work["scanned"] * (2 * k + 20 + 2 * w) + 3 * ce
            + 30 * sum(work["tuples"]))
     res = bound(nbytes(args[1], *out) + read_bytes + 32 * sectors, ops)
+    t = sorted(work["tuples"])
     log(f"  dsoft_device bound: {read_bytes} read bytes, {sectors} "
         f"sectors, {work['scanned']} scanned positions, "
-        f"{sum(work['tuples'])} tuples")
+        f"{sum(t)} tuples; min(total, tup_max) a read-strand: max {t[-1]}, "
+        f"p99 {t[(99 * len(t) - 1) // 100]}, mean {sum(t) / len(t):.1f} "
+        f"(the kernel's shared-memory budget {DSOFT_SMEM_TUPLES})")
     return res
 
 
@@ -951,6 +1066,20 @@ def phase_dsoft(dev) -> tuple:
         f"{res['ms']:.4f} ms (graph {res['device_ms']:.4f} ms), plain "
         f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
         f"({res['bound_by']})")
+    # The throughput shape: the read-strands ten times over, whose
+    # outputs repeat those above.
+    big = ecoli_x10(args)
+    got10 = dsoft_device_batch(*big, **kw)
+    if not _same(got10, [x.repeat(10, *[1] * (x.dim() - 1)) for x in got]):
+        raise AssertionError("dsoft_device at R = 9200 differs from the "
+                             "R = 920 outputs it repeats")
+    r10 = dsoft_bound(big, kw, got10)
+    r10["ms"] = median_ms(lambda: dsoft_device_batch(*big, **kw), 10)
+    r10["device_ms"] = graph_ms(lambda: dsoft_device_batch(*big, **kw), n=5)
+    res["r9200"] = r10
+    log(f"  dsoft_device at R={big[0].shape[0]}: kernel {r10['ms']:.4f} ms "
+        f"(graph {r10['device_ms']:.4f} ms), bound {r10['bound_ms']:.4f} ms "
+        f"({r10['bound_by']})")
     return res, int(np.asarray(got[3].cpu()).sum())
 
 
@@ -1514,12 +1643,21 @@ def phase_lab(dev):
         if e:
             raise AssertionError(f"{name} mismatch at TJP=384")
         res[name] = dict(max_abs_err=e, ms=median_ms(lambda: fn(x), 20),
+                         device_ms=graph_ms(lambda: fn(x)),
                          plain_ms=plain_ms, library_ms=cummax_ms,
                          **bound(2 * nbytes(x),
                                  SCAN_OPS * STEPS * x.numel()))
-        log(f"  {name} at B=2048 TJP=384: kernel {res[name]['ms']:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, one torch.cummax {cummax_ms:.4f} ms, "
-            f"bound {res[name]['bound_ms']:.4f} ms")
+        log(f"  {name} at B=2048 TJP=384: kernel {res[name]['ms']:.4f} ms "
+            f"(graph {res[name]['device_ms']:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, one torch.cummax {cummax_ms:.4f} ms, bound "
+            f"{res[name]['bound_ms']:.4f} ms")
+    for C in SCAN_WIDTHS:
+        xe = scan_edge_input(C, dev)
+        want = scanshift_torch(xe)
+        for name, fn in scans.items():
+            if not torch.equal(fn(xe), want):
+                raise AssertionError(f"{name} mismatch at C={C}")
+    log(f"  both scans at B={SCAN_EDGE_B}, C in {SCAN_WIDTHS}: exact")
     return res, launches
 
 
@@ -1644,10 +1782,13 @@ def checked_digests(dev, small: bool = False) -> dict:
     at every TILES entry and scoring, each walker on the DP's output and
     on walk_cases, the span fetch (pair and one set) at every TILES
     entry on both bank ends, SW on phase 2's pairs and at its tiling's
-    edges, the walkers at LARGE_ET (large_et_walks), the D-SOFT kernel
-    on dsoft_cases under each index mode and on the E.coli read-strands.
-    small: B = 36, the tile size 64 and one scoring, one large-ET walk,
-    the D-SOFT cases under the two-level index only and no E.coli batch.
+    edges, the walkers at LARGE_ET (large_et_walks), both scan
+    lowerings at B = 2048, C = 384 and at SCAN_WIDTHS, the D-SOFT kernel
+    on dsoft_cases under each index mode and on the E.coli read-strands
+    (R = 920 and 9200).  small: B = 36, the tile size 64 and one
+    scoring, one large-ET walk, the scans at C = 33 and 1024 beside the
+    probe's shape, the D-SOFT cases under the two-level index only and
+    no E.coli batch.
     On the checked library each case's name goes to stderr before it
     runs, so that a trap names it."""
     import numpy as np
@@ -1735,6 +1876,16 @@ def checked_digests(dev, small: bool = False) -> dict:
 
     for case, fmt, args, ET in large_et_walks(dev)[:1 if small else None]:
         run(case, lambda: WALK_FNS[fmt][1](*args, early_terminate=ET))
+    from darwin_tpu_torch.lab.scanshift_probe import probe_inputs
+    from darwin_tpu_torch.ops.scanshift import scanshift_shfl, scanshift_smem
+
+    scans = [("B=2048 C=384", torch.from_numpy(
+        probe_inputs(1, 2048, 376)[0][0]).to(dev))]
+    scans += [(f"B={SCAN_EDGE_B} C={C}", scan_edge_input(C, dev))
+              for C in ((33, 1024) if small else SCAN_WIDTHS)]
+    for tag, x in scans:
+        for fn in (scanshift_shfl, scanshift_smem):
+            run(f"{fn.__name__} {tag}", lambda: fn(x))
     modes = ("twolevel",) if small else ("twolevel", "searchsorted", "dense")
     for name, gt, reads, ckw in dsoft_cases():
         for index in modes:
@@ -1745,6 +1896,9 @@ def checked_digests(dev, small: bool = False) -> dict:
         args, kw = ecoli_dsoft_inputs(dev, "twolevel")
         run("dsoft_device E.coli twolevel",
             lambda: dsoft_device_batch(*args, **kw))
+        big = ecoli_x10(args)
+        run("dsoft_device E.coli x10 twolevel",
+            lambda: dsoft_device_batch(*big, **kw))
     return res
 
 
@@ -1820,19 +1974,25 @@ def phase_checked(dev) -> dict:
 
 
 def phase_ab(dev, reps: int = 20) -> dict:
-    """The imported tree's walkers, span fetch and SW on phase 2's
-    inputs at T_MAIN (its first draws; first scoring): the byte walker
-    and both word walkers, one fetch_tiles call, and two (one an engine
-    iteration before fetch_tile_pair), and SW at SW_B on SW_LEN-base
-    pairs, each as the median of reps event-timed calls (ms) and as
-    device_ms, with each call's output sum, which must agree between
-    trees.  Uses only calls whose signatures every version of the port
-    that has the word walkers and SW has kept."""
+    """The imported tree's walkers, span fetch, SW, D-SOFT and scans on
+    phase 2's inputs at T_MAIN (its first draws; first scoring): the
+    byte walker and both word walkers, one fetch_tiles call, and two
+    (one an engine iteration before fetch_tile_pair), SW at SW_B on
+    SW_LEN-base pairs, the D-SOFT kernel on the E.coli read-strands
+    (two-level index) at R = 920 and ten times over, and both scan
+    lowerings at B = 2048, C = 384; each as the median of reps
+    event-timed calls (ms) and as device_ms, with each call's output
+    sum and digest, which must agree between trees.  Uses only calls
+    whose signatures every version of the port since the device D-SOFT
+    has kept."""
     import numpy as np
     import torch
 
+    from darwin_tpu_torch.dsoft.device import dsoft_device_batch
+    from darwin_tpu_torch.lab.scanshift_probe import probe_inputs
     from darwin_tpu_torch.ops.common import PAD_QUERY, PAD_REF
     from darwin_tpu_torch.ops.dp import align_tiles
+    from darwin_tpu_torch.ops.scanshift import scanshift_shfl, scanshift_smem
     from darwin_tpu_torch.ops.swscore import local_score_batch
     from darwin_tpu_torch.ops.tile_fetch import fetch_tiles
     from darwin_tpu_torch.ops.traceback import (traceback, traceback_packed,
@@ -1859,6 +2019,9 @@ def phase_ab(dev, reps: int = 20) -> dict:
     g_start, rl = fetch_spans(frng, gbank.shape[0], T_MAIN, dev)
     q_start, ql = fetch_spans(frng, qbank.shape[0], T_MAIN, dev)
     back = torch.from_numpy(frng.random(B_MAIN) < 0.5).to(dev)
+    dargs, dkw = ecoli_dsoft_inputs(dev, "twolevel")
+    dbig = ecoli_x10(dargs)
+    sx = torch.from_numpy(probe_inputs(1, 2048, 376)[0][0]).to(dev)
     calls = {
         "walker": lambda: traceback(*walks["bytes"], early_terminate=ET),
         "walker_packed": lambda: traceback_packed(*walks["packed"],
@@ -1872,12 +2035,19 @@ def phase_ab(dev, reps: int = 20) -> dict:
             fetch_tiles(gbank, g_start, rl, back, T=T_MAIN, pad=PAD_REF),
             fetch_tiles(qbank, q_start, ql, back, T=T_MAIN,
                         pad=PAD_QUERY)),
+        "dsoft_920": lambda: dsoft_device_batch(*dargs, **dkw),
+        "dsoft_9200": lambda: dsoft_device_batch(*dbig, **dkw),
+        "scan_shfl": lambda: (scanshift_shfl(sx),),
+        "scan_smem": lambda: (scanshift_smem(sx),),
     }
     res = {}
     for name, fn in calls.items():
-        res[f"{name}_sum"] = sum(int(o.long().sum()) for o in fn())
+        out = fn()
+        res[f"{name}_sum"] = sum(int(o.long().sum()) for o in out)
+        res[f"{name}_digest"] = _digest(out)
         res[f"{name}_ms"] = median_ms(fn, reps)
-        res[f"{name}_device_ms"] = graph_ms(fn)
+        res[f"{name}_device_ms"] = graph_ms(
+            fn, n=10 if name.startswith("dsoft") else GRAPH_LAUNCHES)
     return res
 
 
@@ -1949,8 +2119,8 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", help="time only this tree's walkers, fetch "
-                    "and SW (phase_ab)")
+    ap.add_argument("--root", help="time only this tree's walkers, fetch, "
+                    "SW, D-SOFT and scans (phase_ab)")
     ap.add_argument("--checked", action="store_true",
                     help="print checked_digests of the checked library "
                          "(phase 7's child)")

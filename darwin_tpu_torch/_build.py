@@ -56,13 +56,13 @@ _SIGNATURES = {
     "dtt_local_score": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P],
     # queries, qlens, R, L, the index (h, csr, bkt, base, shift, nh, nb,
-    # steps), table_pos, D-SOFT's nine ints, index mode, grid, scratch,
-    # the four outputs.
+    # steps), table_pos, D-SOFT's nine ints, index mode, the card's SMs,
+    # scratch, the four outputs.
     "dtt_dsoft": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                   *[_I] * 9, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 # Host-only entries (no stream, nothing launched): argtypes, restype.
-_HOST_ENTRIES = {"dtt_dsoft_scratch_bytes": ([_I, _I], _L)}
+_HOST_ENTRIES = {"dtt_dsoft_scratch_bytes": ([_I, _I, _I, _I], _L)}
 # The checked library's one more entry: the extents of the next launch.
 _SET_EXTENTS = ("dtt_set_extents", [_I, _P, _P])
 

@@ -1,8 +1,7 @@
 // Global memory accesses of the kernels, plain or range-checked.
 //
-// Every global load and store of dp.cu, tile_fetch.cu, traceback.cu,
-// traceback_words.cu and swscore.cu goes through dtt::at(p, i), which is
-// p[i].  Built with -DDTT_CHECKED (the checked library, _build.py
+// Every global load and store of the kernels in csrc/ goes through
+// dtt::at(p, i), which is p[i].  Built with -DDTT_CHECKED (the checked library, _build.py
 // build(checked=True)), at() first finds the allocation that holds p
 // among the extents the wrapper passed in (dtt_set_extents: each tensor
 // argument's whole storage, not its logical length, since the span
@@ -10,7 +9,7 @@
 // word rows past rlen) and calls __trap() unless p + i lies inside that
 // allocation with all its sizeof(T) bytes.  A trap ends the CUDA
 // context, so the checked library is run in a process of its own
-// (chip_smoke.py --checked).  scanshift.cu (lab only) is not checked.
+// (chip_smoke.py --checked).
 
 #pragma once
 

@@ -41,27 +41,49 @@
 // a contiguous run of table_pos.  The reads' bytes up to where the scan
 // stops, the sort's compare-exchanges and the scans are small beside
 // those sectors; chip_smoke.py counts both sides from the run's data,
-// each distinct sector once (dsoft_work, dsoft_bound).
+// each distinct sector once (dsoft_work, dsoft_bound).  The kernel is
+// far from that bound: a block's time is the scan's instructions and
+// its lookups' latency, then the sort (tools/torch_dsoft_phases.py
+// times each phase of a block).
 //
-// Design: one block of NT = 512 threads a read-strand.  The scan runs
-// over the read in chunks of NT positions, a thread a position; the
-// codes and hashes of a chunk (and its w-position halo) go through
-// shared memory, and block scans carry the last change point, the
-// passing count and the tuple total from chunk to chunk.  The scan
-// stops after the chunk that reaches the num_seeds_cap + 1-th passing
-// minimizer or overflows the tuple budget: nothing after it can change
-// the output.  Kept minimizers that own a slot below tup_max go to a
-// list (position, start, first slot); a tuple finds its minimizer by a
-// binary search of the first slots.  The (bin, t) keys, 64 bits, are
-// sorted by a bitonic network over next_pow2(min(total, tup_max))
-// entries, not tup_max.  The segmented count and the first crossings
-// are three passes of block scans over contiguous runs of the sorted
-// keys, each thread recomputing its run's predecessor, and a flag by t
-// plus a block scan compacts the crossings in t order.  A read's arrays
-// (keys, hit and offset by t, flags, the kept list; Layout) live in
-// dynamic shared memory when they fit (kSmemArrays; tup_max 8192: 145
-// KB), else in a scratch area of device memory a block (G), the blocks
-// then looping over the reads; every global access goes through dtt::at.
+// Design: two kernels in one call.
+//  * dsoft_small, one block of NTS = 256 threads a read-strand, every
+//    array of the read in 32 KB of static shared memory and registers,
+//    so that four blocks share an SM (64 registers a thread) and the
+//    E.coli slice's 920 read-strands run in under two waves.  It takes
+//    every read whose tuples, min(total, tup_max), fit kSmemTuples =
+//    1024 (the E.coli slice's largest read-strand holds 904; chip_smoke
+//    prints the distribution).  A read past it stops scanning as soon as
+//    its total passes the budget and is appended to a list.
+//  * dsoft_large, the list's reads (launched only when tup_max exceeds
+//    the budget; its blocks loop over the list, an empty list costs one
+//    short launch): one block of NT = 512 threads a read, its arrays
+//    sized by tup_max (Layout, kSmemArrays) in dynamic shared memory, or
+//    past kSmemArrays in a scratch area a block in device memory (G).
+//    Each writes the read's output rows in place.
+// Both scan a read by scan_read, in chunks of CH = 1024 positions, PP
+// consecutive positions a thread: the thread rolls its k-mers over codes
+// staged in shared memory (the next chunk's bytes are loaded into
+// registers at the top of a chunk, in flight while its lookups run, and
+// staged at its end), issues the lookups of all its emitted positions
+// together (lookup_multi, one round of independent loads per step of
+// the chain), and a chunk takes three barriers: a max scan for the run
+// anchor, one sum scan of a packed (passing, passing with occ > 0, occ)
+// triple, which gives every thread its rank, its slot in the kept list
+// and its first tuple slot, and the chunk's end (the num_seeds cap
+// applied in the chunk that reaches it).  The scan stops after the
+// chunk that reaches the num_seeds_cap + 1-th passing minimizer or
+// passes the tuple budget: nothing after it can change the output.
+// dsoft_small then holds its read's (bin ^ 2^31) << 32 | t keys in
+// registers, ES = 4 a thread, and sorts them by a bitonic network whose
+// strides below 128 run in registers and shuffles (only strides of 128
+// and up go through shared memory, a barrier a stage); dsoft_large
+// sorts in memory, a barrier a stage.  Both then take the per-bin
+// counts and first crossings by one segmented scan over the sorted keys
+// (mark_first_crossings) and compact the crossings in t order by one
+// more scan (write_out): dsoft_small takes at most 16 barriers from the
+// end of its scan to its output, where a sort of 1024 keys a block-wide
+// stage at a time takes 55.  Every global access goes through dtt::at.
 
 #include <cstdint>
 #include <climits>
@@ -73,20 +95,32 @@ namespace {
 
 using dtt::at;
 
-constexpr int NT = 512;
-constexpr int NW = NT / 32;
-constexpr int kMaxW = 16;   // w < k <= 15
+constexpr int NT = 512;      // dsoft_large's threads
+constexpr int NTS = 256;     // dsoft_small's threads
+constexpr int kMaxW = 16;    // w < k <= 15
 constexpr int kMaxK = 15;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+// Positions a chunk, and the bytes of a chunk staged (its k-mers' and
+// its window minima's halo included).
+constexpr int CH = 1024;
+constexpr int CHB = CH + kMaxW + kMaxK;
+// dsoft_small's tuple budget and its keys a thread.
+constexpr int kSmemTuples = 1024;
+constexpr int ES = kSmemTuples / NTS;
+// A packed sum of (passing, passing with occ > 0, occ clamped to
+// kOccClamp): 11, 11 and 42 bits, exact over a chunk of CH positions.
+constexpr int kCountBits = 11;
+constexpr long long kOccClamp = 1ll << 30;
 
 __host__ __device__ constexpr long long r16(long long n) {
   return (n + 15) & ~15ll;
 }
 
-// A read's arrays, each 16-byte aligned (byte offsets): the sort keys
-// over next_pow2(tup_max), hit and offset by t, a first-crossing flag by
-// t, and (position, start, first slot) of each kept minimizer that owns
-// a slot (at most num_seeds_cap + 1 of them, and at most tup_max).
+// dsoft_large's per-read arrays, each 16-byte aligned (byte offsets):
+// the sort keys over next_pow2(tup_max), hit and offset by t, a
+// first-crossing flag by t, and (position, start, first slot) of each
+// kept minimizer that owns a slot (at most num_seeds_cap + 1 of them,
+// and at most tup_max).
 struct Layout {
   long long hitv, toffv, fc, kpos, kstart, kcumb, bytes;
   __host__ __device__ Layout(int tup_max, int num_seeds_cap) {
@@ -105,8 +139,8 @@ struct Layout {
   }
 };
 
-// A read's arrays go to dynamic shared memory up to this many bytes (with
-// the kernel's static 4.5 KB, within the SM's 227 KB), else to a scratch
+// dsoft_large's arrays go to dynamic shared memory up to this many bytes
+// (with its static 2.4 KB, within the SM's 227 KB), else to a scratch
 // area a block in device memory.
 constexpr long long kSmemArrays = 200 * 1024;
 
@@ -121,9 +155,9 @@ __device__ __forceinline__ T& ra(T* p, ptrdiff_t i) {
   }
 }
 
-__device__ __forceinline__ uint32_t code_of(uint8_t b) {
+__device__ __forceinline__ uint8_t code_of(uint8_t b) {
   const uint32_t c = b | 0x20u;
-  return c == 'c' ? 1u : c == 'g' ? 2u : c == 't' ? 3u : 0u;
+  return c == 'c' ? 1 : c == 'g' ? 2 : c == 't' ? 3 : 0;
 }
 
 // Thomas Wang hash masked to 2k bits (ntcoding.cpp:74-85).
@@ -146,27 +180,38 @@ struct Max {
   template <typename T>
   __device__ T operator()(T a, T b) const { return a > b ? a : b; }
 };
+// The segmented sum of (start flag << 32 | inc) pairs: a start resets
+// the sum.  The low halves are sums of at most 1024 x 15, so a + b
+// carries nothing into the flag.
+struct SegSum {
+  __device__ unsigned long long operator()(unsigned long long a,
+                                           unsigned long long b) const {
+    return (b >> 32) ? b : a + b;
+  }
+};
 
-// Block-wide exclusive scan of v (identity id); *total gets the block's
-// reduction.  sh: NW entries of shared memory, free again on return.
-template <typename T, typename Op>
-__device__ T block_excl(T v, T id, Op op, T* sh, T* total) {
+// Block-wide exclusive scan of v (identity id) over NTH threads; *total
+// gets the block's reduction.  One barrier: sh (NTH / 32 entries of 8
+// bytes) must not be written again before another barrier, so callers
+// alternate two buffers.
+template <int NTH, typename T, typename Op>
+__device__ T block_excl(T v, T id, Op op, long long* sh_raw, T* total) {
+  T* sh = reinterpret_cast<T*>(sh_raw);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   T x = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     const T y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x = op(x, y);
+    if (lane >= o) x = op(y, x);
   }
   if (lane == 31) sh[warp] = x;
   __syncthreads();
   T pre = id, tot = id;
 #pragma unroll
-  for (int i = 0; i < NW; ++i) {
+  for (int i = 0; i < NTH / 32; ++i) {
     if (i < warp) pre = op(pre, sh[i]);
     tot = op(tot, sh[i]);
   }
-  __syncthreads();
   T ex = __shfl_up_sync(kFull, x, 1);
   ex = lane == 0 ? id : ex;
   *total = tot;
@@ -182,45 +227,97 @@ struct Index {
   int nh, nb, steps;
 };
 
-// (start, end) of hash hv in the seed table.
-template <int INDEX>
-__device__ void lookup(const Index& ix, uint32_t hv, int* start, int* end) {
-  if constexpr (INDEX == 0) {  // lower and upper bound of hv
-    int lo = 0, hi = ix.nh;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (at(ix.h, mid) < hv) lo = mid + 1; else hi = mid;
+// (start, end) of the hashes hv[e] with act[e] set, (0, 0) for the
+// others; the PP lookups advance together, each step of their chains
+// one round of independent loads.
+template <int INDEX, int PP>
+__device__ void lookup_multi(const Index& ix, int base, int shift,
+                             const uint32_t (&hv)[PP], const bool (&act)[PP],
+                             int (&start)[PP], int (&end)[PP]) {
+  if constexpr (INDEX == 0) {  // lower and upper bound of hv, together
+    int lo1[PP], hi1[PP], lo2[PP], hi2[PP];
+#pragma unroll
+    for (int e = 0; e < PP; ++e) {
+      lo1[e] = lo2[e] = 0;
+      hi1[e] = hi2[e] = act[e] ? ix.nh : 0;
     }
-    int lo2 = lo;
-    hi = ix.nh;
-    while (lo2 < hi) {
-      const int mid = (lo2 + hi) >> 1;
-      if (at(ix.h, mid) <= hv) lo2 = mid + 1; else hi = mid;
-    }
-    *start = lo;
-    *end = lo2;
-  } else if constexpr (INDEX == 1) {
-    const int h = min(static_cast<int>(hv), ix.nh - 1);
-    *start = at(ix.csr, h);
-    *end = at(ix.csr, h + 1);
-  } else {  // darwin_tpu's twolevel_lookup
-    const int rel = static_cast<int>(hv) - at(ix.base, 0);
-    const int b = static_cast<int>(static_cast<unsigned>(max(rel, 0)) >>
-                                   at(ix.shift, 0));
-    const bool bvalid = rel >= 0 && b < ix.nb;
-    const int bc = min(b, ix.nb - 1);
-    int lo = at(ix.bkt, bc), hi = at(ix.bkt, bc + 1);
-    for (int s = 0; s < ix.steps; ++s) {
-      if (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        const uint32_t v = at(ix.h, min(max(mid, 0), ix.nh - 1));
-        if (v < hv) lo = mid + 1; else hi = mid;
+    bool busy = true;
+    while (busy) {
+      uint32_t v1[PP], v2[PP];
+#pragma unroll
+      for (int e = 0; e < PP; ++e) {
+        v1[e] = lo1[e] < hi1[e] ? at(ix.h, (lo1[e] + hi1[e]) >> 1) : 0u;
+        v2[e] = lo2[e] < hi2[e] ? at(ix.h, (lo2[e] + hi2[e]) >> 1) : 0u;
+      }
+      busy = false;
+#pragma unroll
+      for (int e = 0; e < PP; ++e) {
+        if (lo1[e] < hi1[e]) {
+          const int mid = (lo1[e] + hi1[e]) >> 1;
+          if (v1[e] < hv[e]) lo1[e] = mid + 1; else hi1[e] = mid;
+        }
+        if (lo2[e] < hi2[e]) {
+          const int mid = (lo2[e] + hi2[e]) >> 1;
+          if (v2[e] <= hv[e]) lo2[e] = mid + 1; else hi2[e] = mid;
+        }
+        busy |= lo1[e] < hi1[e] || lo2[e] < hi2[e];
       }
     }
-    const int d = min(lo, ix.nh - 1);
-    const bool found = bvalid && lo < ix.nh && at(ix.h, d) == hv;
-    *start = found ? at(ix.csr, d) : 0;
-    *end = found ? at(ix.csr, d + 1) : 0;
+#pragma unroll
+    for (int e = 0; e < PP; ++e) {
+      start[e] = act[e] ? lo1[e] : 0;
+      end[e] = act[e] ? lo2[e] : 0;
+    }
+  } else if constexpr (INDEX == 1) {
+#pragma unroll
+    for (int e = 0; e < PP; ++e) {
+      const int h = min(static_cast<int>(hv[e]), ix.nh - 1);
+      start[e] = act[e] ? at(ix.csr, h) : 0;
+      end[e] = act[e] ? at(ix.csr, h + 1) : 0;
+    }
+  } else {  // darwin_tpu's twolevel_lookup
+    int lo[PP], hi[PP];
+    bool bvalid[PP];
+#pragma unroll
+    for (int e = 0; e < PP; ++e) {
+      const int rel = static_cast<int>(hv[e]) - base;
+      const int b = static_cast<int>(static_cast<unsigned>(max(rel, 0)) >>
+                                     shift);
+      bvalid[e] = rel >= 0 && b < ix.nb;
+      const int bc = min(b, ix.nb - 1);
+      lo[e] = act[e] ? at(ix.bkt, bc) : 0;
+      hi[e] = act[e] ? at(ix.bkt, bc + 1) : 0;
+    }
+    for (int s = 0; s < ix.steps; ++s) {
+      uint32_t v[PP];
+#pragma unroll
+      for (int e = 0; e < PP; ++e) {
+        const int mid = (lo[e] + hi[e]) >> 1;
+        v[e] = lo[e] < hi[e] ? at(ix.h, min(max(mid, 0), ix.nh - 1)) : 0u;
+      }
+#pragma unroll
+      for (int e = 0; e < PP; ++e) {
+        if (lo[e] < hi[e]) {
+          const int mid = (lo[e] + hi[e]) >> 1;
+          if (v[e] < hv[e]) lo[e] = mid + 1; else hi[e] = mid;
+        }
+      }
+    }
+    // The verify load and the CSR pair in one round.
+#pragma unroll
+    for (int e = 0; e < PP; ++e) {
+      const int d = min(lo[e], ix.nh - 1);
+      uint32_t hd = 0;
+      int c0 = 0, c1 = 0;
+      if (act[e]) {
+        hd = at(ix.h, d);
+        c0 = at(ix.csr, d);
+        c1 = at(ix.csr, d + 1);
+      }
+      const bool found = act[e] && bvalid[e] && lo[e] < ix.nh && hd == hv[e];
+      start[e] = found ? c0 : 0;
+      end[e] = found ? c1 : 0;
+    }
   }
 }
 
@@ -238,6 +335,180 @@ struct Params {
   int* counts;
   uint8_t* overflow;
 };
+
+// scan_read's shared state: two staged chunks of codes, two scan
+// buffers, the kept list's length and the capped total.
+struct ScanShared {
+  uint8_t code[2][CHB];
+  long long sh[2][NT / 32];
+  int nkept;
+  long long total;
+};
+
+// The NL bytes a thread loads of a staged chunk whose index 0 is position
+// base (code 0 outside [0, qend)).
+template <int NTH, int NL>
+__device__ __forceinline__ void load_chunk(const uint8_t* q, int qend,
+                                           int base, int win,
+                                           uint8_t (&b)[NL]) {
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    const int i = threadIdx.x + j * NTH;
+    const int p = base + i;
+    b[j] = i < win && p >= 0 && p < qend ? at(q, p) : 0;
+  }
+}
+
+template <int NTH, int NL>
+__device__ __forceinline__ void stage_chunk(uint8_t* dst,
+                                            const uint8_t (&b)[NL]) {
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    const int i = threadIdx.x + j * NTH;
+    if (i < CHB) dst[i] = code_of(b[j]);
+  }
+}
+
+// 1-2. The minimizer scan of read r and its lookups, CH = NTH * PP
+// positions a chunk.  Kept minimizers owning a slot below lim go to the
+// kept list (kpos, kstart, kcumb; at most min(num_seeds_cap + 1, lim)
+// of them); the scan stops after the chunk where the num_seeds cap is
+// reached or the total passes lim.  Returns the total (each occ capped
+// at kOccClamp, so that it compares with any lim < 2^30 as the exact
+// total does) and the kept list's length.  Ends in a barrier.
+template <int INDEX, int NTH, int PP, bool G>
+__device__ void scan_read(const Params& P, int r, long long lim,
+                          int ixbase, int ixshift, int* kpos, int* kstart,
+                          int* kcumb, ScanShared& S, long long* total_out,
+                          int* nkept_out) {
+  static_assert(NTH * PP == CH, "a chunk is NTH * PP positions");
+  constexpr int NL = (CHB + NTH - 1) / NTH;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int k = P.k, w = P.w;
+  const uint32_t hmask = (1u << (2 * k)) - 1u;
+  const uint8_t* q = P.queries + static_cast<size_t>(r) * P.L;
+  const int qlen = at(P.qlens, r);
+  const int qend = min(max(qlen, 0), P.L);  // bytes past it code 0
+  const int lo = w - 1;
+  const int hi = 16 * ((qlen + 15) / 16) - k - w;
+  const int win = CH + w + k - 1;  // staged codes: positions cs - w ..
+  // The first num_seeds_cap + 1 passing minimizers are kept.
+  const long long cap1 = static_cast<long long>(P.num_seeds_cap) + 1;
+  int anchor = 0, nkb = 0;
+  long long nseen = 0, total = 0;
+
+  if (tid == 0) S.nkept = 0;
+  if (lo < hi) {
+    uint8_t b[NL];
+    load_chunk<NTH>(q, qend, lo - w, win, b);
+    stage_chunk<NTH>(S.code[0], b);
+  }
+  __syncthreads();
+  for (int c = 0, cs = lo; cs < hi && nseen < cap1 && total <= lim;
+       ++c, cs += CH) {
+    // The next chunk's bytes, in flight during this chunk's lookups.
+    const bool next = cs + CH < hi;
+    uint8_t pre[NL];
+    if (next) load_chunk<NTH>(q, qend, cs + CH - w, win, pre);
+
+    // Window minima at p0 + e (m) and at p0 + e - 1 (mp) from the hashes
+    // of positions p0 - w + j, j < PP + w, rolled over the staged codes.
+    const int p0 = cs + tid * PP;
+    const uint8_t* cc = S.code[c & 1] + tid * PP;  // position p0 - w
+    uint32_t m[PP], mp[PP];
+#pragma unroll
+    for (int e = 0; e < PP; ++e) m[e] = mp[e] = 0xFFFFFFFFu;
+    uint32_t seed = 0;
+    for (int t = 0; t + 1 < k; ++t) seed |= static_cast<uint32_t>(cc[t])
+                                            << (2 * (t + 1));
+    for (int j = 0; j < PP + w; ++j) {
+      seed = (seed >> 2) | (static_cast<uint32_t>(cc[j + k - 1])
+                            << (2 * (k - 1)));
+      const uint32_t h = hash32(seed, hmask);
+#pragma unroll
+      for (int e = 0; e < PP; ++e) {
+        if (j > e && j <= e + w) m[e] = min(m[e], h);
+        if (j >= e && j < e + w) mp[e] = min(mp[e], h);
+      }
+    }
+    bool inr[PP], chg[PP];
+    int lc = -1;  // this thread's last change point
+#pragma unroll
+    for (int e = 0; e < PP; ++e) {
+      const int p = p0 + e;
+      inr[e] = p < hi;
+      chg[e] = inr[e] && m[e] != (p == lo ? 0u : mp[e]);  // last_m = 0
+      if (chg[e]) lc = p;
+    }
+    int last;
+    int a = max(anchor, block_excl<NTH>(lc, -1, Max(), S.sh[0], &last));
+    anchor = max(anchor, last);
+    bool emit[PP];
+#pragma unroll
+    for (int e = 0; e < PP; ++e) {
+      const int p = p0 + e;
+      if (chg[e]) a = p;
+      const int offset = p - a;
+      emit[e] = inr[e] && (chg[e] || (offset % w == 0 && offset > 0));
+    }
+    int start[PP], end[PP];
+    lookup_multi<INDEX, PP>(P.ix, ixbase, ixshift, m, emit, start, end);
+
+    // One scan of (passing, passing with occ > 0, occ) gives each
+    // passing minimizer its rank, its kept-list slot and its first
+    // tuple slot.
+    unsigned long long mine = 0, pk[PP];
+    long long occ[PP];
+#pragma unroll
+    for (int e = 0; e < PP; ++e) {
+      occ[e] = min(static_cast<long long>(end[e] - start[e]), kOccClamp);
+      const bool pass = emit[e] && end[e] - start[e] <= P.kmer_max_occ;
+      pk[e] = pass ? 1ull | (occ[e] > 0 ? 1ull << kCountBits : 0ull) |
+                         static_cast<unsigned long long>(occ[e])
+                             << (2 * kCountBits)
+                   : 0ull;
+      mine += pk[e];
+    }
+    unsigned long long all;
+    unsigned long long run =
+        block_excl<NTH>(mine, 0ull, Sum(), S.sh[1], &all);
+    constexpr unsigned long long cmask = (1ull << kCountBits) - 1;
+    int last_idx = -1;
+#pragma unroll
+    for (int e = 0; e < PP; ++e) {
+      if (pk[e]) {
+        const long long rank = nseen + static_cast<long long>(run & cmask)
+                               + 1;
+        const long long cumb =
+            total + static_cast<long long>(run >> (2 * kCountBits));
+        // Every passing minimizer before a kept one is kept, and every
+        // one of those with occ > 0 before a stored one is stored.
+        const int idx = nkb + static_cast<int>((run >> kCountBits) & cmask);
+        if (rank <= cap1 && occ[e] > 0 && cumb < lim) {
+          ra<G>(kpos, idx) = p0 + e;
+          ra<G>(kstart, idx) = start[e];
+          ra<G>(kcumb, idx) = static_cast<int>(cumb);
+          last_idx = idx;
+        }
+        if (rank == cap1) S.total = cumb + occ[e];
+      }
+      run += pk[e];
+    }
+    last_idx = static_cast<int>(
+        __reduce_max_sync(kFull, static_cast<unsigned>(last_idx + 1)));
+    if (lane == 0 && last_idx > 0) atomicMax(&S.nkept, last_idx);
+    if (next) stage_chunk<NTH>(S.code[(c + 1) & 1], pre);
+    const long long n_pass = static_cast<long long>(all & cmask);
+    const bool cap_hit = nseen + n_pass >= cap1;
+    nseen += n_pass;
+    nkb += static_cast<int>((all >> kCountBits) & cmask);
+    __syncthreads();
+    total = cap_hit ? S.total
+                    : total + static_cast<long long>(all >> (2 * kCountBits));
+  }
+  *total_out = total;
+  *nkept_out = S.nkept;
+}
 
 // The sorted tuple at i: its t, bin, offset and validity.
 struct Tuple {
@@ -258,13 +529,260 @@ __device__ __forceinline__ Tuple tuple_at(const unsigned long long* keys,
   return u;
 }
 
+// The sort key of tuple t with this hit and offset: (bin ^ 2^31) << 32
+// | t, the bin INT32_MAX where the tuple is not valid.
+__device__ __forceinline__ unsigned long long tuple_key(uint32_t hit,
+                                                        int toff, int t,
+                                                        int bin_size) {
+  const bool valid = hit >= static_cast<uint32_t>(toff);
+  const int bin = valid ? static_cast<int>((hit - static_cast<uint32_t>(toff))
+                                           / static_cast<uint32_t>(bin_size))
+                        : INT_MAX;
+  return static_cast<unsigned long long>(static_cast<uint32_t>(bin) ^
+                                         0x80000000u) << 32 |
+         static_cast<uint32_t>(t);
+}
+
+// Ascending bitonic sort of the first p2 (a power of two) of NTH * E
+// keys, thread t holding keys t*E .. t*E+E-1 in x; the keys past p2 are
+// ~0 and stay so.  Strides below E run in registers, below 32 * E by
+// shuffles, the rest through sk (NTH * E keys of shared memory), a
+// barrier a stage.
+template <int NTH, int E>
+__device__ void sort_keys(unsigned long long (&x)[E], int p2,
+                          unsigned long long* sk) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int kk = 2; kk <= p2; kk <<= 1) {
+    int j = kk >> 1;
+    if (j >= 32 * E) {
+      __syncthreads();  // earlier readers of sk are done
+#pragma unroll
+      for (int e = 0; e < E; ++e) sk[tid * E + e] = x[e];
+      __syncthreads();
+      for (; j >= 32 * E; j >>= 1) {
+        for (int c = tid; c < p2 / 2; c += NTH) {
+          const int i = 2 * c - (c & (j - 1));
+          const unsigned long long a = sk[i], b = sk[i + j];
+          if ((a > b) == ((i & kk) == 0)) {
+            sk[i] = b;
+            sk[i + j] = a;
+          }
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) x[e] = sk[tid * E + e];
+    }
+    for (; j >= E; j >>= 1) {
+      const int d = j / E;
+      const bool lower = (lane & d) == 0;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const unsigned long long y = __shfl_xor_sync(kFull, x[e], d);
+        const bool asc = ((tid * E + e) & kk) == 0;
+        x[e] = (lower == asc) ? min(x[e], y) : max(x[e], y);
+      }
+    }
+#pragma unroll
+    for (int jj = E / 2; jj > 0; jj >>= 1) {
+      if (jj <= j) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          if (e & jj) continue;
+          const bool asc = ((tid * E + e) & kk) == 0;
+          const unsigned long long a = x[e], b = x[e + jj];
+          if ((a > b) == asc) {
+            x[e] = b;
+            x[e + jj] = a;
+          }
+        }
+      }
+    }
+  }
+}
+
+// The per-bin count at a sorted tuple from the segmented sum v up to it:
+// the sum since the last start, or cum2 + 1 where no tuple up to here
+// starts a segment (the plain version's seg_base of -1).
+__device__ __forceinline__ int seg_count(unsigned long long v) {
+  const int s = static_cast<int>(v & 0xFFFFFFFFull);
+  return (v >> 32) ? s : s + 1;
+}
+
+// 4b. The per-bin counts over the n_t sorted keys by one segmented scan
+// (k at a bin's first valid tuple, min(k, offset delta) after it),
+// NTH threads over contiguous runs, and each bin's first crossing of
+// threshold flagged in fc by t.  The caller synchronises before fc is
+// read.
+template <int NTH, bool G>
+__device__ void mark_first_crossings(const unsigned long long* keys,
+                                     const uint32_t* hitv, const int* toffv,
+                                     uint8_t* fc, int n_t, int k,
+                                     int threshold, long long* sh) {
+  const int E = (n_t + NTH - 1) / NTH;
+  const int i0 = min(static_cast<int>(threadIdx.x) * E, n_t);
+  const int i1 = min(i0 + E, n_t);
+  // (segment start << 32 | inc) of the tuple at i, pv its predecessor.
+  auto seg = [&](int i, Tuple* pv) -> unsigned long long {
+    const Tuple u = tuple_at<G>(keys, hitv, toffv, i);
+    const bool ss = (i == 0 || u.bin != pv->bin) && u.valid;
+    const int delta = i == 0 ? 0 : u.off - pv->off;
+    const int inc = u.valid ? (ss ? k : min(delta, k)) : 0;
+    *pv = u;
+    return static_cast<unsigned long long>(ss) << 32 |
+           static_cast<uint32_t>(inc);
+  };
+  Tuple prev0{0, 0, 0, false};
+  if (i0 > 0 && i0 < n_t) prev0 = tuple_at<G>(keys, hitv, toffv, i0 - 1);
+  unsigned long long mine = 0;
+  {
+    Tuple pv = prev0;
+    for (int i = i0; i < i1; ++i) mine = SegSum()(mine, seg(i, &pv));
+  }
+  unsigned long long unused;
+  unsigned long long cur = block_excl<NTH>(mine, 0ull, SegSum(), sh,
+                                           &unused);
+  // The predecessor's crossing: cur is the scan up to it.
+  bool prev_cross = i0 > 0 && i0 < n_t && prev0.valid &&
+                    seg_count(cur) >= threshold;
+  Tuple pv = prev0;
+  for (int i = i0; i < i1; ++i) {
+    const unsigned long long v = seg(i, &pv);
+    cur = SegSum()(cur, v);
+    const bool cross = pv.valid && seg_count(cur) >= threshold;
+    if (cross && !(prev_cross && !(v >> 32))) ra<G>(fc, pv.t) = 1;
+    prev_cross = cross;
+  }
+}
+
+// 5. The first crossings in t order (fc, n_t flags, NTH threads over
+// contiguous runs), the first n of them to read r's output rows, with
+// its count and overflow flag.
+template <int NTH, bool G>
+__device__ void write_out(const Params& P, int r, int n_t, long long total,
+                          const uint8_t* fc, const uint32_t* hitv,
+                          const int* toffv, long long* sh) {
+  const int tid = threadIdx.x;
+  const int E = (n_t + NTH - 1) / NTH;
+  const int j0 = min(tid * E, n_t), j1 = min(j0 + E, n_t);
+  int nf = 0;
+  for (int t = j0; t < j1; ++t) nf += ra<G>(fc, t);
+  int n_emit;
+  int o = block_excl<NTH>(nf, 0, Sum(), sh, &n_emit);
+  const int n = min(min(n_emit, P.max_candidates), P.cand_max);
+  long long* hrow = P.hits + static_cast<size_t>(r) * P.cand_max;
+  int* orow = P.offs + static_cast<size_t>(r) * P.cand_max;
+  for (int t = j0; t < j1 && o < n; ++t) {
+    if (ra<G>(fc, t)) {
+      at(hrow, o) = ra<G>(hitv, t);
+      at(orow, o) = ra<G>(toffv, t);
+      ++o;
+    }
+  }
+  for (int c = n + tid; c < P.cand_max; c += NTH) {
+    at(hrow, c) = 0xFFFFFFFFll;
+    at(orow, c) = -1;
+  }
+  if (tid == 0) {
+    at(P.counts, r) = n;
+    at(P.overflow, r) = total > P.tup_max ||
+                        min(n_emit, P.max_candidates) > P.cand_max;
+  }
+}
+
+// One read-strand a block, its tuples within kSmemTuples; a read past
+// them (when tup_max exceeds the budget) goes to the list defer (count
+// at defer[0], the reads after it) for dsoft_large.
+template <int INDEX>
+__global__ void __launch_bounds__(NTS, 4)
+    dsoft_small(Params P, int* defer) {
+  constexpr int PPS = CH / NTS;
+  __shared__ __align__(16) ScanShared S;
+  __shared__ uint32_t s_hit[kSmemTuples];
+  __shared__ int s_off[kSmemTuples];
+  __shared__ uint8_t s_fc[kSmemTuples];
+  // The kept list during the tuples' expansion, the sort's keys after.
+  __shared__ __align__(16) int s_kept[3 * kSmemTuples];
+  __shared__ unsigned long long s_sorted[kSmemTuples];
+  int* kpos = s_kept;
+  int* kstart = s_kept + kSmemTuples;
+  int* kcumb = s_kept + 2 * kSmemTuples;
+  unsigned long long* sk = reinterpret_cast<unsigned long long*>(s_kept);
+
+  const int tid = threadIdx.x, r = blockIdx.x, k = P.k;
+  const int ixbase = INDEX == 2 ? at(P.ix.base, 0) : 0;
+  const int ixshift = INDEX == 2 ? at(P.ix.shift, 0) : 0;
+  const long long lim = min(P.tup_max, kSmemTuples);
+  long long total;
+  int nkept;
+  scan_read<INDEX, NTS, PPS, false>(P, r, lim, ixbase, ixshift, kpos, kstart,
+                                    kcumb, S, &total, &nkept);
+  if (total > kSmemTuples && P.tup_max > kSmemTuples) {
+    if (tid == 0) at(defer, 1 + atomicAdd(&at(defer, 0), 1)) = r;
+    return;
+  }
+
+  // 3. Tuples t < n_t, ES slots a thread: keys in registers, hit and
+  // offset by t in shared memory.  Consecutive slots step through the
+  // kept list by at most one entry (each owns one slot or more).
+  const int n_t = static_cast<int>(min(total,
+                                       static_cast<long long>(P.tup_max)));
+  const int i0 = tid * ES;
+  int kc = 0;
+  if (i0 < n_t) {
+    int hi_k = nkept - 1;  // the last kcumb <= i0
+    while (kc < hi_k) {
+      const int mid = (kc + hi_k + 1) >> 1;
+      if (kcumb[mid] <= i0) kc = mid; else hi_k = mid - 1;
+    }
+  }
+  long long src[ES];
+  int toff[ES];
+#pragma unroll
+  for (int e = 0; e < ES; ++e) {
+    const int i = i0 + e;
+    if (kc + 1 < nkept && kcumb[kc + 1] <= i) ++kc;
+    src[e] = static_cast<long long>(kstart[kc]) + i - kcumb[kc];
+    toff[e] = kpos[kc];
+  }
+  unsigned long long x[ES];
+#pragma unroll
+  for (int e = 0; e < ES; ++e) {
+    const int i = i0 + e;
+    const uint32_t hit = i < n_t ? at(P.tpos, src[e]) : 0u;
+    x[e] = i < n_t ? tuple_key(hit, toff[e], i, P.bin_size) : ~0ull;
+    if (i < n_t) {
+      s_hit[i] = hit;
+      s_off[i] = toff[e];
+      s_fc[i] = 0;
+    }
+  }
+  __syncthreads();
+
+  // 4. Sort by (bin, t) in registers, then the per-bin counts and the
+  // first crossings over the sorted keys.
+  int p2 = 1;
+  while (p2 < n_t) p2 <<= 1;
+  sort_keys<NTS, ES>(x, p2, sk);
+#pragma unroll
+  for (int e = 0; e < ES; ++e) {
+    if (i0 + e < n_t) s_sorted[i0 + e] = x[e];
+  }
+  __syncthreads();
+  mark_first_crossings<NTS, false>(s_sorted, s_hit, s_off, s_fc, n_t, k,
+                                   P.threshold, S.sh[0]);
+  __syncthreads();
+  write_out<NTS, false>(P, r, n_t, total, s_fc, s_hit, s_off, S.sh[1]);
+}
+
+// The reads of defer (count at defer[0]), one block of NT threads each,
+// the blocks looping over them; a read's arrays by Layout in dynamic
+// shared memory (G false) or in a scratch area a block (G true).
 template <int INDEX, bool G>
-__global__ void __launch_bounds__(NT) dsoft_kernel(Params P) {
+__global__ void __launch_bounds__(NT) dsoft_large(Params P,
+                                                  const int* defer) {
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ uint32_t cbuf[NT + kMaxW + kMaxK + 1];
-  __shared__ uint32_t hbuf[NT + kMaxW];
-  __shared__ int sh_i[NW];
-  __shared__ long long sh_l[NW];
+  __shared__ __align__(16) ScanShared S;
 
   const int tid = threadIdx.x;
   const Layout lay(P.tup_max, P.num_seeds_cap);
@@ -276,94 +794,23 @@ __global__ void __launch_bounds__(NT) dsoft_kernel(Params P) {
   int* kpos = reinterpret_cast<int*>(base + lay.kpos);
   int* kstart = reinterpret_cast<int*>(base + lay.kstart);
   int* kcumb = reinterpret_cast<int*>(base + lay.kcumb);
+  const int k = P.k;
+  const int ixbase = INDEX == 2 ? at(P.ix.base, 0) : 0;
+  const int ixshift = INDEX == 2 ? at(P.ix.shift, 0) : 0;
 
-  const Index ix = P.ix;
-  const int k = P.k, w = P.w;
-  const uint32_t hmask = (1u << (2 * k)) - 1u;
-  const int lo = w - 1;
-  // The first num_seeds_cap + 1 passing minimizers are kept.
-  const long long cap1 = static_cast<long long>(P.num_seeds_cap) + 1;
-
-  for (int r = blockIdx.x; r < P.R; r += gridDim.x) {
-    const uint8_t* q = P.queries + static_cast<size_t>(r) * P.L;
-    const int qlen = at(P.qlens, r);
-    const int qend = min(max(qlen, 0), P.L);  // bytes past it code 0
-    const int hi = 16 * ((qlen + 15) / 16) - k - w;
-    int anchor = 0, nseen = 0, nkept = 0;
-    long long total = 0;
-
-    // 1-2. The minimizer scan and lookups, NT positions a chunk.
-    for (int cs = lo; cs < hi && nseen < cap1 && total <= P.tup_max;
-         cs += NT) {
-      // Codes of positions cs - w .. cs + NT + k - 2.
-      __syncthreads();
-      for (int i = tid; i < NT + w + k - 1; i += NT) {
-        const int p = cs - w + i;
-        cbuf[i] = p >= 0 && p < qend ? code_of(at(q, p)) : 0u;
-      }
-      __syncthreads();
-      // Hashes of positions cs - w .. cs + NT - 1.
-      for (int i = tid; i < NT + w; i += NT) {
-        uint32_t seed = 0;
-        for (int t = 0; t < k; ++t) seed |= cbuf[i + t] << (2 * t);
-        hbuf[i] = hash32(seed, hmask);
-      }
-      __syncthreads();
-      const int p = cs + tid;
-      const int i = tid + w;  // hbuf index of p
-      uint32_t m = hbuf[i], mp = hbuf[i - 1];
-      for (int s = 1; s < w; ++s) {
-        m = min(m, hbuf[i - s]);
-        mp = min(mp, hbuf[i - 1 - s]);
-      }
-      if (p == lo) mp = 0;  // initial last_m = 0
-      const bool in_range = p < hi;
-      const bool change = in_range && m != mp;
-      int last;
-      const int ex_anchor = block_excl(change ? p : -1, -1, Max(), sh_i,
-                                       &last);
-      const int a = max(anchor, max(ex_anchor, change ? p : -1));
-      anchor = max(anchor, last);
-      const int offset = p - a;
-      const bool emit =
-          in_range && (change || (offset % w == 0 && offset > 0));
-      int start = 0, occ = 0;
-      if (emit) {
-        int end;
-        lookup<INDEX>(ix, m, &start, &end);
-        occ = end - start;
-      }
-      const bool passing = emit && occ <= P.kmer_max_occ;
-      int n_pass;
-      const int rank = nseen + block_excl(passing ? 1 : 0, 0, Sum(), sh_i,
-                                          &n_pass) + 1;
-      const bool keep = passing && rank <= cap1;
-      const int cnt = keep ? occ : 0;
-      long long n_cnt;
-      const long long cumb =
-          total + block_excl(static_cast<long long>(cnt), 0ll, Sum(), sh_l,
-                             &n_cnt);
-      // A kept minimizer owning a slot below tup_max: to the list.
-      const bool store = cnt > 0 && cumb < P.tup_max;
-      int n_store;
-      const int idx =
-          nkept + block_excl(store ? 1 : 0, 0, Sum(), sh_i, &n_store);
-      if (store) {
-        ra<G>(kpos, idx) = p;
-        ra<G>(kstart, idx) = start;
-        ra<G>(kcumb, idx) = static_cast<int>(cumb);
-      }
-      nseen += n_pass;
-      total += n_cnt;
-      nkept += n_store;
-    }
+  for (int li = blockIdx.x; li < at(defer, 0); li += gridDim.x) {
+    const int r = at(defer, 1 + li);
+    __syncthreads();  // the previous read's arrays are free
+    long long total;
+    int nkept;
+    scan_read<INDEX, NT, CH / NT, G>(P, r, P.tup_max, ixbase, ixshift,
+                                     kpos, kstart, kcumb, S, &total, &nkept);
 
     // 3. Tuples t < n_t: (bin, t) keys, hit and offset by t.
     const int n_t = static_cast<int>(min(total, static_cast<long long>(
                                                     P.tup_max)));
     int p2 = 1;
     while (p2 < n_t) p2 <<= 1;
-    __syncthreads();  // the kept list is complete
     for (int t = tid; t < p2; t += NT) {
       if (t >= n_t) {
         ra<G>(keys, t) = ~0ull;
@@ -378,15 +825,7 @@ __global__ void __launch_bounds__(NT) dsoft_kernel(Params P) {
                                           ra<G>(kstart, lo_k)) +
                                           t - ra<G>(kcumb, lo_k));
       const int toff = ra<G>(kpos, lo_k);
-      const bool valid = hit >= static_cast<uint32_t>(toff);
-      const int bin =
-          valid ? static_cast<int>((hit - static_cast<uint32_t>(toff)) /
-                                   static_cast<uint32_t>(P.bin_size))
-                : INT_MAX;
-      ra<G>(keys, t) =
-          static_cast<unsigned long long>(static_cast<uint32_t>(bin) ^
-                                          0x80000000u) << 32 |
-          static_cast<uint32_t>(t);
+      ra<G>(keys, t) = tuple_key(hit, toff, t, P.bin_size);
       ra<G>(hitv, t) = hit;
       ra<G>(toffv, t) = toff;
       ra<G>(fc, t) = 0;
@@ -410,121 +849,61 @@ __global__ void __launch_bounds__(NT) dsoft_kernel(Params P) {
       }
     }
 
-    // 4b. The per-bin counts and first crossings over contiguous runs
-    // of the sorted tuples, a run a thread.
-    const int E = (n_t + NT - 1) / NT;
-    const int i0 = min(tid * E, n_t), i1 = min(i0 + E, n_t);
-    // inc_i: k at a bin's first valid tuple, min(k, offset delta) after.
-    auto step = [&](int i, Tuple* prev, bool* seg_start) -> int {
-      const Tuple u = tuple_at<G>(keys, hitv, toffv, i);
-      const bool first = i == 0 || u.bin != prev->bin;
-      *seg_start = first && u.valid;
-      const int delta = i == 0 ? 0 : u.off - prev->off;
-      *prev = u;
-      return u.valid ? (*seg_start ? k : min(delta, k)) : 0;
-    };
-    Tuple prev0{0, 0, 0, false};
-    if (i0 > 0 && i0 < n_t) prev0 = tuple_at<G>(keys, hitv, toffv, i0 - 1);
-    int sum_loc = 0;
-    {
-      Tuple pv = prev0;
-      bool ss;
-      for (int i = i0; i < i1; ++i) sum_loc += step(i, &pv, &ss);
-    }
-    int unused;
-    const int inc_pre = block_excl(sum_loc, 0, Sum(), sh_i, &unused);
-    int max_loc = INT_MIN;
-    {
-      Tuple pv = prev0;
-      bool ss;
-      int c2 = inc_pre;
-      for (int i = i0; i < i1; ++i) {
-        const int inc = step(i, &pv, &ss);
-        c2 += inc;
-        max_loc = max(max_loc, ss ? c2 - inc : -1);
-      }
-    }
-    const int base_pre = block_excl(max_loc, INT_MIN, Max(), sh_i, &unused);
-    {
-      // The predecessor's crossing: its cum2 is inc_pre, its segment
-      // base base_pre.
-      bool prev_cross = i0 > 0 && i0 < n_t && prev0.valid &&
-                        inc_pre - base_pre >= P.threshold;
-      Tuple pv = prev0;
-      bool ss;
-      int c2 = inc_pre, run = base_pre;
-      for (int i = i0; i < i1; ++i) {
-        const int inc = step(i, &pv, &ss);
-        c2 += inc;
-        run = max(run, ss ? c2 - inc : -1);
-        const bool cross = pv.valid && c2 - run >= P.threshold;
-        if (cross && !(prev_cross && !ss)) ra<G>(fc, pv.t) = 1;
-        prev_cross = cross;
-      }
-    }
+    mark_first_crossings<NT, G>(keys, hitv, toffv, fc, n_t, k,
+                                P.threshold, S.sh[0]);
     __syncthreads();
-
-    // 5. The first crossings in t order, the first n of them out.
-    const int j0 = min(tid * E, n_t), j1 = min(j0 + E, n_t);
-    int nf = 0;
-    for (int t = j0; t < j1; ++t) nf += ra<G>(fc, t);
-    int n_emit;
-    int o = block_excl(nf, 0, Sum(), sh_i, &n_emit);
-    const int n = min(min(n_emit, P.max_candidates), P.cand_max);
-    long long* hrow = P.hits + static_cast<size_t>(r) * P.cand_max;
-    int* orow = P.offs + static_cast<size_t>(r) * P.cand_max;
-    for (int t = j0; t < j1 && o < n; ++t) {
-      if (ra<G>(fc, t)) {
-        at(hrow, o) = ra<G>(hitv, t);
-        at(orow, o) = ra<G>(toffv, t);
-        ++o;
-      }
-    }
-    for (int c = n + tid; c < P.cand_max; c += NT) {
-      at(hrow, c) = 0xFFFFFFFFll;
-      at(orow, c) = -1;
-    }
-    if (tid == 0) {
-      at(P.counts, r) = n;
-      at(P.overflow, r) = total > P.tup_max ||
-                          min(n_emit, P.max_candidates) > P.cand_max;
-    }
+    write_out<NT, G>(P, r, n_t, total, fc, hitv, toffv, S.sh[1]);
   }
 }
 
+// The large path's blocks: at most one a read, one an SM.
+__host__ __device__ constexpr int large_grid(int R, int sms) {
+  return R < sms ? R : sms;
+}
+
 template <int INDEX>
-int launch_mode(const Params& p, long long bytes, int grid,
-                cudaStream_t st) {
+int launch_mode(const Params& p, int sms, int* defer, cudaStream_t st) {
+  if (p.tup_max > kSmemTuples) {
+    const cudaError_t e = cudaMemsetAsync(defer, 0, sizeof(int), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  dsoft_small<INDEX><<<p.R, NTS, 0, st>>>(p, defer);
+  if (p.tup_max <= kSmemTuples) return static_cast<int>(cudaGetLastError());
+  const long long bytes = Layout(p.tup_max, p.num_seeds_cap).bytes;
+  const int grid = large_grid(p.R, sms);
   if (bytes > kSmemArrays) {
-    dsoft_kernel<INDEX, true><<<grid, NT, 0, st>>>(p);
+    dsoft_large<INDEX, true><<<grid, NT, 0, st>>>(p, defer);
   } else {
-    const auto kernel = dsoft_kernel<INDEX, false>;
+    const auto kernel = dsoft_large<INDEX, false>;
     const int smem = static_cast<int>(bytes);
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    kernel<<<p.R, NT, smem, st>>>(p);
+    kernel<<<grid, NT, smem, st>>>(p, defer);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The scratch bytes a block needs in device memory for these budgets: 0
-// when a read's arrays fit in shared memory.
-extern "C" long long dtt_dsoft_scratch_bytes(int tup_max,
-                                             int num_seeds_cap) {
+// The scratch bytes a call needs in device memory: 0 when every read
+// fits dsoft_small's budget (tup_max <= kSmemTuples); else the list of
+// the reads past it (R + 1 ints) and, when dsoft_large's arrays do not
+// fit shared memory, a scratch area for each of its blocks.
+extern "C" long long dtt_dsoft_scratch_bytes(int R, int tup_max,
+                                             int num_seeds_cap, int sms) {
+  if (tup_max <= kSmemTuples || R <= 0 || sms < 1) return 0;
   const Layout lay(tup_max, num_seeds_cap);
-  return lay.bytes > kSmemArrays ? lay.bytes : 0;
+  return r16(4ll * (R + 1)) +
+         (lay.bytes > kSmemArrays ? large_grid(R, sms) * lay.bytes : 0);
 }
 
 // index: 0 searchsorted (h = the sorted hashes), 1 dense (csr), 2
-// twolevel (h = hd, csr = crs, bkt, base, shift).  When
-// dtt_dsoft_scratch_bytes is not 0, grid blocks, each with that many
-// bytes of scratch, loop over the reads; else one block takes each read
-// and grid and scratch are not read.
+// twolevel (h = hd, csr = crs, bkt, base, shift).  sms: the card's SMs;
+// scratch: dtt_dsoft_scratch_bytes(R, tup_max, num_seeds_cap, sms)
+// bytes, not read when that is 0.
 extern "C" int dtt_dsoft(const uint8_t* queries, const int* qlens, int R,
                          int L, const uint32_t* h, const int* csr,
                          const int* bkt, const int* base, const int* shift,
@@ -532,26 +911,30 @@ extern "C" int dtt_dsoft(const uint8_t* queries, const int* qlens, int R,
                          int k, int w, int bin_size,
                          int kmer_max_occ, int num_seeds_cap, int threshold,
                          int max_candidates, int tup_max, int cand_max,
-                         int index, int grid, uint8_t* scratch,
+                         int index, int sms, uint8_t* scratch,
                          long long* hits, int* offs, int* counts,
                          uint8_t* overflow, void* stream) {
-  const long long bytes = Layout(tup_max, num_seeds_cap).bytes;
+  const long long need = dtt_dsoft_scratch_bytes(R, tup_max, num_seeds_cap,
+                                                 sms);
   if (R <= 0 || L < 0 || k < 4 || k > kMaxK || w < 1 || w >= k ||
-      bin_size < 1 || tup_max < 1 || cand_max < 1 || num_seeds_cap < 0 ||
-      index < 0 || index > 2 ||
-      (bytes > kSmemArrays && (grid < 1 || scratch == nullptr))) {
+      bin_size < 1 || tup_max < 1 || tup_max >= (1 << 30) || cand_max < 1 ||
+      num_seeds_cap < 0 || index < 0 || index > 2 || sms < 1 ||
+      (need > 0 && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // The list of deferred reads first, dsoft_large's scratch areas after.
+  int* defer = reinterpret_cast<int*>(scratch);
   Params p{queries, qlens, R, L,
            Index{h, csr, bkt, base, shift, nh, nb, steps},
            tpos, k, w, bin_size, kmer_max_occ, num_seeds_cap, threshold,
-           max_candidates, tup_max, cand_max, scratch,
+           max_candidates, tup_max, cand_max,
+           need > 0 ? scratch + r16(4ll * (R + 1)) : nullptr,
            hits, offs, counts, overflow};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   DTT_UPLOAD_EXTENTS(st);
   switch (index) {
-    case 0: return launch_mode<0>(p, bytes, grid, st);
-    case 1: return launch_mode<1>(p, bytes, grid, st);
-    default: return launch_mode<2>(p, bytes, grid, st);
+    case 0: return launch_mode<0>(p, sms, defer, st);
+    case 1: return launch_mode<1>(p, sms, defer, st);
+    default: return launch_mode<2>(p, sms, defer, st);
   }
 }

@@ -312,21 +312,19 @@ def _launch(queries, qlens, table_hashes, table_pos, *, k, w, bin_size,
     overflow = torch.empty(R, dtype=torch.bool, device=dev)
     if R == 0:
         return hits, offs, counts, overflow
-    # A read's arrays in shared memory (0), else this many bytes of
-    # scratch a block, the blocks looping over the reads.
-    per_block = _build.host_call("dtt_dsoft_scratch_bytes", tup_max,
-                                 num_seeds_cap)
-    if per_block:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        grid = min(R, 2 * sms)
-        scratch = torch.empty(grid * per_block, dtype=torch.uint8,
-                              device=dev)
-    else:
-        grid, scratch = R, empty
+    # The device memory the kernels need beside the outputs (the list of
+    # reads past the shared-memory tuple budget, the large path's
+    # scratch), as csrc/dsoft.cu sizes it: 0 for tup_max within the
+    # budget.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    need = _build.host_call("dtt_dsoft_scratch_bytes", R, tup_max,
+                            num_seeds_cap, sms)
+    scratch = (torch.empty(need, dtype=torch.uint8, device=dev) if need
+               else empty)
     _build.launch("dtt_dsoft", dev, *args, R, L, *idx, nh, nb, tl_steps,
                   tpos, k, w, bin_size, kmer_max_occ, num_seeds_cap,
                   threshold, max_candidates, tup_max, cand_max,
-                  INDEX_MODES[index], grid, scratch, hits, offs, counts,
+                  INDEX_MODES[index], sms, scratch, hits, offs, counts,
                   overflow)
     dsoft_device_batch.launches += 1
     return hits, offs, counts, overflow

@@ -4,9 +4,9 @@ The port of tools/scanshift_probe.py.  The tool times the TPU DP
 kernel's in-row shift-max scan in two lowerings (concat-shift and
 roll+mask); here csrc/scanshift.cu times it in two GPU lowerings:
 
-  shfl : warp shuffles and a per-warp carry through shared memory, two
-         barriers a scan;
-  smem : a Hillis-Steele scan in shared memory, log2(TJP) barriers.
+  shfl : one warp a row, its lanes' totals scanned by shuffles;
+  smem : one warp a row, its lanes' totals scanned in shared memory
+         under __syncwarp.
 
 Each runs STEPS = 16 chained ``u = cummax(u + s)`` scans over every row
 of V inputs [B, TJP] int32 (TJP = T+1 rounded up to 128), made from

@@ -4,12 +4,13 @@ The port of tools/scanshift_probe.py's kernel (the pallas_call in `one`,
 line 97; kernel :76-85): for each row of x [B, C] int32, STEPS chained
 scans ``u = cummax(u + s)`` for s = 0..STEPS-1.  The TPU probe lowers
 the DP's shift-max scan two ways (concat-shift, roll+mask); the CUDA
-kernel (csrc/scanshift.cu) lowers it two GPU ways:
+kernel (csrc/scanshift.cu) runs one warp a row, each lane holding
+ceil(C/32) contiguous columns in registers through all the scans, and
+lowers the scan of the 32 lane totals two GPU ways:
 
-* scanshift_shfl: a block scan of warp
-  shuffles plus a per-warp carry;
-* scanshift_smem: a Hillis-Steele scan in shared memory, log2(C)
-  barrier steps.
+* scanshift_shfl: five warp shuffles;
+* scanshift_smem: a Hillis-Steele scan in shared memory under
+  __syncwarp.
 
 The plain version, scanshift_torch, uses torch.cummax.  A CPU tensor
 takes it; a CUDA tensor launches the kernel or raises.
@@ -22,7 +23,7 @@ import torch
 from darwin_tpu_torch import _build
 
 STEPS = 16  # scans per row, as the probe (tools/scanshift_probe.py:25)
-MAX_WIDTH = 1024  # one thread a column, one block a row
+MAX_WIDTH = 1024  # 32 columns a lane, one warp a row
 _LOWERINGS = {"shfl": 0, "smem": 1}
 
 
@@ -51,8 +52,7 @@ def _scan(x: torch.Tensor, steps: int, lowering: str) -> torch.Tensor:
 
 
 def scanshift_shfl(x: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
-    """Lowering (a): a block scan of warp shuffles and a per-warp
-    carry."""
+    """Lowering (a): the lane totals scanned by warp shuffles."""
     if x.device.type == "cpu":
         return scanshift_torch(x, steps)
     out = _scan(x, steps, "shfl")
@@ -62,7 +62,7 @@ def scanshift_shfl(x: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
 
 
 def scanshift_smem(x: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
-    """Lowering (b): a shared-memory Hillis-Steele scan."""
+    """Lowering (b): the lane totals scanned in shared memory."""
     if x.device.type == "cpu":
         return scanshift_torch(x, steps)
     out = _scan(x, steps, "smem")

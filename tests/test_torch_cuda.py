@@ -489,15 +489,42 @@ def test_plane2_kernel_matches_plain(cuda, T):
         assert torch.equal(got[key], want[key]), key
 
 
-@pytest.mark.parametrize("C", [1, 40, 384, 1024])
+@pytest.mark.parametrize("C", [1, 31, 32, 33, 40, 64, 65, 383, 384, 1023,
+                               1024])
 def test_scanshift_lowerings_match_cummax(cuda, C):
+    """Both lowerings against torch.cummax at B = 96, at B = 37 (no
+    multiple of the kernel's 8 rows a block; chip_smoke.scan_edge_input)
+    and on rows that start off a 16-byte boundary, at the widths where
+    the kernel's columns a lane change (chip_smoke.SCAN_WIDTHS)."""
+    import chip_smoke
+
     x = torch.from_numpy(np.random.default_rng(C).integers(
         -1000, 1000, size=(96, C), dtype=np.int32)).to(cuda)
-    want = scanshift.scanshift_torch(x)
+    edge = chip_smoke.scan_edge_input(C, cuda)
+    odd = torch.zeros(edge.numel() + 1, dtype=torch.int32,
+                      device=cuda)[1:].view_as(edge)
+    odd.copy_(edge)
     for fn in (scanshift.scanshift_shfl, scanshift.scanshift_smem):
-        n = fn.launches
-        assert torch.equal(fn(x), want), fn.__name__
-        assert fn.launches == n + 1
+        for inp in (x, edge, odd):
+            n = fn.launches
+            assert torch.equal(fn(inp), scanshift.scanshift_torch(inp)), (
+                fn.__name__, inp.shape)
+            assert fn.launches == n + 1
+
+
+def test_dsoft_scratch_follows_the_smem_budget(cuda):
+    """dtt_dsoft_scratch_bytes: nothing while tup_max is within the
+    shared-memory budget (no large path), the list of deferred reads
+    past it, and a scratch area a block past kSmemArrays."""
+    import chip_smoke
+    from darwin_tpu_torch import _build
+
+    tb = chip_smoke.DSOFT_SMEM_TUPLES
+    need = lambda tup_max: _build.host_call(  # noqa: E731
+        "dtt_dsoft_scratch_bytes", 920, tup_max, 800, 132)
+    assert need(tb) == 0 and need(8) == 0
+    assert need(tb + 1) == need(8192) == (4 * 921 + 15) // 16 * 16
+    assert need(32768) > 132 * 200 * 1024
 
 
 @pytest.mark.parametrize("T", [64, 320])

@@ -10,6 +10,9 @@ in test_torch_cuda.py).
   max_candidates 2, the tuple budget's overflow flag, cand_max 1, empty
   and 4-base reads, positions past 2^31, the dense and two-level
   indexes;
+* chip_smoke's budget-edge cases (reads below, at and above csrc/
+  dsoft.cu's shared-memory tuple budget) against darwin_tpu's, and the
+  budget's mirror against the kernel's constant;
 * the host helpers (make_twolevel_index, bucket_directory, pad_reads,
   dense_hash_index) against darwin_tpu's;
 * collect_calls_device(device="cpu") against the port's collect_calls
@@ -17,6 +20,9 @@ in test_torch_cuda.py).
 * the CLI with --dsoft device --device cpu on tiny, under both engines,
   byte-identical to darwin_tpu.cli --backend lax --dsoft device.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -223,6 +229,92 @@ def test_bound_work_holds_all_the_output_reads(seed, limits, index):
     if loads:
         assert sum(v.numel() for a, v in sectors.items()
                    if a != "table_pos") <= loads * work["scanned"] + 2
+
+
+
+
+def test_smem_budget_mirrors_the_kernel():
+    """chip_smoke.DSOFT_SMEM_TUPLES is csrc/dsoft.cu's kSmemTuples."""
+    src = (Path(chip_smoke.__file__).parent / "darwin_tpu_torch" / "csrc"
+           / "dsoft.cu").read_text()
+    m = re.search(r"constexpr int kSmemTuples = (\d+);", src)
+    assert m and int(m.group(1)) == chip_smoke.DSOFT_SMEM_TUPLES
+
+
+def test_phase_tool_instruments_the_kernel():
+    """tools/torch_dsoft_phases.py finds each of its anchors in
+    csrc/dsoft.cu once: stamps at the six phase boundaries and the two
+    block times, and the reader of the stamps."""
+    import importlib.util
+
+    path = (Path(chip_smoke.__file__).parent / "tools"
+            / "torch_dsoft_phases.py")
+    spec = importlib.util.spec_from_file_location("torch_dsoft_phases", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (path.parent.parent / "darwin_tpu_torch" / "csrc"
+           / "dsoft.cu").read_text()
+    out = tool.instrument(src)
+    assert all(f"STAMP({i}, " in out for i in range(tool.NSLOT))
+    assert out.count("dtt_dsoft_phases") == 1
+    with pytest.raises(RuntimeError, match="changed"):
+        tool.instrument(src.replace("sort_keys<NTS, ES>", "sort<NTS, ES>"))
+
+
+def test_budget_reads_straddle_the_kernel_budget():
+    """One batch holds a read below, at and just above the kernel's
+    shared-memory tuple budget, one far above it and a short one; under
+    tup_max 1200 the far one overflows, under tup_max = the budget the
+    two above it do."""
+    tb = chip_smoke.DSOFT_SMEM_TUPLES
+    totals = {}
+    for name, gt, reads, kw in chip_smoke.dsoft_budget_cases():
+        args, akw = chip_smoke.dsoft_case_args(gt, reads, kw, "searchsorted",
+                                               CPU)
+        totals[kw["tup_max"]] = chip_smoke._dsoft_steps(args, akw)[
+            "cum"][:, -1].tolist()
+        over = dev.dsoft_device_batch(*args, **akw)[3].tolist()
+        assert over == [t > kw["tup_max"] for t in totals[kw["tup_max"]]]
+    t = totals[8192]
+    assert t[0] < tb - 1 and t[1:3] == [tb - 1, tb]
+    assert tb < t[3] <= tb + 3 and t[4] > 1200
+    assert len(set(map(tuple, totals.values()))) == 1
+    assert sorted(totals) == [tb, 1200, 8192]
+
+
+@pytest.mark.parametrize("index", ["searchsorted", "dense", "twolevel"])
+@pytest.mark.parametrize("case", range(len(chip_smoke.BUDGET_TUP_MAX)),
+                         ids=[f"tup_max {t}"
+                              for t in chip_smoke.BUDGET_TUP_MAX])
+def test_port_equals_jax_across_the_smem_budget(case, index):
+    """chip_smoke's budget-edge cases (reads below, at and above the
+    kernel's shared-memory tuple budget, one overflowing tup_max) through
+    darwin_tpu's dsoft_device_batch and the port's, all four outputs
+    equal (tolerance 0); reads that did not overflow also give
+    dsoft_scalar's candidates."""
+    name, gt, reads, kw = chip_smoke.dsoft_budget_cases()[case]
+    args, akw = chip_smoke.dsoft_case_args(gt, reads, kw, index, CPU)
+    got = [x.numpy() for x in dev.dsoft_device_batch(*args, **akw)]
+    Q, lens = jdev.pad_reads(JaxSeqBank(list(reads)), range(len(reads)))
+    if index == "twolevel":
+        th = jdev.make_twolevel_index(np.asarray(gt.hashes))[:5]
+    elif index == "dense":
+        th = jdev.dense_hash_index(gt.hashes, gt.k)
+    else:
+        th = gt.hashes
+    want = [np.asarray(x) for x in jdev.dsoft_device_batch(
+        Q, lens, th, gt.pos_table, index=index, tl_steps=akw["tl_steps"],
+        **{k: v for k, v in akw.items() if k not in ("index", "tl_steps")})]
+    np.testing.assert_array_equal(got[0].astype(np.uint32), want[0])
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g, w)
+    hits, offs, counts, over = got
+    for i, r in enumerate(reads):
+        if not over[i]:
+            gold = dsoft_scalar(gt, r, kw["num_seeds_cap"], kw["threshold"],
+                                kw["max_candidates"])
+            assert list(zip(hits[i, :counts[i]].tolist(),
+                            offs[i, :counts[i]].tolist())) == gold, i
 
 
 def test_bad_index_mode_raises():

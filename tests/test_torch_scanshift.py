@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from darwin_tpu_torch.lab import scanshift_probe as lab
 from darwin_tpu_torch.ops import scanshift
 from tests._torch_threads import one_torch_thread  # noqa: F401
@@ -83,3 +84,20 @@ def test_scanshift_torch_is_sixteen_cummax_scans():
     for s in range(scanshift.STEPS):
         u = np.maximum.accumulate(u + s, axis=1)
     np.testing.assert_array_equal(scanshift.scanshift_torch(x).numpy(), u)
+
+
+@pytest.mark.parametrize("lowering", ["shfl", "smem"])
+@pytest.mark.parametrize("C", chip_smoke.SCAN_WIDTHS)
+def test_lowerings_at_the_kernel_width_edges(C, lowering):
+    """Both lowerings at the widths where the kernel's columns a lane
+    change (one side and the other of 1, 2, 12 and 32), at B = 37 (no
+    multiple of its 8 rows a block), against numpy's
+    maximum.accumulate."""
+    x = chip_smoke.scan_edge_input(C, torch.device("cpu"))
+    assert x.shape == (chip_smoke.SCAN_EDGE_B, C) and x.shape[0] % 8
+    u = x.numpy().astype(np.int64)
+    for s in range(scanshift.STEPS):
+        u = np.maximum.accumulate(u + s, axis=1)
+    fn = {"shfl": scanshift.scanshift_shfl,
+          "smem": scanshift.scanshift_smem}[lowering]
+    np.testing.assert_array_equal(fn(x).numpy(), u)

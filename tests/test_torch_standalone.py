@@ -62,7 +62,8 @@ def _imports_darwin_tpu(path: Path) -> list[str]:
     return bad
 
 
-PORT_TOOLS = ("torch_profile_ecoli.py", "torch_fuzz_soak.py")
+PORT_TOOLS = ("torch_profile_ecoli.py", "torch_fuzz_soak.py",
+              "torch_dsoft_phases.py")
 
 
 def _tool(name: str):
@@ -99,7 +100,7 @@ names = [m.name for m in pkgutil.walk_packages(darwin_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-for tool in ("torch_profile_ecoli", "torch_fuzz_soak"):
+for tool in ("torch_profile_ecoli", "torch_fuzz_soak", "torch_dsoft_phases"):
     spec = importlib.util.spec_from_file_location(
         tool, sys.argv[1] + "/tools/" + tool + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -1,0 +1,158 @@
+"""Where a block of the device D-SOFT kernel spends its time.
+
+    python tools/torch_dsoft_phases.py          (needs a CUDA card)
+
+Copies darwin_tpu_torch into a temporary directory, adds clock64 stamps
+at the phase boundaries of the copy's dsoft_small (csrc/dsoft.cu: the
+scan and its lookups, the tuples, the sort, the per-bin counts, the
+output) and a globaltimer stamp at each block's start and end, builds
+the copy and runs it on chip_smoke's E.coli read-strands (R = 920,
+two-level index, tup_max 8192).  Prints each phase's SM cycles a block
+(median, mean, p90, max), the blocks' start and end times (the waves),
+the scan's cycles by chunks scanned, and the instrumented kernel's
+device time (chip_smoke.graph_ms).  The repository's kernel is not
+touched; the stamps cost a few stores a block.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import sys
+import tempfile
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+NSLOT = 8  # clock64 at 6 boundaries, globaltimer at start and end
+MAX_BLOCKS = 1024
+
+# (text of csrc/dsoft.cu, what replaces it): each must occur once.
+PATCHES = [
+    ("namespace {\n\nusing dtt::at;\n",
+     "__device__ long long g_phase[%d * %d];\n\n"
+     "namespace {\n\nusing dtt::at;\n\n"
+     "__device__ __forceinline__ long long gtime() {\n"
+     "  long long t;\n"
+     "  asm volatile(\"mov.u64 %%0, %%%%globaltimer;\" : \"=l\"(t));\n"
+     "  return t;\n"
+     "}\n"
+     "#define STAMP(i, v) \\\n"
+     "  if (threadIdx.x == 0 && blockIdx.x < %d) \\\n"
+     "    g_phase[blockIdx.x * %d + (i)] = (v);\n"
+     % (MAX_BLOCKS, NSLOT, MAX_BLOCKS, NSLOT)),
+    ("  scan_read<INDEX, NTS, PPS, false>(P, r, lim, ixbase, ixshift, kpos, "
+     "kstart,\n                                    kcumb, S, &total, "
+     "&nkept);\n",
+     "  STAMP(6, gtime())\n  STAMP(0, clock64())\n"
+     "  scan_read<INDEX, NTS, PPS, false>(P, r, lim, ixbase, ixshift, kpos, "
+     "kstart,\n                                    kcumb, S, &total, "
+     "&nkept);\n  STAMP(1, clock64())\n"),
+    ("  __syncthreads();\n\n  // 4. Sort by (bin, t)",
+     "  __syncthreads();\n  STAMP(2, clock64())\n\n  // 4. Sort by (bin, t)"),
+    ("  sort_keys<NTS, ES>(x, p2, sk);\n",
+     "  sort_keys<NTS, ES>(x, p2, sk);\n  STAMP(3, clock64())\n"),
+    ("  write_out<NTS, false>(P, r, n_t, total, s_fc, s_hit, s_off, "
+     "S.sh[1]);\n",
+     "  STAMP(4, clock64())\n"
+     "  write_out<NTS, false>(P, r, n_t, total, s_fc, s_hit, s_off, "
+     "S.sh[1]);\n  STAMP(5, clock64())\n  STAMP(7, gtime())\n"),
+]
+READER = """
+extern "C" int dtt_dsoft_phases(long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase)));
+}
+"""
+PHASES = ("scan", "tuples", "sort", "counts", "out")
+
+
+def instrument(src: str) -> str:
+    for old, new in PATCHES:
+        if src.count(old) != 1:
+            raise RuntimeError(f"csrc/dsoft.cu changed: {old[:50]!r} is "
+                               f"not there once")
+        src = src.replace(old, new)
+    return src + READER
+
+
+def quantiles(v, qs) -> list:
+    import numpy as np
+
+    return [round(float(np.percentile(v, q)), 2) for q in qs]
+
+
+def main() -> int:
+    with tempfile.TemporaryDirectory() as td:
+        pkg = Path(td) / "darwin_tpu_torch"
+        shutil.copytree(REPO / "darwin_tpu_torch", pkg,
+                        ignore=shutil.ignore_patterns("_build",
+                                                      "__pycache__"))
+        cu = pkg / "csrc" / "dsoft.cu"
+        cu.write_text(instrument(cu.read_text()))
+        sys.path[:0] = [td, str(REPO)]
+        import numpy as np
+        import torch
+
+        import chip_smoke as cs
+        from darwin_tpu_torch import _build
+        from darwin_tpu_torch.dsoft.device import dsoft_device_batch
+
+        if not torch.cuda.is_available():
+            print("torch_dsoft_phases: needs a CUDA card", file=sys.stderr)
+            return 1
+        if not Path(_build.__file__).resolve().is_relative_to(Path(td)):
+            raise AssertionError(f"imported {_build.__file__}")
+        dev = torch.device("cuda", 0)
+        print(cs.nvidia_smi_line())
+        lib = _build.lib()
+        args, kw = cs.ecoli_dsoft_inputs(dev, "twolevel")
+        R = args[0].shape[0]
+        for _ in range(3):
+            dsoft_device_batch(*args, **kw)
+        torch.cuda.synchronize()
+        buf = (ctypes.c_longlong * (MAX_BLOCKS * NSLOT))()
+        if lib.dtt_dsoft_phases(buf) != 0:
+            raise RuntimeError("dtt_dsoft_phases failed")
+        a = np.frombuffer(buf, dtype=np.int64).reshape(
+            MAX_BLOCKS, NSLOT)[:min(R, MAX_BLOCKS)]
+        d = np.diff(a[:, :6], axis=1)
+        for i, name in enumerate(PHASES):
+            v = d[:, i]
+            print(f"{name:7s} cycles a block: median {np.median(v):.0f}, "
+                  f"mean {v.mean():.0f}, p90 {np.percentile(v, 90):.0f}, "
+                  f"max {v.max()}")
+        tot = a[:, 5] - a[:, 0]
+        print(f"block cycles: median {np.median(tot):.0f}, max {tot.max()}")
+        t0 = a[:, 6].min()
+        print(f"kernel span {(a[:, 7].max() - t0) / 1e3:.2f} us, block wall "
+              f"median {np.median(a[:, 7] - a[:, 6]) / 1e3:.2f} us")
+        qs = (0, 25, 50, 75, 90, 100)
+        print("block starts, us:", quantiles((a[:, 6] - t0) / 1e3, qs))
+        print("block ends, us:", quantiles((a[:, 7] - t0) / 1e3, qs))
+        # Chunks scanned: the scan stops after the chunk holding the
+        # num_seeds cap's rank or the tuple total past tup_max.
+        st = cs._dsoft_steps(args, kw)
+        cap1 = kw["num_seeds_cap"] + 1
+        last = ((st["passing"] & (st["rank"] == cap1))
+                | (st["keep"] & (st["cum"] > kw["tup_max"])))
+        hi = 16 * ((args[1].long() + 15) // 16) - kw["k"] - kw["w"]
+        stop = torch.minimum(torch.where(last, st["pos"], st["LP"]).min(
+            dim=1).values, hi - 1)
+        lo = kw["w"] - 1
+        chunks = ((stop - lo).clamp(min=-1) // 1024 + 1).cpu().numpy()
+        for c in sorted(set(chunks.tolist())):
+            sel = chunks == c
+            print(f"{c} chunks: {int(sel.sum())} read-strands, scan median "
+                  f"{np.median(d[sel, 0]):.0f} cycles")
+        tuples = st["cum"][:, -1].clamp(max=kw["tup_max"]).cpu().numpy()
+        big = tuples > 512
+        print(f"sort median: {np.median(d[big, 2]):.0f} cycles at 513-1024 "
+              f"tuples ({int(big.sum())} read-strands), "
+              f"{np.median(d[~big, 2]):.0f} below")
+        ms = cs.graph_ms(lambda: dsoft_device_batch(*args, **kw), n=10)
+        print(f"instrumented kernel: device {ms:.4f} ms")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
