@@ -235,10 +235,11 @@ DSOFT_SMEM_TUPLES = 1024
 # reads' passing minimizers.
 BUDGET_CAP = 5000
 # Their tuple budgets: the default (the reads past the shared-memory
-# budget take the large path), one between the reads' totals (the
-# largest overflows from the large path) and the shared-memory budget
-# itself (no large path; the reads past it overflow).
-BUDGET_TUP_MAX = (TUP_MAX, 1200, DSOFT_SMEM_TUPLES)
+# budget take the large path, its arrays in shared memory), one between
+# the reads' totals (the largest overflows from the large path), the
+# shared-memory budget itself (no large path; the reads past it
+# overflow) and 32768 (the large path's arrays in device memory).
+BUDGET_TUP_MAX = (TUP_MAX, 1200, DSOFT_SMEM_TUPLES, 32768)
 # The scan probe's widths checked on the card: each side of one, two and
 # 12 columns a lane and of 32, at a batch that is no multiple of the
 # kernel's 8 rows a block.
@@ -675,8 +676,9 @@ def dsoft_cases() -> list:
     max_candidates, tup_max, cand_max})].  Three seeds and thresholds;
     N bases with a num_seeds cap of 40; max_candidates 2; tup_max 8
     (overflow raised); cand_max 1; empty and 4-base reads; a table past
-    2^31; tup_max 32768 (the kernel's arrays in device memory).  Imports
-    nothing that needs a card."""
+    2^31; tup_max 32768 (every read within the shared-memory budget);
+    then dsoft_budget_cases, whose tup_max 32768 runs the large path
+    from device memory.  Imports nothing that needs a card."""
     import numpy as np
 
     def kw(threshold=18, cap=800, cand=10**6, tup_max=TUP_MAX, cand_max=256):
@@ -997,6 +999,27 @@ def dsoft_bound(args, kw: dict, out) -> dict:
     return res
 
 
+def dsoft_large_reads(args, kw: dict) -> tuple:
+    """How csrc/dsoft.cu's dsoft_large takes a call on the card: (the
+    read-strands past the shared-memory tuple budget, which it runs, from
+    the plain version's totals; whether its arrays lie in device memory,
+    as the scratch the call needs past the list of those reads shows)."""
+    import torch
+
+    from darwin_tpu_torch import _build
+
+    tup_max, R = kw["tup_max"], args[0].shape[0]
+    if tup_max <= DSOFT_SMEM_TUPLES:
+        return 0, False
+    total = _dsoft_steps(args, kw)["cum"][:, -1].clamp(max=tup_max)
+    sms = torch.cuda.get_device_properties(
+        args[0].device).multi_processor_count
+    need = _build.host_call("dtt_dsoft_scratch_bytes", R, tup_max,
+                            kw["num_seeds_cap"], sms)
+    return (int((total > DSOFT_SMEM_TUPLES).sum()),
+            need > (4 * (R + 1) + 15) // 16 * 16)
+
+
 def _same(got, want) -> bool:
     """Whether two tuples of tensors are equal, shapes and values."""
     import torch
@@ -1009,8 +1032,9 @@ def phase_dsoft(dev) -> tuple:
     """The D-SOFT kernel against its plain version (all four outputs,
     tolerance 0) under each index mode on the E.coli slice's read-strands
     and on dsoft_cases (where no read overflowed, also the golden
-    dsoft_scalar's candidates); then timed at the E.coli shape under the
-    default index mode.  Returns (its kernels-line numbers, the plain
+    dsoft_scalar's candidates; the large path must run reads from shared
+    memory and from device memory); then timed at the E.coli shape under
+    the default index mode.  Returns (its kernels-line numbers, the plain
     version's overflowed reads at that shape)."""
     import numpy as np
 
@@ -1035,11 +1059,16 @@ def phase_dsoft(dev) -> tuple:
             f"({time.perf_counter() - t0:.1f} s)")
         if index == default:
             timed = (args, kw, got)
+    large = {"shared memory": 0, "device memory": 0}
     for name, gt, reads, ckw in dsoft_cases():
         gold = [dsoft_scalar(gt, r, ckw["num_seeds_cap"], ckw["threshold"],
                              ckw["max_candidates"]) for r in reads]
         for index in ("twolevel", "searchsorted", "dense"):
             args, kw = dsoft_case_args(gt, reads, ckw, index, dev)
+            if index == "twolevel":
+                n_large, in_dev = dsoft_large_reads(args, kw)
+                large["device memory" if in_dev else "shared memory"] += (
+                    n_large)
             got = dsoft_device_batch(*args, **kw)
             if not _same(got, dsoft_device_batch_torch(*args, **kw)):
                 raise AssertionError(f"dsoft_device differs: {name}, "
@@ -1053,7 +1082,11 @@ def phase_dsoft(dev) -> tuple:
                                          f"{name}, {index}, read {i}")
         log(f"  dsoft_device, {name}: exact under each index mode, "
             f"{int(over.sum())} of {len(reads)} reads overflowed, "
-            f"{int(counts.sum())} candidates")
+            f"{int(counts.sum())} candidates, {n_large} in the large path"
+            f"{' from device memory' if in_dev else ''}")
+    if not all(large.values()):
+        raise AssertionError(f"dsoft_cases left a form of the large path "
+                             f"untested (its reads: {large})")
     args, kw, got = timed
     res.update(dsoft_bound(args, kw, got))
     res["ms"] = median_ms(lambda: dsoft_device_batch(*args, **kw), 20)

@@ -181,8 +181,9 @@ struct Max {
   __device__ T operator()(T a, T b) const { return a > b ? a : b; }
 };
 // The segmented sum of (start flag << 32 | inc) pairs: a start resets
-// the sum.  The low halves are sums of at most 1024 x 15, so a + b
-// carries nothing into the flag.
+// the sum.  The low halves are sums over one bin's tuples of at most k
+// each, under 2^31 since dtt_dsoft takes only tup_max * k < 2^31: a + b
+// carries nothing into the flag and seg_count's int holds them.
 struct SegSum {
   __device__ unsigned long long operator()(unsigned long long a,
                                            unsigned long long b) const {
@@ -917,7 +918,8 @@ extern "C" int dtt_dsoft(const uint8_t* queries, const int* qlens, int R,
   const long long need = dtt_dsoft_scratch_bytes(R, tup_max, num_seeds_cap,
                                                  sms);
   if (R <= 0 || L < 0 || k < 4 || k > kMaxK || w < 1 || w >= k ||
-      bin_size < 1 || tup_max < 1 || tup_max >= (1 << 30) || cand_max < 1 ||
+      bin_size < 1 || tup_max < 1 || tup_max >= (1 << 30) ||
+      static_cast<long long>(tup_max) * k >= (1ll << 31) || cand_max < 1 ||
       num_seeds_cap < 0 || index < 0 || index > 2 || sms < 1 ||
       (need > 0 && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -274,7 +274,8 @@ def _launch(queries, qlens, table_hashes, table_pos, *, k, w, bin_size,
     if index not in INDEX_MODES:
         raise ValueError(f"index {index!r}: searchsorted, dense or twolevel")
     if not (3 < k <= 15 and 1 <= w < k and bin_size >= 1
-            and 1 <= tup_max < 2 ** 30 and cand_max >= 1
+            and 1 <= tup_max < 2 ** 30 and tup_max * k < 2 ** 31
+            and cand_max >= 1
             and 0 <= num_seeds_cap < 2 ** 31 and 0 <= tl_steps <= 32):
         raise ValueError(f"dsoft_device_batch: k={k}, w={w}, bin_size="
                          f"{bin_size}, num_seeds_cap={num_seeds_cap}, "

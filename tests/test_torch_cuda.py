@@ -348,17 +348,22 @@ def test_dsoft_kernel_matches_plain_and_golden(cuda, index):
     """csrc/dsoft.cu on chip_smoke.dsoft_cases (tests/test_dsoft_device.py's
     cases: three seeds, N bases with a num_seeds cap of 40,
     max_candidates 2, tup_max 8, cand_max 1, empty and 4-base reads, a
-    table past 2^31, tup_max 32768 in device memory): all four outputs
-    equal the plain version's, the candidates of every read that did not
-    overflow equal dsoft_scalar's, one launch a call."""
+    table past 2^31, tup_max 32768, and the budget-edge batch under four
+    tup_max): all four outputs equal the plain version's, the candidates
+    of every read that did not overflow equal dsoft_scalar's, one launch
+    a call; the large path runs reads from shared memory and from device
+    memory."""
     import chip_smoke
     from darwin_tpu_torch.dsoft.device import (dsoft_device_batch,
                                                dsoft_device_batch_torch)
     from darwin_tpu_torch.golden.dsoft import dsoft_scalar
 
     overflowed = 0
+    large = {False: 0, True: 0}
     for name, gt, reads, kw in chip_smoke.dsoft_cases():
         args, akw = chip_smoke.dsoft_case_args(gt, reads, kw, index, cuda)
+        n_large, in_dev = chip_smoke.dsoft_large_reads(args, akw)
+        large[in_dev] += n_large
         n = dsoft_device_batch.launches
         got = dsoft_device_batch(*args, **akw)
         assert dsoft_device_batch.launches == n + 1
@@ -374,6 +379,7 @@ def test_dsoft_kernel_matches_plain_and_golden(cuda, index):
                 assert list(zip(hits[i, :counts[i]].tolist(),
                                 offs[i, :counts[i]].tolist())) == gold, name
     assert overflowed > 0
+    assert large[False] >= 2 and large[True] >= 2
 
 
 def test_dsoft_kernel_rejects_bad_arguments(cuda):
@@ -392,6 +398,9 @@ def test_dsoft_kernel_rejects_bad_arguments(cuda):
         dsoft_device_batch(q, qlens, th, tpos, **dict(akw, index="hashmap"))
     with pytest.raises(ValueError):
         dsoft_device_batch(q, qlens, th, tpos, **dict(akw, k=16))
+    with pytest.raises(ValueError):  # a bin's counts past int32
+        dsoft_device_batch(q, qlens, th, tpos,
+                           **dict(akw, tup_max=2 ** 31 // akw["k"] + 1))
     out = dsoft_device_batch(q[:0], qlens[:0], th, tpos, **akw)
     assert [tuple(x.shape) for x in out] == [(0, 256), (0, 256), (0,), (0,)]
 
