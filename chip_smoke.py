@@ -97,7 +97,28 @@ Phases; any failure ends the run with a nonzero exit code:
    (tools/torch_fuzz_soak.py's copies of its generators) through the
    port's pipeline on the card, each record set equal to the golden
    spec's (golden/, computed in spawned processes from phase 3 on) and
-   each instance's device D-SOFT calls equal to the host D-SOFT's.
+   each instance's device D-SOFT calls equal to the host D-SOFT's;
+9. the mesh and multi-host layer, every mesh entry cuda:0 (phase_mesh):
+   with the counters zeroed, pipeline.collect_calls_table_sharded on the
+   E.coli slice's merged bank at mesh sizes 1 and MESH under each
+   exchange (budgets derived), equal to the native collect_calls (the
+   table-sharded kernels' launches on the kernels line come from these
+   runs); the two kernels (csrc/dsoft_sharded.cu) against their plain
+   versions on every shard, bit-exact, on the E.coli read-strands over
+   MESH and on SHARDED_CASES over SHARDED_P (some reads past
+   shard_count's shared-memory budget), each index mode and exchange,
+   the whole function also against dsoft_table_sharded_torch and, where
+   no read overflowed, the golden dsoft_scalar; each kernel timed on
+   shard 0's E.coli inputs beside its plain version and bound;
+   sharded_dsoft over MESH against one dsoft_device_batch call;
+   ShardedTileAligner against TorchTileAligner at B = 512, T = 320;
+   ShardedGactEngine over MESH on the E.coli slice (its records phase
+   4's); the CLI with --mesh 1 (phase 4's --merged-out), --mesh 2 (must
+   fail: one card), --distributed as two gloo processes on the small
+   fixture and on the E.coli slice with --seed-table (rank 0 builds it;
+   both ranks' --merged-out equal to each other, to their darwin.<rank>.out
+   files' union and to the one-process run's); entry.dryrun_multichip
+   over MESH entries.
 
 The last three lines are a JSON summary of the kernels, nvidia-smi's
 name and power limit, and {"ok": true, "device": {...}}.  Without a
@@ -179,6 +200,8 @@ DP_VARIANTS = {(fmt, il): _dp_variant(fmt, il)
 # defined there).  The main paths' kernels come first.
 DP_SRC = "darwin_tpu_torch/csrc/dp.cu"
 WALK_SRC = "darwin_tpu_torch/csrc/traceback_words.cu"
+SHARDED_SRC = "darwin_tpu_torch/csrc/dsoft_sharded.cu"
+SHARDED_REPLACES = "darwin_tpu/dsoft/sharded_table.py:265"
 KERNELS = {
     "align_tiles": (DP_SRC, "darwin_tpu/ops/pallas_dp.py:523",
                     "pallas_call"),
@@ -203,6 +226,13 @@ KERNELS = {
                        "tools/scanshift_probe.py:97", "pallas_call"),
     "scanshift_smem": ("darwin_tpu_torch/csrc/scanshift.cu",
                        "tools/scanshift_probe.py:97", "pallas_call"),
+    # The table-sharded D-SOFT's two per-read steps: together they replace
+    # one XLA function, the per-device body of dsoft_table_sharded_fn, so
+    # they share its line (phase 9).
+    "dsoft_shard_scan": (SHARDED_SRC, SHARDED_REPLACES,
+                         "_dsoft_table_sharded_local"),
+    "dsoft_shard_count": (SHARDED_SRC, SHARDED_REPLACES,
+                          "_dsoft_table_sharded_local"),
 }
 # The main path's kernels, whose device time (device_ms) is taken too;
 # the span fetch also in its one-set form, ONE_SET.
@@ -252,6 +282,37 @@ SCAN_EDGE_B = 37
 LARGE_ET = {"bytes": 30000, "packed": 30000, "packed6": 16000}
 EDGE_ET = {"bytes": (1024, 1025), "packed": (1024, 1025),
            "packed6": (512, 513)}
+# Phase 9's mesh on the one card: MESH entries of cuda:0, and
+# SHARDED_P for tests/test_sharded_table.py's cases, whose shard bounds,
+# budgets and overflow flags depend on the shard count (8, as darwin_tpu's
+# tests run them on 8 virtual devices).
+MESH, SHARDED_P = 4, 8
+# The table-sharded D-SOFT's cases (tests/test_sharded_table.py's
+# instances, sharded_fixture): name -> (sharded_fixture's arguments,
+# threshold, num_seeds_cap, max_candidates, tup_max, cand_max, a2a_cap of
+# the all-to-all, whether a read overflows under the all-to-all, under
+# the all-gather).  tests/test_torch_sharded_table.py holds the port to
+# darwin_tpu on the same cases.
+SHARDED_CASES = {
+    "seed 17": (dict(seed=17), 15, 800, 10**6, 4096, 128, 2048, False,
+                False),
+    "seed 23": (dict(seed=23), 10, 800, 10**6, 4096, 128, 2048, False,
+                False),
+    "repetitive": (dict(seed=31, repetitive=True, err=0.05), 12, 800, 10**6,
+                   16384, 512, 8192, False, False),
+    "caps": (dict(seed=41), 10, 60, 3, 4096, 128, 2048, False, False),
+    "tup_max overflows": (dict(seed=47, repetitive=True, err=0.02), 10, 800,
+                          10**6, 64, 128, 64, True, True),
+    "a2a_cap 8 overflows": (dict(seed=47, repetitive=True, err=0.02), 10,
+                            800, 10**6, 16384, 256, 8, True, False),
+    "positions past 2^31": (dict(seed=37), 15, 800, 10**6, 4096, 128, 1024,
+                            False, False),
+    # 20 copies of a 2 kb unit (each minimizer under the table's
+    # occurrence cap of 32): reads of thousands of tuples, past
+    # shard_count's shared-memory budget (its device-memory form).
+    "long repeats": (dict(seed=59, repetitive=True, err=0.02, unit=2000),
+                     12, 800, 10**6, 65536, 512, 16384, False, False),
+}
 
 
 def log(*a):
@@ -1795,6 +1856,456 @@ def phase_golden(dev, futures: dict) -> None:
                                  f"{guided}): {bad}")
 
 
+def sharded_fixture(seed, n_reads=16, ref_len=40000, err=0.12,
+                    repetitive=False, unit=500):
+    """tests/test_sharded_table.py's _fixture on the port's golden table:
+    (GoldenSeedTable of a 40 kb reference, k 12, w 4, bin 64, random or
+    tandem repeats of a unit of 500 bases (the fixture's; another unit is
+    this copy's own) with 2% jitter; reads of 500-2500 bases from it at
+    err substitutions)."""
+    import numpy as np
+
+    from darwin_tpu_torch.golden.dsoft import GoldenSeedTable
+
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    rng = np.random.default_rng(seed)
+    if repetitive:
+        rep = rng.choice(alpha, size=unit).astype(np.uint8)
+        ref = np.tile(rep, ref_len // unit + 1)[:ref_len].copy()
+        jitter = rng.random(ref_len) < 0.02
+        ref[jitter] = rng.choice(alpha, size=int(jitter.sum()))
+    else:
+        ref = rng.choice(alpha, size=ref_len).astype(np.uint8)
+    gt = GoldenSeedTable(ref, 12, 32, 64, 4)
+    reads = []
+    for _ in range(n_reads):
+        s = int(rng.integers(0, max(1, ref_len - 3000)))
+        r = ref[s:s + int(rng.integers(500, 2500))].copy()
+        mut = rng.random(len(r)) < err
+        r[mut] = rng.choice(alpha, size=int(mut.sum()))
+        reads.append(r)
+    return gt, reads
+
+
+def sharded_case(name: str):
+    """(GoldenSeedTable, reads, dsoft_table_sharded's D-SOFT keywords,
+    the all-to-all's a2a_cap, (overflow expected under the all-to-all,
+    under the all-gather)) of SHARDED_CASES[name]; "positions past 2^31"
+    shifts the table's positions by 2.6e9."""
+    import numpy as np
+
+    fx, threshold, cap, cand, tup_max, cand_max, a2a, *over = \
+        SHARDED_CASES[name]
+    gt, reads = sharded_fixture(**fx)
+    if name == "positions past 2^31":
+        shift = np.uint64(2_600_000_000)
+        gt.pos_table = (gt.pos_table.astype(np.uint64)
+                        + shift).astype(np.uint32)
+        gt.ref_size += int(shift)
+    kw = dict(k=gt.k, w=gt.w, bin_size=gt.bin_size,
+              kmer_max_occ=gt.kmer_max_occurence, num_seeds_cap=cap,
+              threshold=threshold, max_candidates=cand, tup_max=tup_max,
+              cand_max=cand_max)
+    return gt, reads, kw, a2a, tuple(over)
+
+
+def sharded_case_args(name: str, dev):
+    """(mesh of SHARDED_P entries of dev, queries, qlens, shards, kw, the
+    all-to-all's a2a_cap, expected overflows, GoldenSeedTable, reads) of
+    one SHARDED_CASES entry."""
+    import torch
+
+    from darwin_tpu_torch.dsoft import sharded_table as st
+    from darwin_tpu_torch.dsoft.device import pad_reads
+    from darwin_tpu_torch.engine.seqbank import SeqBank
+    from darwin_tpu_torch.parallel.mesh import make_mesh
+
+    gt, reads, kw, a2a, over = sharded_case(name)
+    mesh = make_mesh(devices=[dev] * SHARDED_P)
+    hs, ps = st.make_sharded_table(gt.hashes, gt.pos_table, SHARDED_P)
+    di = st.make_sharded_dense_index(hs)
+    Q, lens = pad_reads(SeqBank(reads), range(len(reads)))
+    kw = dict(kw, dense_steps=di.steps)
+    return (mesh, torch.from_numpy(Q).to(dev), torch.from_numpy(lens).to(dev),
+            st.place_shards(mesh, hs, ps, di), kw, a2a, over, gt, reads)
+
+
+@functools.lru_cache(maxsize=1)
+def ecoli_sharded(dev_name: str):
+    """The E.coli slice's table sharded over MESH entries of one device
+    and its derived budgets, as collect_calls_table_sharded caches them on
+    the table (running it once at that mesh size): (mesh, budgets, dense
+    index, placed shards)."""
+    import torch
+
+    from darwin_tpu_torch.parallel.mesh import make_mesh
+    from darwin_tpu_torch.pipeline import collect_calls_table_sharded
+
+    params, genome, table, merged, _, _ = _ecoli_seed_inputs()
+    mesh = make_mesh(devices=[torch.device(dev_name)] * MESH)
+    if getattr(table, "_budget_cache", (0,))[0] != MESH:
+        collect_calls_table_sharded(table, genome, merged, params, mesh)
+    _, _, _, di, placed = table._shard_cache
+    return (mesh, table._budget_cache[1], di,
+            placed[tuple(map(str, mesh.devices))])
+
+
+def ecoli_sharded_args(dev):
+    """dsoft_table_sharded's queries, qlens and D-SOFT keywords on the
+    E.coli slice's 920 read-strands with the derived budgets."""
+    import torch
+
+    params, _, table, _, Q, lens = _ecoli_seed_inputs()
+    _, budgets, di, _ = ecoli_sharded(str(dev))
+    return (torch.from_numpy(Q).to(dev), torch.from_numpy(lens).to(dev),
+            dict(k=table.k, w=table.w, bin_size=table.bin_size,
+                 kmer_max_occ=table.kmer_max_occurence,
+                 num_seeds_cap=params.num_seeds, threshold=params.threshold,
+                 max_candidates=params.max_candidates,
+                 tup_max=budgets.tup_max, cand_max=budgets.cand_max,
+                 dense_steps=di.steps))
+
+
+def shard_scan_bound(args, kw: dict, out) -> dict:
+    """A shard_scan call's bound: the reads' bytes, their lengths, the
+    outputs (nine bytes a position), the distinct 32-byte sectors of the
+    shard's index that its emitted minimizers' lookups load (each once),
+    and a scanned position's k-mer, hash and window minimum (2k + 20 + 2w
+    operations)."""
+    from darwin_tpu_torch.dsoft import device as dd
+
+    queries, qlens, th, di = args
+    k, w = kw["k"], kw["w"]
+    LP = queries.shape[1] + 16
+    emit, _, mhash = dd._query_minimizers_fixed(
+        dd._codes(queries, qlens, LP), qlens, k, w)
+    dense = kw["index"] == "dense"
+    sectors = _lookup_sectors(mhash[emit], di if dense else th,
+                              "twolevel" if dense else "searchsorted",
+                              kw["dense_steps"])
+    nsec = sum(int(v.unique().numel()) for v in sectors.values())
+    hi = (16 * ((qlens.long() + 15) // 16) - k - w).clamp(max=LP)
+    scanned = int((hi - (w - 1)).clamp(min=0).sum())
+    read_bytes = int(qlens.long().clamp(max=queries.shape[1]).sum())
+    return bound(read_bytes + nbytes(qlens, *out) + 32 * nsec,
+                 scanned * (2 * k + 20 + 2 * w))
+
+
+def shard_count_bound(args, out) -> dict:
+    """A shard_count call's bound: its reads' tuples (hit and offset, each
+    read once), seg and the outputs; the bitonic sort's compare-exchanges
+    (3 operations each) over next_pow2 of each read's tuples and 30 a
+    tuple for its scans."""
+    hit, off, seg = args
+    n = (seg[1:] - seg[:-1]).tolist()
+    ce = sum(p * max(1, p.bit_length() - 1) * p.bit_length() // 4
+             for p in (1 << max(0, t - 1).bit_length() for t in n))
+    return bound(8 * sum(n) + nbytes(seg, *out), 3 * ce + 30 * sum(n))
+
+
+def _checking(kernel, plain, calls: list):
+    """A step for dsoft_table_sharded(steps=...) that runs kernel and its
+    plain version on the same inputs, fails unless they are equal
+    (tolerance 0), records (args, kwargs, output) in calls and returns
+    the kernel's output."""
+    def step(*args, **kw):
+        got = kernel(*args, **kw)
+        if not _same(got, plain(*args, **kw)):
+            raise AssertionError(f"{kernel.__name__} differs from its plain "
+                                 f"version")
+        calls.append((args, kw, got))
+        return got
+    return step
+
+
+def phase_mesh(dev, counters: dict, want: str) -> tuple:
+    """Phase 9, the mesh and multi-host layer on the one card, mesh
+    entries all cuda:0; want is the E.coli slice's records (phase 4's).
+    Returns ({kernel: kernels-line numbers} of the two table-sharded
+    kernels, {kernel: launches} of the main path's runs: the
+    table-sharded collector on the E.coli slice)."""
+    import numpy as np
+    import torch
+
+    from darwin_tpu_torch import _build, cli, entry
+    from darwin_tpu_torch.dsoft import sharded_table as st
+    from darwin_tpu_torch.dsoft.device import dsoft_device_batch, sharded_dsoft
+    from darwin_tpu_torch.engine.aligner import TorchTileAligner
+    from darwin_tpu_torch.golden.dsoft import dsoft_scalar
+    from darwin_tpu_torch.io.fasta import FastaRecord, write_fasta
+    from darwin_tpu_torch.parallel.mesh import ShardedTileAligner, make_mesh
+    from darwin_tpu_torch.pipeline import (collect_calls, collect_calls_device,
+                                           collect_calls_table_sharded,
+                                           format_records, make_merged_engine,
+                                           read_banks, run_device_merged)
+
+    params, genome, table, merged, _, _ = _ecoli_seed_inputs()
+    fields = ("ref_id", "query_id", "ref_pos", "query_pos")
+
+    def same_calls(got, exp):
+        return len(got) == len(exp) and all(
+            np.array_equal(getattr(got, f), getattr(exp, f)) for f in fields)
+
+    # The main path: the table-sharded collector at mesh sizes 1 and MESH
+    # under each exchange, budgets derived, launches counted.
+    host = collect_calls(table, genome, merged, params)
+    launches = dict.fromkeys(counters, 0)
+    for n in (1, MESH):
+        mesh_n = make_mesh(devices=[dev] * n)
+        for exchange in ("all_to_all", "all_gather"):
+            m = {}
+            t0 = time.perf_counter()
+            calls, got = _counted(counters, lambda: collect_calls_table_sharded(
+                table, genome, merged, params, mesh_n, exchange=exchange,
+                metrics=m))
+            b = table._budget_cache[1]
+            log(f"  collect_calls_table_sharded, mesh {n}, {exchange}: "
+                f"{len(calls)} calls, dsoft_overflow_reads "
+                f"{m['dsoft_overflow_reads']}, budgets tup_max {b.tup_max} "
+                f"cand_max {b.cand_max} a2a_cap {b.a2a_cap} "
+                f"({time.perf_counter() - t0:.1f} s, derivation included "
+                f"on a mesh size's first run); launches {got}")
+            if not same_calls(calls, host):
+                raise AssertionError(f"collect_calls_table_sharded (mesh {n},"
+                                     f" {exchange}) != collect_calls")
+            if not got["dsoft_shard_scan"] or not got["dsoft_shard_count"]:
+                raise AssertionError("the table-sharded kernels did not "
+                                     "launch on the main path")
+            for k, v in got.items():
+                launches[k] += v
+    log(f"  derived at mesh {MESH}: {table._budget_cache[1].stats}")
+
+    # The two kernels against their plain versions: the E.coli
+    # read-strands over MESH entries, each index mode and exchange, and
+    # SHARDED_CASES over SHARDED_P entries; the whole function also
+    # against dsoft_table_sharded_torch.
+    mesh, budgets, di, shards = ecoli_sharded(str(dev))
+    Qt, lt, kw = ecoli_sharded_args(dev)
+    scans, counts = [], []
+    steps = (_checking(st.shard_scan, st.shard_scan_torch, scans),
+             _checking(st.shard_count, st.shard_count_torch, counts))
+    smem = _build.host_call("dtt_shard_count_smem_tuples")
+    for index in ("dense", "searchsorted"):
+        for a2a in (budgets.a2a_cap, None):
+            t0 = time.perf_counter()
+            args = (mesh, Qt, lt, shards)
+            ekw = dict(kw, a2a_cap=a2a, index=index)
+            got = st.dsoft_table_sharded(*args, steps=steps, **ekw)
+            if not _same(got, st.dsoft_table_sharded_torch(*args, **ekw)):
+                raise AssertionError(f"dsoft_table_sharded differs from its "
+                                     f"plain version: E.coli, {index}, "
+                                     f"a2a_cap {a2a}")
+            log(f"  table-sharded D-SOFT, E.coli {Qt.shape[0]} read-strands "
+                f"over {MESH}, {index}, a2a_cap {a2a}: both kernels exact "
+                f"on every shard, {int(got[2].sum())} candidates, "
+                f"{int(got[3].sum())} overflowed "
+                f"({time.perf_counter() - t0:.1f} s)")
+    timed = (scans[0], counts[0])  # dense, all-to-all, shard 0
+    n_big = 0
+    for name in SHARDED_CASES:
+        mesh8, q8, l8, shards8, ckw, a2a, over, gt, reads = \
+            sharded_case_args(name, dev)
+        del counts[:]
+        for index in ("dense", "searchsorted"):
+            for a2a_cap, flagged in zip((a2a, None), over):
+                args = (mesh8, q8, l8, shards8)
+                ekw = dict(ckw, a2a_cap=a2a_cap, index=index)
+                got = st.dsoft_table_sharded(*args, steps=steps, **ekw)
+                if not _same(got, st.dsoft_table_sharded_torch(*args, **ekw)):
+                    raise AssertionError(f"dsoft_table_sharded differs: "
+                                         f"{name}, {index}, {a2a_cap}")
+                hits, offs, cnt, ov = (x.cpu().numpy() for x in got)
+                if bool(ov.any()) != flagged:
+                    raise AssertionError(f"{name}: overflow {ov.any()}, "
+                                         f"expected {flagged}")
+                for i, r in enumerate(reads):
+                    gold = dsoft_scalar(gt, r, ckw["num_seeds_cap"],
+                                        ckw["threshold"],
+                                        ckw["max_candidates"])
+                    if not ov[i] and list(zip(
+                            hits[i, :cnt[i]].tolist(),
+                            offs[i, :cnt[i]].tolist())) != gold:
+                        raise AssertionError(f"{name}, {index}: read {i} != "
+                                             f"dsoft_scalar")
+        big = sum(int(((c[0][2][1:] - c[0][2][:-1]) > smem).sum())
+                  for c in counts)
+        n_big += big
+        log(f"  table-sharded D-SOFT, {name} over {SHARDED_P}: exact under "
+            f"each index mode and exchange, overflow {over}, golden where "
+            f"no read overflowed; {big} read counts past the shared-memory "
+            f"budget of {smem} tuples")
+    if not n_big:
+        raise AssertionError("shard_count's device-memory form never ran")
+
+    res = {}
+    for name, (args, skw, out), kernel, plain in (
+            ("dsoft_shard_scan", timed[0], st.shard_scan, st.shard_scan_torch),
+            ("dsoft_shard_count", timed[1], st.shard_count,
+             st.shard_count_torch)):
+        r = res[name] = {"max_abs_err": 0, "library_ms": None}
+        r["ms"] = median_ms(lambda: kernel(*args, **skw), 20)
+        r["plain_ms"] = median_ms(lambda: plain(*args, **skw), 3)
+        if name == "dsoft_shard_scan":
+            r["device_ms"] = graph_ms(lambda: kernel(*args, **skw), n=10)
+            r.update(shard_scan_bound(args, skw, out))
+            shape = f"R={args[0].shape[0]} L={args[0].shape[1]}"
+        else:
+            plan = st.count_scratch(args[2], skw["k"])
+            r["device_ms"] = graph_ms(
+                lambda: st.count_launch(*args, *plan, **skw), n=10)
+            r.update(shard_count_bound(args, out))
+            shape = (f"{args[2].shape[0] - 1} reads, "
+                     f"{int(args[2][-1] - args[2][0])} tuples")
+        log(f"  {name}, E.coli shard 0 of {MESH} ({shape}, dense, "
+            f"all-to-all): kernel {r['ms']:.4f} ms (graph "
+            f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    # The read-sharded D-SOFT over MESH against one call.
+    args, dkw = ecoli_dsoft_inputs(dev, "twolevel")
+    one = dsoft_device_batch(*args, **dkw)
+    got = sharded_dsoft(mesh, args[0], args[1], [args[2]] * MESH,
+                        [args[3]] * MESH, **dkw)
+    if not _same(got, one):
+        raise AssertionError("sharded_dsoft != one dsoft_device_batch call")
+    if not same_calls(collect_calls_device(table, genome, merged, params,
+                                           mesh=mesh), host):
+        raise AssertionError("collect_calls_device(mesh=) != collect_calls")
+    log(f"  sharded_dsoft over {MESH}: equal to one dsoft_device_batch call; "
+        f"collect_calls_device(mesh=) equal to collect_calls")
+
+    # The sharded tile aligner at B_MAIN, T_MAIN.
+    rng = np.random.default_rng(9)
+    tiles = (*related_tiles(rng, B_MAIN, T_MAIN), rng.random(B_MAIN) < 0.5)
+    akw = dict(early_terminate=dict(TILES)[T_MAIN], match=1, mismatch=-1,
+               gap_open=-1, gap_extend=-1, tile_size=T_MAIN)
+    got = ShardedTileAligner(mesh, **akw)(*tiles)
+    exp = TorchTileAligner(device=dev, **akw)(*tiles)
+    for f in ("ops", "ref_steps", "query_steps", "score", "max_i", "max_j"):
+        if not np.array_equal(getattr(got, f), getattr(exp, f)):
+            raise AssertionError(f"ShardedTileAligner differs: {f}")
+    log(f"  ShardedTileAligner over {MESH} at B={B_MAIN} T={T_MAIN}: equal "
+        f"to TorchTileAligner")
+
+    # The sharded engine on the E.coli slice's calls.
+    reads = [FastaRecord([n], s) for n, s in ecoli_reads()]
+    fwd, rev = read_banks(reads)
+    want_lines = want.splitlines()
+    for mesh_arg in (None, mesh):
+        prebuilt = make_merged_engine(genome, fwd, rev, params, same_file=True,
+                                      batch_size=512, device=dev,
+                                      mesh=mesh_arg)
+        m = {}
+        (recs, _), got = _counted(counters, lambda: run_device_merged(
+            genome, table, fwd, rev, params, same_file=True, batch_size=512,
+            prebuilt=prebuilt, metrics=m))
+        lines = sorted(set(format_records(genome, reads, recs)))
+        what = (f"ShardedGactEngine over {MESH}" if mesh_arg
+                else "DeviceGactEngine")
+        log(f"  {what}, E.coli: {len(lines)} records, align_s "
+            f"{m['align_s']:.4f}, engine iterations {m['engine_iters']}, "
+            f"launches {got}")
+        if lines != want_lines:
+            raise AssertionError(f"{what}: E.coli records differ")
+        if got["fetch_tiles"] != m["engine_iters"] or not got["traceback"]:
+            raise AssertionError(f"{what}: fetch_tiles launched "
+                                 f"{got['fetch_tiles']} times in "
+                                 f"{m['engine_iters']} iterations")
+
+    # The CLI: --mesh 1 in process, --mesh 2 (one card: must fail) and
+    # --distributed as two processes on cuda:0.
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        fa = td / "reads.fasta"
+        write_fasta(fa, ecoli_reads())
+        out = td / "mesh1"
+        if cli.main([str(fa), str(fa), "--params", str(td / "params.cfg"),
+                     "--batch-size", "512", "--mesh", "1", "--out-dir",
+                     str(out), "--merged-out", str(out / "merged")]) != 0:
+            raise AssertionError("cli --mesh 1 failed")
+        if (out / "merged").read_text() != want:
+            raise AssertionError("cli --mesh 1: --merged-out differs from "
+                                 "phase 4's")
+        log("  cli --mesh 1, E.coli: --merged-out equal to phase 4's")
+        r = subprocess.run(
+            [sys.executable, "-m", "darwin_tpu_torch.cli", str(fa), str(fa),
+             "--mesh", "2", "--out-dir", str(td / "mesh2")],
+            capture_output=True, text=True, timeout=300, cwd=REPO,
+            env=dict(os.environ, PYTHONPATH=str(REPO)))
+        err = r.stderr.strip().splitlines()[-1:] or [""]
+        log(f"  cli --mesh 2 on one card: exit {r.returncode}, {err[0]}")
+        if r.returncode == 0 or "1 visible" not in r.stderr:
+            raise AssertionError("cli --mesh 2 did not fail with make_mesh's "
+                                 "error")
+        small = DATA / "small"
+        one = td / "small1"
+        if cli.main([str(small / "reads.fasta"), str(small / "reads.fasta"),
+                     "--params", str(small / "params.cfg"), "--batch-size",
+                     "64", "--out-dir", str(one), "--merged-out",
+                     str(one / "merged")]) != 0:
+            raise AssertionError("cli on small failed")
+        for tag, fasta, extra, exp in (
+                ("small", small / "reads.fasta",
+                 ["--params", str(small / "params.cfg"), "--batch-size", "64"],
+                 (one / "merged").read_text()),
+                ("E.coli", fa, ["--params", str(td / "params.cfg"),
+                                "--batch-size", "512", "--seed-table",
+                                str(td / "table.npz")], want)):
+            t0 = time.perf_counter()
+            d = td / f"dist_{tag}"
+            outs = distributed_cli(fasta, extra, d)
+            merged_out = [(d / f"merged.{r}").read_text() for r in range(2)]
+            union = sorted({ln for r in range(2) for ln in
+                            (d / f"darwin.{r}.out").read_text().splitlines()})
+            log(f"  cli --distributed, {tag}, two processes on {dev}: "
+                f"{len(merged_out[0].splitlines())} merged records "
+                f"({time.perf_counter() - t0:.1f} s); "
+                + "; ".join(ln for o in outs for ln in o.splitlines()
+                            if ln.startswith(("distributed:", "Seed table"))))
+            if not (merged_out[0] == merged_out[1] == exp
+                    == "".join(ln + "\n" for ln in union)):
+                raise AssertionError(f"cli --distributed ({tag}): merged "
+                                     f"outputs differ")
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(MESH, devices=[dev] * MESH)
+    log(f"  dryrun_multichip({MESH}) took {time.perf_counter() - t0:.1f} s")
+    return res, launches
+
+
+def distributed_cli(fasta: Path, extra: list, out: Path) -> list:
+    """The port's CLI on fasta (self-overlap) with --distributed as two
+    processes of one gloo group on 127.0.0.1 (a free port), writing to
+    out (merged.<rank> the --merged-out); returns their standard outputs.
+    Fails unless both exit 0 within 300 s; kills both otherwise."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "darwin_tpu_torch.cli", str(fasta), str(fasta),
+         *extra, "--distributed", "--out-dir", str(out), "--merged-out",
+         str(out / f"merged.{r}")],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(REPO), MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=port, WORLD_SIZE="2", RANK=str(r)))
+        for r in range(2)]
+    res = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"cli --distributed exited "
+                                     f"{p.returncode}:\n{e[-3000:]}")
+            res.append(o)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return res
+
+
 def _digest(outs) -> str:
     """sha256 (16 hex digits) of a kernel's outputs: a tensor, a tuple of
     them or a dict of them in key order."""
@@ -1818,10 +2329,13 @@ def checked_digests(dev, small: bool = False) -> dict:
     edges, the walkers at LARGE_ET (large_et_walks), both scan
     lowerings at B = 2048, C = 384 and at SCAN_WIDTHS, the D-SOFT kernel
     on dsoft_cases under each index mode and on the E.coli read-strands
-    (R = 920 and 9200).  small: B = 36, the tile size 64 and one
-    scoring, one large-ET walk, the scans at C = 33 and 1024 beside the
-    probe's shape, the D-SOFT cases under the two-level index only and
-    no E.coli batch.
+    (R = 920 and 9200), and the table-sharded D-SOFT's two kernels on
+    SHARDED_CASES and the E.coli read-strands (phase 9's inputs) under
+    each index mode and exchange.  small: B = 36, the tile size 64 and
+    one scoring, one large-ET walk, the scans at C = 33 and 1024 beside
+    the probe's shape, the D-SOFT cases under the two-level index only,
+    the table-sharded cases under the dense index only and no E.coli
+    batch.
     On the checked library each case's name goes to stderr before it
     runs, so that a trap names it."""
     import numpy as np
@@ -1932,6 +2446,26 @@ def checked_digests(dev, small: bool = False) -> dict:
         big = ecoli_x10(args)
         run("dsoft_device E.coli x10 twolevel",
             lambda: dsoft_device_batch(*big, **kw))
+    # The table-sharded D-SOFT's kernels (through dsoft_table_sharded):
+    # SHARDED_CASES over SHARDED_P entries and the E.coli read-strands
+    # over MESH, each index mode and exchange.
+    from darwin_tpu_torch.dsoft.sharded_table import dsoft_table_sharded
+
+    sharded = []
+    for name in SHARDED_CASES:
+        mesh8, q8, l8, shards8, ckw, a2a, *_ = sharded_case_args(name, dev)
+        sharded.append((name, (mesh8, q8, l8, shards8), ckw, a2a))
+    if not small:
+        mesh, budgets, _, shards = ecoli_sharded(str(dev))
+        Qt, lt, ekw = ecoli_sharded_args(dev)
+        sharded.append(("E.coli", (mesh, Qt, lt, shards), ekw,
+                        budgets.a2a_cap))
+    for name, args, skw, a2a in sharded:
+        for index in ("dense",) if small else ("dense", "searchsorted"):
+            for cap in (a2a, None):
+                run(f"dsoft_sharded {name} {index} a2a_cap={cap}",
+                    lambda: dsoft_table_sharded(*args, a2a_cap=cap,
+                                                index=index, **skw))
     return res
 
 
@@ -2085,10 +2619,11 @@ def phase_ab(dev, reps: int = 20) -> dict:
 
 
 def run_phases(dev, golden_pool) -> tuple:
-    """Phases 1 (the build) to 8, phase 8's golden spec computed by
+    """Phases 1 (the build) to 9, phase 8's golden spec computed by
     golden_pool; returns the kernels line's numbers and launches, the
     main paths' first, then the lab's."""
     from darwin_tpu_torch import _build
+    from darwin_tpu_torch.dsoft import sharded_table as st
     from darwin_tpu_torch.dsoft.device import dsoft_device_batch
     from darwin_tpu_torch.ops import traceback as tb
     from darwin_tpu_torch.ops.dp import align_tiles
@@ -2105,38 +2640,51 @@ def run_phases(dev, golden_pool) -> tuple:
     for line in _registers(report):
         log("  " + line)
 
-    log("[2/8] kernels against their plain versions (tolerance 0)")
+    log("[2/9] kernels against their plain versions (tolerance 0)")
     kres = phase_kernels(dev)
     kres["dsoft_device"], plain_overflow = phase_dsoft(dev)
     golden = golden_soak_start(golden_pool)
-    log("[3/8] fixtures against the reference binary's out.darwin, both "
+    log("[3/9] fixtures against the reference binary's out.darwin, both "
         "engines, and the device engine with --dsoft device")
     t0 = time.perf_counter()
     phase_fixtures(dev)
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
-    log("[4/8] E.coli-shaped slice: device engine in each tb_format, host "
+    log("[4/9] E.coli-shaped slice: device engine in each tb_format, host "
         "engine, device engine with --dsoft device")
     counters = {"align_tiles": align_tiles, "traceback": tb.traceback,
                 "traceback_packed": tb.traceback_packed,
                 "traceback_packed6": tb.traceback_packed6,
                 "fetch_tiles": fetch_tiles,
-                "dsoft_device": dsoft_device_batch}
+                "dsoft_device": dsoft_device_batch,
+                "dsoft_shard_scan": st.shard_scan,
+                "dsoft_shard_count": st.shard_count}
     launches = phase_ecoli(dev, counters, plain_overflow)
-    log("[5/8] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
+    log("[5/9] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
         "against its plain version")
     t0 = time.perf_counter()
     lres, llaunches = phase_lab(dev)
     log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
-    log("[6/8] score evaluator (darwin_tpu_torch.eval.score_eval)")
+    log("[6/9] score evaluator (darwin_tpu_torch.eval.score_eval)")
     launches["local_score_batch"] = phase_scoreeval(dev)
-    log("[7/8] phase 2's inputs through the checked library, in a child "
+    log("[7/9] phase 2's inputs through the checked library, in a child "
         "process")
     phase_checked(dev)
-    log("[8/8] golden soak: tests/test_fuzz_pipeline.py's pinned instances "
+    log("[8/9] golden soak: tests/test_fuzz_pipeline.py's pinned instances "
         "on the card against the golden spec")
     t0 = time.perf_counter()
     phase_golden(dev, golden)
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+    log("[9/9] mesh and multi-host: the table-sharded D-SOFT's kernels, "
+        "the sharded D-SOFT, aligner and engine on a mesh of cuda:0 "
+        "entries, the CLI's --mesh and --distributed, entry.py's "
+        "dryrun")
+    t0 = time.perf_counter()
+    mres, mlaunches = phase_mesh(
+        dev, counters, (DATA / "ecoli_shape" / "jax_cpu.darwin").read_text())
+    for k in ("dsoft_shard_scan", "dsoft_shard_count"):
+        kres[k] = mres[k]
+        launches[k] = mlaunches[k]
+    log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
     # The main paths' numbers first; the lab's for the kernels only the
     # lab runs.
     for k, v in lres.items():
@@ -2195,7 +2743,7 @@ def main(argv=None) -> int:
     if args.index_modes:
         print(json.dumps({"device": smi, **seed_times(dev)}))
         return 0
-    log(f"[1/8] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
+    log(f"[1/9] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     # Phase 8's golden spec runs on the host's cores from phase 3 on
     # (after phase 2's timings), in spawned processes (no CUDA state is

@@ -60,13 +60,22 @@ _SIGNATURES = {
     # scratch, the four outputs.
     "dtt_dsoft": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                   *[_I] * 9, _I, _I, _P, _P, _P, _P, _P, _P],
+    # queries, qlens, R, L, LP, the shard's index (h, crs, bkt, base,
+    # shift, nh, nb, steps), k, w, index mode, emit, start, occ.
+    "dtt_shard_scan": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _P, _P, _P, _P],
+    # hit, off, seg, R, k, bin_size, threshold, max_candidates, cand_max,
+    # scratch_off, scratch, the four outputs.
+    "dtt_shard_count": [_P, _P, _P, *[_I] * 6, _P, _P, _P, _P, _P, _P, _P],
 }
 # Host-only entries (no stream, nothing launched): argtypes, restype.
-_HOST_ENTRIES = {"dtt_dsoft_scratch_bytes": ([_I, _I, _I, _I], _L)}
+_HOST_ENTRIES = {"dtt_dsoft_scratch_bytes": ([_I, _I, _I, _I], _L),
+                 "dtt_shard_count_smem_tuples": ([], _I)}
 # The checked library's one more entry: the extents of the next launch.
 _SET_EXTENTS = ("dtt_set_extents", [_I, _P, _P])
 
 _locks = {False: threading.Lock(), True: threading.Lock()}
+_count_lock = threading.Lock()
 _libs: dict = {}  # checked -> loaded ctypes.CDLL
 _entries: dict = {}  # (checked, entry name) -> bound ctypes function
 
@@ -193,6 +202,16 @@ def host_call(entry: str, *args):
     """Call one host-only C entry of the library launch takes and
     return its result."""
     return getattr(lib(CHECKED), entry)(*args)
+
+
+def count(wrapper, key=None) -> None:
+    """Add one to a kernel wrapper's launch count (and, with key, to its
+    variant_launches[key]), under a lock: the sharded engine and aligner
+    launch from one thread a mesh device."""
+    with _count_lock:
+        wrapper.launches += 1
+        if key is not None:
+            wrapper.variant_launches[key] += 1
 
 
 def launch(entry: str, device: torch.device, *args) -> None:

@@ -14,6 +14,15 @@ reference, or from --params.  The GACT loop runs on --device (default
 cuda); there is no fallback to another device.  darwin_tpu.cli's
 --backend and --jax-cache have no counterpart: --device takes
 --backend's role, and the port compiles no XLA program.
+
+--mesh N shards the device engine over N devices (parallel/mesh.py):
+the first N visible CUDA devices, or with --device cpu N CPU entries;
+fewer visible CUDA devices than N is an error.  --distributed makes
+this process one rank of a torch.distributed job (gloo; torchrun's
+MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK): it aligns its
+read_range and writes darwin.<rank>.out, --merged-out and --paf-out are
+gathered over the ranks, and with --seed-table rank 0 builds the table
+and the other ranks load it (parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ from darwin_tpu_torch.index.genome import Genome
 from darwin_tpu_torch.index.seed_table import SeedTable
 from darwin_tpu_torch.io.fasta import iter_fasta, parse_fasta
 from darwin_tpu_torch.io.paf import paf_lines
+from darwin_tpu_torch.parallel import distributed as dist
+from darwin_tpu_torch.parallel.mesh import make_mesh
 from darwin_tpu_torch.pipeline import (format_records, make_aligner,
                                        make_merged_engine, read_banks,
                                        run_device_merged, run_host)
@@ -88,6 +99,15 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--dsoft", default="host", choices=["host", "device"],
                    help="seeding engine: host = native C++/NumPy, device "
                         "= D-SOFT on --device (dsoft/device.py)")
+    p.add_argument("--mesh", type=int, default=None,
+                   help="shard the device engine over N devices "
+                        "(independent per-device slot pools): the first N "
+                        "CUDA devices, or N CPU entries with --device cpu")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process mode (torch.distributed, gloo): this "
+                        "process aligns its rank's read range and writes "
+                        "darwin.<rank>.out; --merged-out and --paf-out "
+                        "gather records across the ranks")
     return p
 
 
@@ -118,11 +138,22 @@ def _resume(kind: str, rid: int, out_file: Path, paf_file: Path,
 
 def main(argv: list[str] | None = None) -> int:
     args = build_argparser().parse_args(argv)
+    if args.distributed:
+        dist.maybe_initialize()  # before anything else
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print(f"--device {args.device}: no CUDA device is available",
               file=sys.stderr)
         return 2
+    engine = "device" if args.engine == "auto" else args.engine
+    mesh = None
+    if args.mesh and engine == "device":
+        try:
+            mesh = (make_mesh(devices=[device] * args.mesh)
+                    if device.type == "cpu" else make_mesh(args.mesh))
+        except (RuntimeError, ValueError) as e:
+            print(f"--mesh {args.mesh}: {e}", file=sys.stderr)
+            return 2
     params = (Params.from_cfg(args.params) if Path(args.params).exists()
               else Params())
     same_file = args.reference == args.reads
@@ -136,8 +167,8 @@ def main(argv: list[str] | None = None) -> int:
     print(f"Scores: match = {params.match}, mismatch = {params.mismatch},"
           f" gap_open = {params.gap_open}, gap_extend = {params.gap_extend}")
     print(f"Batch size: {batch_size}, output ranges: {args.num_ranges}, "
-          f"device: {device}")
-    engine = "device" if args.engine == "auto" else args.engine
+          f"device: {device}"
+          + (f", mesh of {mesh.size}" if mesh else ""))
     # darwin_tpu.cli's keys (seconds as *_ms), and the port's own:
     # host_native says whether the host stages ran the native library or
     # their NumPy fallbacks; dsoft_overflow_reads counts the reads the
@@ -145,7 +176,9 @@ def main(argv: list[str] | None = None) -> int:
     metrics: dict = {"batch_size": batch_size, "device": str(device),
                      "engine": engine, "dsoft": args.dsoft,
                      "dsoft_overflow_reads": 0,
-                     "host_native": native.available()}
+                     "host_native": native.available(),
+                     "mesh_size": mesh.size if mesh else 1,
+                     "world_size": dist.process_count()}
 
     t_start = time.perf_counter()
     ref_records = parse_fasta(args.reference)
@@ -173,15 +206,20 @@ def main(argv: list[str] | None = None) -> int:
                                else (time.perf_counter() - t0) * 1e3)
 
     num_reads = 0 if chunked else len(read_records)
-    per = max(1, -(-num_reads // max(1, args.num_ranges)))
-    ranges = [(lo, min(num_reads, lo + per))
-              for lo in range(0, num_reads, per)]
+    if args.distributed:
+        rng = dist.read_range(num_reads)
+        ranges = [(dist.process_index(), rng.start, rng.stop)]
+        print(f"distributed: process {dist.process_index()}/"
+              f"{dist.process_count()}, reads [{rng.start}, {rng.stop})")
+    else:
+        per = max(1, -(-num_reads // max(1, args.num_ranges)))
+        ranges = [(i, lo, min(num_reads, lo + per))
+                  for i, lo in enumerate(range(0, num_reads, per))]
     out_dir = Path(args.out_dir)
     # Every range already has its output: skip the banks and the engine
     # (the loop below resumes them all).
     all_resumed = args.resume and not chunked and all(
-        (out_dir / f"darwin.{rid}.out").exists()
-        for rid in range(len(ranges)))
+        (out_dir / f"darwin.{rid}.out").exists() for rid, _, _ in ranges)
     fwd_bank = rev_bank = prebuilt = aligner = None
     if not chunked and not all_resumed:
         fwd_bank, rev_bank = read_banks(read_records)
@@ -189,13 +227,27 @@ def main(argv: list[str] | None = None) -> int:
             prebuilt = make_merged_engine(
                 genome, fwd_bank, rev_bank, params, same_file=same_file,
                 batch_size=batch_size, compute_score=not args.noscore,
-                device=device)
+                device=device, mesh=mesh)
     if engine == "host":
         aligner = make_aligner(params, device)
     print(f"Engine: {engine}")
 
     t0 = time.perf_counter()
-    if args.seed_table and Path(args.seed_table).exists():
+    if args.seed_table and dist.process_count() > 1:
+        # Rank 0 builds (or reuses) the table on shared storage; the
+        # others wait at the barrier and load it.
+        table = None
+        if dist.process_index() == 0 and not Path(args.seed_table).exists():
+            table = SeedTable.build(genome.concat, params.seed_size,
+                                    params.seed_occurence_multiple,
+                                    params.bin_size, params.window_size)
+            table.save(args.seed_table)
+        dist.barrier("seed-table")
+        if table is None:
+            table = SeedTable.load(args.seed_table)
+        print(f"Seed table ready (coordinator-built, {len(table.pos)} "
+              f"minimizers)")
+    elif args.seed_table and Path(args.seed_table).exists():
         table = SeedTable.load(args.seed_table)
         print(f"Seed table loaded from {args.seed_table}")
     else:
@@ -222,7 +274,8 @@ def main(argv: list[str] | None = None) -> int:
                   metrics=metrics)
         if engine == "device":
             return run_device_merged(genome, table, fwd, rev, params,
-                                     prebuilt=prebuilt, device=device, **kw)
+                                     prebuilt=prebuilt, device=device,
+                                     mesh=mesh, **kw)
         return run_host(genome, table, fwd, rev, params, aligner=aligner,
                         **kw)
 
@@ -251,7 +304,7 @@ def main(argv: list[str] | None = None) -> int:
                         all_lines, all_paf)
                 continue
             # Each chunk's banks differ: the device engine is built
-            # anew for each (prebuilt stays None).
+            # anew for each (prebuilt stays None), over the one mesh.
             recs, cc = align(*read_banks(chunk))
             n_cand += sum(cc)
             lines = emit(recs, chunk, out_file, paf_file)
@@ -259,7 +312,7 @@ def main(argv: list[str] | None = None) -> int:
                   f"records")
         metrics["num_reads"] = num_reads
     else:
-        for range_id, (lo, hi) in enumerate(ranges):
+        for range_id, lo, hi in ranges:
             out_file = out_dir / f"darwin.{range_id}.out"
             paf_file = out_dir / f"darwin.{range_id}.paf"
             if args.resume and out_file.exists():
@@ -276,12 +329,13 @@ def main(argv: list[str] | None = None) -> int:
           f"msec")
     print(f"Time GACT calling: {metrics.get('align_s', 0.0) * 1e3:.0f} "
           f"msec")
+    # sorted(set(...)), over every rank's records with --distributed.
     if args.paf_out:
-        paf_merged = sorted(set(all_paf))
+        paf_merged = dist.allgather_records(all_paf)
         _write_lines(Path(args.paf_out), paf_merged)
         print(f"PAF written to {args.paf_out} ({len(paf_merged)} records)")
     if args.merged_out:
-        merged = sorted(set(all_lines))
+        merged = dist.allgather_records(all_lines)
         _write_lines(Path(args.merged_out), merged)
         print(f"Merged {len(all_lines)} records -> {len(merged)} unique "
               f"in {args.merged_out}")
@@ -296,6 +350,8 @@ def main(argv: list[str] | None = None) -> int:
         Path(args.metrics_json).write_text(
             json.dumps(metrics, indent=2) + "\n")
         print(f"Metrics written to {args.metrics_json}")
+    if args.distributed:
+        dist.shutdown()
     return 0
 
 

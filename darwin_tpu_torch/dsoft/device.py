@@ -17,7 +17,10 @@ an overflow flag where a budget truncated.
 * make_twolevel_index, bucket_directory, default_index_mode and
   pad_reads are copies of darwin_tpu's host helpers (numpy);
 * device_index puts a seed table's index and positions on a device in
-  the layout dsoft_device_batch takes.
+  the layout dsoft_device_batch takes;
+* sharded_dsoft splits the reads in blocks over a mesh, the index
+  replicated on every mesh entry, one dsoft_device_batch call a block
+  (darwin_tpu's sharded_dsoft_fn).
 
 uint32 data (hashes, positions) travels as its int32 bit pattern
 (torch.int32 tensors; torch.uint32 lacks most ops); the hits come back
@@ -327,8 +330,30 @@ def _launch(queries, qlens, table_hashes, table_pos, *, k, w, bin_size,
                   threshold, max_candidates, tup_max, cand_max,
                   INDEX_MODES[index], sms, scratch, hits, offs, counts,
                   overflow)
-    dsoft_device_batch.launches += 1
+    _build.count(dsoft_device_batch)
     return hits, offs, counts, overflow
+
+
+def sharded_dsoft(mesh, queries, qlens, table_hashes, table_pos, **kw):
+    """D-SOFT with the reads sharded over mesh (parallel/mesh.Mesh) and
+    the seed table replicated (darwin_tpu's sharded_dsoft_fn(mesh,
+    ...)(queries, qlens, ...)): block i of R / size reads is one
+    dsoft_device_batch call on mesh entry i, with that entry's index
+    table_hashes[i] and positions table_pos[i] (device_index's, on its
+    device).  R must be a multiple of the mesh size; kw is
+    dsoft_device_batch's.  Returns its four outputs over all R reads on
+    the mesh's first device."""
+    R, P = queries.shape[0], mesh.size
+    if R % P:
+        raise ValueError(f"sharded_dsoft: {R} reads, no multiple of the "
+                         f"mesh size {P}")
+    b = R // P
+    outs = [dsoft_device_batch(queries[i * b:(i + 1) * b].to(d),
+                               qlens[i * b:(i + 1) * b].to(d), th, tp, **kw)
+            for i, (d, th, tp) in enumerate(zip(mesh.devices, table_hashes,
+                                                table_pos))]
+    return tuple(torch.cat([o[j].to(mesh.devices[0]) for o in outs])
+                 for j in range(4))
 
 
 # ---- the seed table's index on a device -------------------------------

@@ -49,16 +49,26 @@ class TorchTileAligner:
             return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(
                 self.device)
 
-        rlen = up(ref_lens, np.int32)
-        qlen = up(query_lens, np.int32)
-        first = up(firsts, bool)
-        out = align_tiles(up(ref_tiles, np.uint8), up(query_tiles, np.uint8),
-                          rlen, qlen, dir_format="packed6", **self.scoring)
-        raw, i_steps, j_steps = traceback_packed6(
-            out["dir_words"], rlen, qlen, first, out["max_i"], out["max_j"],
-            early_terminate=self.early_terminate)
-        score = torch.where(first, out["max_score"], out["pos_score"])
+        out = tile_step(up(ref_tiles, np.uint8), up(query_tiles, np.uint8),
+                        up(ref_lens, np.int32), up(query_lens, np.int32),
+                        up(firsts, bool), early_terminate=self.early_terminate,
+                        **self.scoring)
         self.calls += 1
-        stats = torch.stack([i_steps, j_steps, score, out["max_i"],
-                             out["max_j"]]).cpu().numpy()
-        return TileResult((raw & 3).cpu().numpy(), *stats)
+        stats = torch.stack(out[1:]).cpu().numpy()
+        return TileResult(out[0].cpu().numpy(), *stats)
+
+
+def tile_step(ref, query, rlen, qlen, first, *, early_terminate: int,
+              match: int, mismatch: int, gap_open: int, gap_extend: int):
+    """One batch of tiles on their device: the packed6 DP and the packed6
+    walker.  Returns (ops [B, S] uint8 in arrival order, 0 = none;
+    i_steps, j_steps, score (the max cell's on first tiles, else the
+    corner's), max_i, max_j), each [B] int32."""
+    out = align_tiles(ref, query, rlen, qlen, dir_format="packed6",
+                      match=match, mismatch=mismatch, gap_open=gap_open,
+                      gap_extend=gap_extend)
+    raw, i_steps, j_steps = traceback_packed6(
+        out["dir_words"], rlen, qlen, first, out["max_i"], out["max_j"],
+        early_terminate=early_terminate)
+    score = torch.where(first, out["max_score"], out["pos_score"])
+    return raw & 3, i_steps, j_steps, score, out["max_i"], out["max_j"]

@@ -26,6 +26,10 @@ termination check, once per iteration, and the final download.  The
 loop runs every call to completion; the JAX engine's two-tier drain,
 compile prewarm and bank-size buckets exist for XLA compiles and TPU
 calibration and are not carried over.
+
+ShardedGactEngine runs one DeviceGactEngine a mesh entry (banks
+replicated on each), the calls placed by balance_calls, on CUDA one
+thread a mesh entry (parallel/collectives.on_each).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from darwin_tpu_torch.ops.common import MATCH_BIT, PAD_QUERY, PAD_REF
 from darwin_tpu_torch.ops.dp import align_tiles, check_tile_size
 from darwin_tpu_torch.ops.tile_fetch import fetch_tile_pair
 from darwin_tpu_torch.ops.traceback import WALKERS
+from darwin_tpu_torch.parallel.collectives import on_each
 from darwin_tpu_torch.utils import bucket_steps
 
 I32 = torch.int32
@@ -380,3 +385,97 @@ class DeviceGactEngine:
             iters += 1
             act_sum = act_sum + act2.sum()
         return records, nrec, iters, act_sum
+
+
+def balance_calls(costs: np.ndarray, nd: int) -> list[np.ndarray]:
+    """Cost-aware call assignment: greedy LPT (longest job first onto
+    the least-loaded device) with per-device counts capped at
+    ceil(N/nd), so the shard_map's fixed per-device capacity stays
+    minimal while one device never collects all the long-extension
+    calls.  Returns nd index arrays (a partition of arange(len(costs))).
+    """
+    import heapq
+
+    n = len(costs)
+    cap = -(-n // nd) if n else 0
+    order = np.argsort(-np.asarray(costs), kind="stable")
+    heap = [(0, d) for d in range(nd)]
+    heapq.heapify(heap)
+    out: list[list[int]] = [[] for _ in range(nd)]
+    spill: list[tuple[int, int]] = []
+    for idx in order:
+        while True:
+            load, d = heapq.heappop(heap)
+            if len(out[d]) < cap:
+                break
+            spill.append((load, d))
+        out[d].append(int(idx))
+        heapq.heappush(heap, (load + int(costs[idx]), d))
+        for it in spill:
+            heapq.heappush(heap, it)
+        spill.clear()
+    return [np.asarray(x, dtype=np.int64) for x in out]
+
+
+class ShardedGactEngine:
+    """The GACT engine over a mesh (darwin_tpu's ShardedGactEngine): one
+    DeviceGactEngine a mesh entry, each with the banks uploaded to its
+    device and a slot pool of its own, no traffic between them.
+
+    Calls are placed cost-aware (balance_calls, a call's query length as
+    its tile-count estimate), not in contiguous blocks: the run ends
+    when the slowest entry finishes.  run_async runs the entries' loops
+    (on CUDA one thread each, collectives.on_each) and returns when all
+    are done; finish downloads
+    the records entry by entry.  The arguments are DeviceGactEngine's,
+    with mesh (parallel/mesh.Mesh) in place of device."""
+
+    def __init__(self, genome: Genome, queries: SeqBank, *, mesh, **kw):
+        self.mesh = mesh
+        self.n_dev = mesh.size
+        self.genome = genome
+        self.queries = queries
+        self.device = mesh.devices[0]
+        self.engines = [DeviceGactEngine(genome, queries, device=d, **kw)
+                        for d in mesh.devices]
+        self.last_iters = 0
+        self.last_active_sum = 0
+
+    def run(self, calls: GactCalls, complement) -> list[OverlapRecord]:
+        return self.finish(self.run_async(calls, complement))
+
+    def run_async(self, calls: GactCalls, complement, bank_ids=None):
+        """DeviceGactEngine.run_async's contract; each mesh entry runs its
+        share of the calls."""
+        N = len(calls)
+        if N == 0:
+            return None
+        bid = (calls.query_id if bank_ids is None else bank_ids)
+        bid = np.asarray(bid, dtype=np.int64)
+        comp = np.broadcast_to(np.asarray(complement, dtype=np.int64), (N,))
+        assign = balance_calls(self.queries.lengths[bid].astype(np.int64),
+                               self.n_dev)
+
+        def run(i):
+            idx = assign[i]
+            if not len(idx):
+                return None
+            part = GactCalls(calls.ref_id[idx], calls.query_id[idx],
+                             calls.ref_pos[idx], calls.query_pos[idx])
+            return self.engines[i].run_async(part, comp[idx], bid[idx])
+
+        return on_each(self.mesh.devices, run)
+
+    def finish(self, handle) -> list[OverlapRecord]:
+        """The records of a run_async handle, mesh entry by mesh entry;
+        last_iters and last_active_sum are the entries' sums."""
+        if handle is None:
+            return []
+        out = []
+        self.last_iters = self.last_active_sum = 0
+        for eng, h in zip(self.engines, handle):
+            eng.last_iters = eng.last_active_sum = 0
+            out += eng.finish(h)
+            self.last_iters += eng.last_iters
+            self.last_active_sum += eng.last_active_sum
+        return out

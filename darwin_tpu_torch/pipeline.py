@@ -12,7 +12,10 @@ native library (darwin_tpu_torch.native) and fall back to NumPy without
 it (io/fasta.py, index/seed_table.py, dsoft/filter.py: the port's copies
 of darwin_tpu's host modules).  With dsoft="device" both engines seed on
 the device instead (collect_calls_device: dsoft/device.py, one launch a
-batch).
+batch).  With mesh= (parallel/mesh.Mesh) the device engine is a
+ShardedGactEngine and collect_calls_device seeds one block of reads a
+mesh entry; collect_calls_table_sharded seeds with the seed table
+sharded over the mesh (dsoft/sharded_table.py).
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from darwin_tpu_torch.config import Params
 from darwin_tpu_torch.dsoft import dsoft
 from darwin_tpu_torch.engine.aligner import TorchTileAligner
 from darwin_tpu_torch.engine.batch import GactCalls, run_gact_batch
-from darwin_tpu_torch.engine.device_batch import DeviceGactEngine
+from darwin_tpu_torch.engine.device_batch import (DeviceGactEngine,
+                                                  ShardedGactEngine)
 from darwin_tpu_torch.engine.scoring import ScoreParams
 from darwin_tpu_torch.engine.seqbank import SeqBank
 from darwin_tpu_torch.golden.gact import format_record
@@ -118,19 +122,23 @@ def _index_on(table: SeedTable, index: str, device: torch.device):
 def collect_calls_device(table: SeedTable, genome: Genome, queries: SeqBank,
                          params: Params, read_ids=None, *,
                          tup_max: int = 8192, cand_max: int = 512,
-                         index: str = "auto",
+                         mesh=None, index: str = "auto",
                          device: torch.device | str = "cuda",
                          metrics: dict | None = None) -> GactCalls:
     """D-SOFT on the device for every query (or read_ids), decoded to
-    GACT anchors: darwin_tpu.pipeline.collect_calls_device without mesh=.
+    GACT anchors: darwin_tpu.pipeline.collect_calls_device.
 
-    The whole batch is one dsoft_device_batch call (no slicing, no shape
-    buckets: those served XLA's compiles).  Reads whose fixed tuple or
-    candidate budget overflowed take the exact host D-SOFT, as in
-    darwin_tpu, so the calls equal collect_calls'; with metrics, their
-    number is added to dsoft_overflow_reads."""
+    The whole batch is one dsoft_device_batch call on device (no slicing,
+    no shape buckets: those served XLA's compiles), or with mesh
+    (parallel/mesh.Mesh) one a mesh entry (sharded_dsoft, the reads
+    padded to a multiple of the mesh size, the index on every entry).
+    Reads whose fixed tuple or candidate budget overflowed take the
+    exact host D-SOFT, as in darwin_tpu, so the calls equal
+    collect_calls'; with metrics, their number is added to
+    dsoft_overflow_reads."""
     from darwin_tpu_torch.dsoft.device import (default_index_mode,
-                                               dsoft_device_batch, pad_reads)
+                                               dsoft_device_batch, pad_reads,
+                                               sharded_dsoft)
 
     ids = (np.arange(len(queries.lengths), dtype=np.int64)
            if read_ids is None else np.asarray(list(read_ids), np.int64))
@@ -138,20 +146,41 @@ def collect_calls_device(table: SeedTable, genome: Genome, queries: SeqBank,
         metrics.setdefault("dsoft_overflow_reads", 0)
     if len(ids) == 0:
         return _no_calls()
-    device = torch.device(device)
     if index == "auto":
         index = default_index_mode(table.k)
-    th, tpos, tl_steps = _index_on(table, index, device)
+    kw = dict(k=table.k, w=table.w, bin_size=table.bin_size,
+              kmer_max_occ=table.kmer_max_occurence,
+              num_seeds_cap=params.num_seeds, threshold=params.threshold,
+              max_candidates=params.max_candidates, tup_max=tup_max,
+              cand_max=cand_max, index=index)
     Q, lens = pad_reads(queries, ids)
-    hits, offs, counts, over = (x.cpu().numpy() for x in dsoft_device_batch(
-        torch.from_numpy(Q).to(device), torch.from_numpy(lens).to(device),
-        th, tpos, k=table.k, w=table.w, bin_size=table.bin_size,
-        kmer_max_occ=table.kmer_max_occurence,
-        num_seeds_cap=params.num_seeds, threshold=params.threshold,
-        max_candidates=params.max_candidates, tup_max=tup_max,
-        cand_max=cand_max, index=index, tl_steps=tl_steps))
+    if mesh is None:
+        device = torch.device(device)
+        th, tpos, tl_steps = _index_on(table, index, device)
+        out = dsoft_device_batch(
+            torch.from_numpy(Q).to(device), torch.from_numpy(lens).to(device),
+            th, tpos, tl_steps=tl_steps, **kw)
+    else:
+        RM = -(-len(ids) // mesh.size) * mesh.size
+        Q = np.pad(Q, ((0, RM - len(ids)), (0, 0)))
+        lens = np.pad(lens, (0, RM - len(ids)))
+        th, tpos, tl_steps = zip(*(_index_on(table, index, d)
+                                   for d in mesh.devices))
+        out = sharded_dsoft(mesh, torch.from_numpy(Q), torch.from_numpy(lens),
+                            th, tpos, tl_steps=tl_steps[0], **kw)
+    return _decode_calls(table, genome, queries, params, ids, out, metrics)
+
+
+def _decode_calls(table, genome, queries, params, ids, out,
+                  metrics) -> GactCalls:
+    """GACT anchors from a device D-SOFT's (hits, offs, counts, overflow)
+    over the reads ids (rows past len(ids) are padding); an overflowed
+    read takes the exact host D-SOFT and is counted in
+    metrics["dsoft_overflow_reads"]."""
+    hits, offs, counts, over = (x[:len(ids)].cpu().numpy() for x in out)
     if metrics is not None:
-        metrics["dsoft_overflow_reads"] += int(over.sum())
+        metrics["dsoft_overflow_reads"] = (
+            metrics.get("dsoft_overflow_reads", 0) + int(over.sum()))
     h_all, o_all, q_all = [], [], []
     for r in np.flatnonzero(over | (counts > 0)):
         k = ids[r]
@@ -172,25 +201,103 @@ def collect_calls_device(table: SeedTable, genome: Genome, queries: SeqBank,
                      np.concatenate(o_all))
 
 
+def collect_calls_table_sharded(table: SeedTable, genome: Genome,
+                                queries: SeqBank, params: Params, mesh,
+                                read_ids=None, budgets=None,
+                                exchange: str = "all_to_all",
+                                metrics: dict | None = None) -> GactCalls:
+    """Table-SHARDED D-SOFT over mesh (hash-range shards and the hit
+    exchange; dsoft/sharded_table.py) decoded to GACT anchors:
+    darwin_tpu.pipeline.collect_calls_table_sharded.
+
+    Budgets default to workload-derived sizing (derive_budgets, 2x
+    safety over the observed maxima), derived once a (table, mesh size)
+    and cached on the table, as are the shards and their dense index
+    (and their copies on the mesh's devices); the exchange is
+    "all_to_all" (per-destination buckets of budgets.a2a_cap) or
+    "all_gather".  Overflowing reads fall back to the exact host path,
+    never silently truncate; with metrics, their number is added to
+    dsoft_overflow_reads."""
+    from darwin_tpu_torch.dsoft.device import pad_reads
+    from darwin_tpu_torch.dsoft.sharded_table import (
+        derive_budgets, dsoft_table_sharded, make_sharded_dense_index,
+        make_sharded_table, place_shards)
+
+    if exchange not in ("all_to_all", "all_gather"):
+        raise ValueError(f"exchange {exchange!r}: all_to_all or all_gather")
+    n_dev = mesh.size
+    ids = (np.arange(len(queries.lengths), dtype=np.int64)
+           if read_ids is None else np.asarray(list(read_ids), np.int64))
+    if metrics is not None:
+        metrics.setdefault("dsoft_overflow_reads", 0)
+    if len(ids) == 0:
+        return _no_calls()
+    if budgets is None:
+        # Deriving budgets replays the exact host D-SOFT over the batch:
+        # once a (table, mesh size).  An under-sized later batch only
+        # trips the overflow flag, which falls back to the exact host
+        # path below.
+        bcache = getattr(table, "_budget_cache", None)
+        if bcache is not None and bcache[0] == n_dev:
+            budgets = bcache[1]
+        else:
+            budgets = derive_budgets(
+                table, [queries.slice(int(k), 0, int(queries.lengths[k]))
+                        for k in ids],
+                n_dev, num_seeds_cap=params.num_seeds,
+                threshold=params.threshold,
+                max_candidates=params.max_candidates)
+            table._budget_cache = (n_dev, budgets)
+    cached = getattr(table, "_shard_cache", None)
+    if cached is None or cached[0] != n_dev:
+        hs, ps = make_sharded_table(table.hashes, table.pos, n_dev)
+        cached = table._shard_cache = (n_dev, hs, ps,
+                                       make_sharded_dense_index(hs), {})
+    _, hs, ps, di, placed = cached
+    key = tuple(map(str, mesh.devices))
+    if key not in placed:
+        placed[key] = place_shards(mesh, hs, ps, di)
+    Q, lens = pad_reads(queries, ids)
+    RM = -(-len(ids) // n_dev) * n_dev
+    Q = np.pad(Q, ((0, RM - len(ids)), (0, 0)))
+    lens = np.pad(lens, (0, RM - len(ids)))
+    out = dsoft_table_sharded(
+        mesh, torch.from_numpy(Q), torch.from_numpy(lens), placed[key],
+        k=table.k, w=table.w, bin_size=table.bin_size,
+        kmer_max_occ=table.kmer_max_occurence,
+        num_seeds_cap=params.num_seeds, threshold=params.threshold,
+        max_candidates=params.max_candidates, tup_max=budgets.tup_max,
+        cand_max=budgets.cand_max,
+        a2a_cap=budgets.a2a_cap if exchange == "all_to_all" else None,
+        index="dense", dense_steps=di.steps)
+    return _decode_calls(table, genome, queries, params, ids, out, metrics)
+
+
 def make_merged_engine(genome: Genome, fwd_bank: SeqBank,
                        rev_bank: SeqBank, params: Params, *,
                        same_file: bool, batch_size: int,
                        compute_score: bool = True,
-                       device: torch.device | str, tb_format: str = "bytes"):
+                       device: torch.device | str = "cuda",
+                       tb_format: str = "bytes", mesh=None):
     """Build the merged-bank engine once (bank upload included) so
     callers iterating over read ranges reuse it via run_device_merged's
-    ``prebuilt`` argument.  Returns (engine, merged bank, read count)."""
+    ``prebuilt`` argument: a DeviceGactEngine on device, or with mesh
+    (parallel/mesh.Mesh) a ShardedGactEngine over it.  Returns (engine,
+    merged bank, read count)."""
     num_reads = len(fwd_bank.lengths)
     merged = SeqBank.concat(fwd_bank, rev_bank)
-    dev = DeviceGactEngine(
-        genome, merged, tile_size=params.tile_size,
-        early_terminate=params.early_terminate,
-        first_tile_score_threshold=params.first_tile_score_threshold,
-        match=params.match, mismatch=params.mismatch,
-        gap_open=params.gap_open, gap_extend=params.gap_extend,
-        same_file=same_file, batch_size=batch_size,
-        compute_score=compute_score, device=device, tb_format=tb_format)
-    return dev, merged, num_reads
+    kw = dict(tile_size=params.tile_size,
+              early_terminate=params.early_terminate,
+              first_tile_score_threshold=params.first_tile_score_threshold,
+              match=params.match, mismatch=params.mismatch,
+              gap_open=params.gap_open, gap_extend=params.gap_extend,
+              same_file=same_file, batch_size=batch_size,
+              compute_score=compute_score, tb_format=tb_format)
+    if mesh is not None:
+        return ShardedGactEngine(genome, merged, mesh=mesh, **kw), merged, \
+            num_reads
+    return DeviceGactEngine(genome, merged, device=device, **kw), merged, \
+        num_reads
 
 
 def run_device_merged(genome: Genome, table: SeedTable,
@@ -199,11 +306,13 @@ def run_device_merged(genome: Genome, table: SeedTable,
                       batch_size: int, compute_score: bool = True,
                       read_ids=None, num_threads: int | None = None,
                       dsoft: str = "host", prebuilt=None,
-                      device: torch.device | str = "cuda",
+                      device: torch.device | str = "cuda", mesh=None,
                       metrics: dict | None = None):
     """Both strands as ONE merged engine batch, seeded by the native
     host D-SOFT (dsoft="host") or on the device (dsoft="device":
-    collect_calls_device over the merged bank).
+    collect_calls_device over the merged bank, on the engine's first
+    device).  mesh (parallel/mesh.Mesh): a ShardedGactEngine over it,
+    when prebuilt is None.
 
     Returns (records, [n_fwd_candidates, n_rev_candidates]).  With
     metrics, adds seed_s, align_s, engine_iters and engine_active_sum
@@ -216,7 +325,7 @@ def run_device_merged(genome: Genome, table: SeedTable,
         dev, merged, num_reads = make_merged_engine(
             genome, fwd_bank, rev_bank, params, same_file=same_file,
             batch_size=batch_size, compute_score=compute_score,
-            device=device)
+            device=device, mesh=mesh)
     if read_ids is None:
         merged_ids = None
     else:

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from darwin_tpu_torch.config import Params
 from darwin_tpu_torch.engine.device_batch import DeviceGactEngine
 from darwin_tpu_torch.ops import (dp, plane2, scanshift, swscore, tile_fetch,
@@ -791,3 +792,68 @@ def test_lab_entry_points_on_card(cuda, capsys):
         assert graph_ms is not None and sink == cpu[mode][2], mode
     scan = scanshift_probe.run(376, cuda, B=64, V=2, reps=1)
     assert scan["shfl"][1] == scan["smem"][1]
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.SHARDED_CASES))
+def test_table_sharded_kernels_match_plain(cuda, name):
+    """shard_scan and shard_count on every shard of chip_smoke's cases
+    (8 entries of cuda:0), each index mode and exchange, equal to their
+    plain versions, and the whole function to dsoft_table_sharded_torch."""
+    from darwin_tpu_torch.dsoft import sharded_table as st
+
+    mesh, q, lens, shards, kw, a2a, over, _, _ = \
+        chip_smoke.sharded_case_args(name, cuda)
+    calls = []
+    steps = (chip_smoke._checking(st.shard_scan, st.shard_scan_torch, calls),
+             chip_smoke._checking(st.shard_count, st.shard_count_torch,
+                                  calls))
+    for index in ("dense", "searchsorted"):
+        for cap, flagged in zip((a2a, None), over):
+            args = (mesh, q, lens, shards)
+            ekw = dict(kw, a2a_cap=cap, index=index)
+            got = st.dsoft_table_sharded(*args, steps=steps, **ekw)
+            want = st.dsoft_table_sharded_torch(*args, **ekw)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            assert bool(got[3].any()) == flagged
+    assert len(calls) == 4 * 2 * chip_smoke.SHARDED_P
+
+
+def test_mesh_paths_on_card(cuda, tmp_path):
+    """The sharded engine and aligner over two cuda:0 entries equal the
+    one-device ones on tiny; the CLI's --mesh 1 gives the fixture's
+    records, --mesh past the visible devices fails."""
+    from darwin_tpu_torch import cli
+    from darwin_tpu_torch.parallel.mesh import make_mesh
+
+    base = ["--params", str(TINY / "params.cfg"), "--batch-size", "64"]
+    fa = str(TINY / "reads.fasta")
+    assert cli.main([fa, fa, *base, "--mesh", "1", "--out-dir",
+                     str(tmp_path), "--merged-out",
+                     str(tmp_path / "m")]) == 0
+    assert (tmp_path / "m").read_text().splitlines() == sorted(
+        set((TINY / "out.darwin").read_text().splitlines()))
+    n = torch.cuda.device_count()
+    assert cli.main([fa, fa, *base, "--mesh", str(n + 1)]) == 2
+    with pytest.raises(RuntimeError, match=f"{n} visible"):
+        make_mesh(n + 1)
+    params = Params.from_cfg(TINY / "params.cfg")
+    reads = parse_fasta(TINY / "reads.fasta")
+    mesh = make_mesh(devices=[cuda] * 2)
+    from darwin_tpu_torch.pipeline import (format_records, make_merged_engine,
+                                           read_banks, run_device_merged)
+    genome = Genome(reads, params.bin_size)
+    table = SeedTable.build(genome.concat, params.seed_size,
+                            params.seed_occurence_multiple, params.bin_size,
+                            params.window_size)
+    fwd, rev = read_banks(reads)
+    got = {}
+    for m in (None, mesh):
+        pre = make_merged_engine(genome, fwd, rev, params, same_file=True,
+                                 batch_size=64, device=cuda, mesh=m)
+        recs, _ = run_device_merged(genome, table, fwd, rev, params,
+                                    same_file=True, batch_size=64,
+                                    prebuilt=pre)
+        got[m is None] = set(format_records(genome, reads, recs))
+    assert got[True] == got[False] == set(
+        (TINY / "out.darwin").read_text().splitlines())

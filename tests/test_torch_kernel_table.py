@@ -28,10 +28,18 @@ def test_every_dp_variant_and_main_kernel_is_listed():
     assert set(chip_smoke.DP_VARIANTS.values()) <= names
     assert {"traceback", "traceback_packed", "traceback_packed6",
             "fetch_tiles", "local_score_batch", "plane2", "scanshift_shfl",
-            "scanshift_smem", "dsoft_device"} <= names
+            "scanshift_smem", "dsoft_device", "dsoft_shard_scan",
+            "dsoft_shard_count"} <= names
     for kernels in chip_smoke.ECOLI_RUNS.values():
         assert set(kernels) <= names
     assert "dsoft_device" in chip_smoke.ECOLI_RUNS["cli bytes --dsoft device"]
+    # The table-sharded D-SOFT's two kernels are the two per-read steps of
+    # one XLA function (its per-device body), so they share its line and
+    # stay out of the one-function-one-kernel list below.
+    assert chip_smoke.KERNELS["dsoft_shard_scan"][1:] == \
+        chip_smoke.KERNELS["dsoft_shard_count"][1:] == (
+            "darwin_tpu/dsoft/sharded_table.py:265",
+            "_dsoft_table_sharded_local")
     # One JAX function, one kernel: no two main kernels share a line.
     main = [chip_smoke.KERNELS[k][1] for k in
             ("traceback", "traceback_packed", "traceback_packed6",

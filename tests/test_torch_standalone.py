@@ -1,9 +1,11 @@
 """darwin_tpu_torch stands alone: it imports nothing of darwin_tpu and
 never jax, and its copies of darwin_tpu's host modules (config, coding,
 io.fasta, index, dsoft, format_record, eval helpers and datagen) give
-darwin_tpu's results on every fixture; tools/torch_fuzz_soak.py's
-copies of tests/test_fuzz_pipeline.py's instance generators give its
-instances.  (The copies of golden/, eval/sensitivity.py and
+darwin_tpu's results on every fixture, as do the mesh and multi-host
+layers' (read_range, balance_calls, and the table-sharded D-SOFT's
+shard_bounds, make_sharded_table, make_sharded_dense_index and
+derive_budgets); tools/torch_fuzz_soak.py's copies of
+tests/test_fuzz_pipeline.py's instance generators give its instances.  (The copies of golden/, eval/sensitivity.py and
 dsoft/device.py's host helpers are held to theirs in
 test_torch_golden.py, test_torch_sensitivity.py and
 test_torch_dsoft_device.py.)  Every output is an integer, a string or a
@@ -22,14 +24,20 @@ from darwin_tpu import config as jax_config
 from darwin_tpu import utils as jax_utils
 from darwin_tpu.coding import ntcoding as jax_coding
 from darwin_tpu.dsoft import filter as jax_filter
+from darwin_tpu.dsoft import sharded_table as jax_sharded
+from darwin_tpu.engine import device_batch as jax_device_batch
 from darwin_tpu.eval import datagen as jax_datagen
 from darwin_tpu.eval import score_eval as jax_score_eval
 from darwin_tpu.golden.gact import format_record as jax_format_record
 from darwin_tpu.index.genome import Genome as JaxGenome
 from darwin_tpu.index.seed_table import SeedTable as JaxSeedTable
 from darwin_tpu.io import fasta as jax_fasta
+from darwin_tpu.parallel import distributed as jax_distributed
 from darwin_tpu_torch import coding, config, native, utils
 from darwin_tpu_torch.dsoft import filter as dsoft_filter
+from darwin_tpu_torch.dsoft import sharded_table
+from darwin_tpu_torch.engine import device_batch
+from darwin_tpu_torch.parallel import distributed
 from darwin_tpu_torch.golden.gact import format_record
 from darwin_tpu_torch.eval import datagen, score_eval
 from darwin_tpu_torch.index.genome import Genome
@@ -63,7 +71,7 @@ def _imports_darwin_tpu(path: Path) -> list[str]:
 
 
 PORT_TOOLS = ("torch_profile_ecoli.py", "torch_fuzz_soak.py",
-              "torch_dsoft_phases.py")
+              "torch_dsoft_phases.py", "torch_mesh_engine.py")
 
 
 def _tool(name: str):
@@ -97,10 +105,13 @@ sys.path.insert(0, sys.argv[1])
 import darwin_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(darwin_tpu_torch.__path__,
                                                "darwin_tpu_torch.")]
+missing = set(sys.argv[2].split(",")) - set(names)
+assert not missing, missing
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-for tool in ("torch_profile_ecoli", "torch_fuzz_soak", "torch_dsoft_phases"):
+for tool in ("torch_profile_ecoli", "torch_fuzz_soak", "torch_dsoft_phases",
+             "torch_mesh_engine"):
     spec = importlib.util.spec_from_file_location(
         tool, sys.argv[1] + "/tools/" + tool + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -108,8 +119,13 @@ new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in ("jax", "darwin_tpu"))
 print(len(names), bad)
 """
-    out = subprocess.run([sys.executable, "-c", code, str(REPO)], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
+    # The mesh and multi-host layers and entry.py among them.
+    layers = ",".join(f"darwin_tpu_torch.{m}" for m in (
+        "parallel.mesh", "parallel.collectives", "parallel.distributed",
+        "dsoft.sharded_table", "entry"))
+    out = subprocess.run([sys.executable, "-c", code, str(REPO), layers],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     n, bad = out.stdout.split(" ", 1)
     assert int(n) >= 30 and bad.strip() == "[]", out.stdout
@@ -274,3 +290,49 @@ def test_guided_fuzz_instances_equal_the_jax_tests(seed):
         assert [(r.fields, r.seq) for r in got] == \
             [(r.fields, r.seq) for r in want]
     assert seed in fz.PINNED_GUIDED
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_sharded_table_helpers_equal_jax(name):
+    """shard_bounds, make_sharded_table, make_sharded_dense_index and
+    derive_budgets (budgets and the stats behind them) on the fixture's
+    table and reads, over 1, 3 and 8 shards."""
+    params, _, reads, _ = _fixture(name)
+    table = SeedTable.build(Genome(reads, params.bin_size).concat,
+                            params.seed_size, params.seed_occurence_multiple,
+                            params.bin_size, params.window_size)
+    seqs = [coding.seq_to_bytes(r.seq) for r in reads[:12]]
+    for n in (1, 3, 8):
+        assert sharded_table.shard_bounds(table.hashes, n) == \
+            jax_sharded.shard_bounds(table.hashes, n)
+        got = sharded_table.make_sharded_table(table.hashes, table.pos, n)
+        want = jax_sharded.make_sharded_table(table.hashes, table.pos, n)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+            assert g.dtype == w.dtype
+        gi = sharded_table.make_sharded_dense_index(got[0])
+        wi = jax_sharded.make_sharded_dense_index(want[0])
+        for f in ("hd", "crs", "bkt", "base", "shift"):
+            np.testing.assert_array_equal(getattr(gi, f), getattr(wi, f), f)
+            assert getattr(gi, f).dtype == getattr(wi, f).dtype, f
+        assert gi.steps == wi.steps
+        kw = dict(num_seeds_cap=params.num_seeds, threshold=params.threshold,
+                  max_candidates=params.max_candidates)
+        assert dataclasses.asdict(sharded_table.derive_budgets(
+            table, seqs, n, **kw)) == dataclasses.asdict(
+            jax_sharded.derive_budgets(table, seqs, n, **kw))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_read_range_and_balance_calls_equal_jax(seed):
+    rng = np.random.default_rng(seed)
+    for _ in range(20):
+        n, count = int(rng.integers(0, 200)), int(rng.integers(1, 9))
+        assert [distributed.read_range(n, i, count) for i in range(count)] \
+            == [jax_distributed.read_range(n, i, count)
+                for i in range(count)]
+        costs = rng.integers(1, 10_000, size=n) * (1 + 20 * (
+            rng.random(n) < 0.2))
+        for g, w in zip(device_batch.balance_calls(costs, count),
+                        jax_device_batch.balance_calls(costs, count)):
+            np.testing.assert_array_equal(g, w)
