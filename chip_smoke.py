@@ -133,11 +133,13 @@ byte walker, span fetch, word walkers, SW, D-SOFT (R = 920 and 9200)
 and scan lowerings (phase_ab), so that two trees run in turns compare
 on one card in one sitting.
 
-    python3 chip_smoke.py --checked [--small | --trap]
+    python3 chip_smoke.py --checked [--small | --trap] [--budgets B]
 
 runs checked_digests on the checked library (phase 7's child; --small:
-one small input a kernel) and prints the digests as its last line, or
-(--trap) checked_trap, an out-of-bounds launch that must end it.
+one small input a kernel; --budgets: the E.coli slice's budgets at mesh
+size MESH as a JSON [tup_max, cand_max, a2a_cap], so that the child
+derives none) and prints the digests as its last line, or (--trap)
+checked_trap, an out-of-bounds launch that must end it.
 
     python3 chip_smoke.py --index-modes
 
@@ -176,12 +178,15 @@ SW_B, SW_LEN = 64, 3000
 # work, as the kernels' source notes count them: a DP cell 15 (M: add,
 # max; I and D: two adds, a max, a >= each; H: a max of three and its
 # tie order, two compares; the direction byte, three); an SW cell 10;
-# a walker step 8; a scan element 2 (add, max).
+# a walker step 8; a scan element 2 (add, max); a D-SOFT tuple 10 past
+# its sort (its bin key 2, the segmented count 4: a bin compare, the
+# mpos gap, a min, an add; the crossing test 2; the compaction 2).
 HBM_BYTES_S = 3.35e12
 # device_ms: a CUDA graph of this many launches, replayed, over its count.
 GRAPH_LAUNCHES = 50
 INT32_OPS_S = 132 * 64 * 1.98e9
 DP_OPS_CELL, SW_OPS_CELL, WALK_OPS_STEP, SCAN_OPS = 15, 10, 8, 2
+TUPLE_OPS = 10
 
 
 def _dp_variant(fmt: str, il: int) -> str:
@@ -340,6 +345,15 @@ def bound(nbytes: int, ops: int) -> dict:
     t_ops = ops / INT32_OPS_S * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def sort_count_ops(tuples) -> int:
+    """The operations that sorting and counting reads' tuples needs, for
+    a read of n tuples in tuples: n * ceil(log2 n) comparisons (a
+    comparison sort's least, whatever network the kernel runs) and
+    TUPLE_OPS a tuple."""
+    return sum(n * max(0, n - 1).bit_length() + TUPLE_OPS * n
+               for n in tuples)
 
 
 def nbytes(*tensors) -> int:
@@ -1039,17 +1053,14 @@ def dsoft_bound(args, kw: dict, out) -> dict:
     32-byte sectors of the index and table_pos (each once a call), the
     outputs.
     Operations: a scanned position's k-mer, hash and window minimum (2k
-    + 20 + 2w), the bitonic sort's compare-exchanges (3 each) over
-    next_pow2 of each read's tuples, and 30 a tuple for its scans."""
+    + 20 + 2w), and each read's tuples sorted and counted
+    (sort_count_ops)."""
     work = dsoft_work(args, kw)
     read_bytes = sum(work["read_bytes"])
     sectors = sum(v.numel() for v in work["sectors"].values())
     k, w = kw["k"], kw["w"]
-    ce = sum(p * max(1, p.bit_length() - 1) * p.bit_length() // 4
-             for p in (1 << max(0, n - 1).bit_length()
-                       for n in work["tuples"]))
-    ops = (work["scanned"] * (2 * k + 20 + 2 * w) + 3 * ce
-           + 30 * sum(work["tuples"]))
+    ops = (work["scanned"] * (2 * k + 20 + 2 * w)
+           + sort_count_ops(work["tuples"]))
     res = bound(nbytes(args[1], *out) + read_bytes + 32 * sectors, ops)
     t = sorted(work["tuples"])
     log(f"  dsoft_device bound: {read_bytes} read bytes, {sectors} "
@@ -1930,24 +1941,42 @@ def sharded_case_args(name: str, dev):
             st.place_shards(mesh, hs, ps, di), kw, a2a, over, gt, reads)
 
 
+# The E.coli slice's budgets by mesh size, derived once a process (a
+# host D-SOFT replay of several seconds): phase 7 hands its child the
+# MESH entry (--budgets), and phase 9's collector runs pass them.
+ECOLI_BUDGETS: dict = {}
+
+
+def ecoli_budgets(n: int):
+    """The E.coli slice's derived budgets at mesh size n (derive_budgets,
+    as collect_calls_table_sharded derives them), from ECOLI_BUDGETS."""
+    if n not in ECOLI_BUDGETS:
+        from darwin_tpu_torch.dsoft.sharded_table import derive_budgets
+
+        params, _, table, merged, _, _ = _ecoli_seed_inputs()
+        ECOLI_BUDGETS[n] = derive_budgets(
+            table, [merged.slice(i, 0, int(merged.lengths[i]))
+                    for i in range(len(merged.lengths))], n,
+            num_seeds_cap=params.num_seeds, threshold=params.threshold,
+            max_candidates=params.max_candidates)
+    return ECOLI_BUDGETS[n]
+
+
 @functools.lru_cache(maxsize=1)
 def ecoli_sharded(dev_name: str):
-    """The E.coli slice's table sharded over MESH entries of one device
-    and its derived budgets, as collect_calls_table_sharded caches them on
-    the table (running it once at that mesh size): (mesh, budgets, dense
-    index, placed shards)."""
+    """The E.coli slice's table sharded over MESH entries of one device,
+    as collect_calls_table_sharded shards it: (mesh, budgets, dense
+    index, the shards placed on the mesh)."""
     import torch
 
+    from darwin_tpu_torch.dsoft import sharded_table as st
     from darwin_tpu_torch.parallel.mesh import make_mesh
-    from darwin_tpu_torch.pipeline import collect_calls_table_sharded
 
-    params, genome, table, merged, _, _ = _ecoli_seed_inputs()
+    _, _, table, _, _, _ = _ecoli_seed_inputs()
     mesh = make_mesh(devices=[torch.device(dev_name)] * MESH)
-    if getattr(table, "_budget_cache", (0,))[0] != MESH:
-        collect_calls_table_sharded(table, genome, merged, params, mesh)
-    _, _, _, di, placed = table._shard_cache
-    return (mesh, table._budget_cache[1], di,
-            placed[tuple(map(str, mesh.devices))])
+    hs, ps = st.make_sharded_table(table.hashes, table.pos, MESH)
+    di = st.make_sharded_dense_index(hs)
+    return mesh, ecoli_budgets(MESH), di, st.place_shards(mesh, hs, ps, di)
 
 
 def ecoli_sharded_args(dev):
@@ -1993,14 +2022,11 @@ def shard_scan_bound(args, kw: dict, out) -> dict:
 
 def shard_count_bound(args, out) -> dict:
     """A shard_count call's bound: its reads' tuples (hit and offset, each
-    read once), seg and the outputs; the bitonic sort's compare-exchanges
-    (3 operations each) over next_pow2 of each read's tuples and 30 a
-    tuple for its scans."""
+    read once), seg and the outputs; each read's tuples sorted and
+    counted (sort_count_ops)."""
     hit, off, seg = args
     n = (seg[1:] - seg[:-1]).tolist()
-    ce = sum(p * max(1, p.bit_length() - 1) * p.bit_length() // 4
-             for p in (1 << max(0, t - 1).bit_length() for t in n))
-    return bound(8 * sum(n) + nbytes(seg, *out), 3 * ce + 30 * sum(n))
+    return bound(8 * sum(n) + nbytes(seg, *out), sort_count_ops(n))
 
 
 def _checking(kernel, plain, calls: list):
@@ -2056,15 +2082,18 @@ def phase_mesh(dev, counters: dict, want: str) -> tuple:
             m = {}
             t0 = time.perf_counter()
             calls, got = _counted(counters, lambda: collect_calls_table_sharded(
-                table, genome, merged, params, mesh_n, exchange=exchange,
-                metrics=m))
-            b = table._budget_cache[1]
+                table, genome, merged, params, mesh_n,
+                budgets=ECOLI_BUDGETS.get(n), exchange=exchange, metrics=m))
+            if n not in ECOLI_BUDGETS:  # derived by this run
+                ECOLI_BUDGETS[n] = table._budget_cache[1]
+            b = ECOLI_BUDGETS[n]
             log(f"  collect_calls_table_sharded, mesh {n}, {exchange}: "
                 f"{len(calls)} calls, dsoft_overflow_reads "
                 f"{m['dsoft_overflow_reads']}, budgets tup_max {b.tup_max} "
                 f"cand_max {b.cand_max} a2a_cap {b.a2a_cap} "
                 f"({time.perf_counter() - t0:.1f} s, derivation included "
-                f"on a mesh size's first run); launches {got}")
+                f"where this process had none at this mesh size); launches "
+                f"{got}")
             if not same_calls(calls, host):
                 raise AssertionError(f"collect_calls_table_sharded (mesh {n},"
                                      f" {exchange}) != collect_calls")
@@ -2073,7 +2102,7 @@ def phase_mesh(dev, counters: dict, want: str) -> tuple:
                                      "launch on the main path")
             for k, v in got.items():
                 launches[k] += v
-    log(f"  derived at mesh {MESH}: {table._budget_cache[1].stats}")
+    log(f"  derived at mesh {MESH}: {ECOLI_BUDGETS[MESH].stats}")
 
     # The two kernels against their plain versions: the E.coli
     # read-strands over MESH entries, each index mode and exchange, and
@@ -2521,7 +2550,9 @@ def phase_checked(dev) -> dict:
         f"(exit {r.returncode}, \"{TRAP_ERROR}\")")
     want = checked_digests(dev)
     t0 = time.perf_counter()
-    r = _checked_child()
+    b = ecoli_budgets(MESH)
+    r = _checked_child("--budgets",
+                       json.dumps([b.tup_max, b.cand_max, b.a2a_cap]))
     if r.returncode != 0:
         raise AssertionError(f"the checked library's run exited "
                              f"{r.returncode}:\n{r.stderr[-3000:]}")
@@ -2709,6 +2740,9 @@ def main(argv=None) -> int:
                     help="with --checked: one small input a kernel")
     ap.add_argument("--trap", action="store_true",
                     help="with --checked: run checked_trap instead")
+    ap.add_argument("--budgets", help="with --checked: the E.coli slice's "
+                    "budgets at mesh size MESH, [tup_max, cand_max, "
+                    "a2a_cap] in JSON")
     ap.add_argument("--index-modes", action="store_true",
                     help="time only collect_calls_device cold and warm "
                          "under each index mode (seed_times)")
@@ -2724,6 +2758,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     if args.checked:
         _build.CHECKED = True
+        if args.budgets:
+            from darwin_tpu_torch.dsoft.sharded_table import ShardedBudgets
+
+            ECOLI_BUDGETS[MESH] = ShardedBudgets(*json.loads(args.budgets),
+                                                 stats={})
         if args.trap:
             checked_trap(dev)
             print(NO_TRAP, file=sys.stderr)

@@ -75,7 +75,6 @@ _HOST_ENTRIES = {"dtt_dsoft_scratch_bytes": ([_I, _I, _I, _I], _L),
 _SET_EXTENTS = ("dtt_set_extents", [_I, _P, _P])
 
 _locks = {False: threading.Lock(), True: threading.Lock()}
-_count_lock = threading.Lock()
 _libs: dict = {}  # checked -> loaded ctypes.CDLL
 _entries: dict = {}  # (checked, entry name) -> bound ctypes function
 
@@ -202,16 +201,6 @@ def host_call(entry: str, *args):
     """Call one host-only C entry of the library launch takes and
     return its result."""
     return getattr(lib(CHECKED), entry)(*args)
-
-
-def count(wrapper, key=None) -> None:
-    """Add one to a kernel wrapper's launch count (and, with key, to its
-    variant_launches[key]), under a lock: the sharded engine and aligner
-    launch from one thread a mesh device."""
-    with _count_lock:
-        wrapper.launches += 1
-        if key is not None:
-            wrapper.variant_launches[key] += 1
 
 
 def launch(entry: str, device: torch.device, *args) -> None:

@@ -330,7 +330,7 @@ def _launch(queries, qlens, table_hashes, table_pos, *, k, w, bin_size,
                   threshold, max_candidates, tup_max, cand_max,
                   INDEX_MODES[index], sms, scratch, hits, offs, counts,
                   overflow)
-    _build.count(dsoft_device_batch)
+    dsoft_device_batch.launches += 1
     return hits, offs, counts, overflow
 
 

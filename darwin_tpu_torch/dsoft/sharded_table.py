@@ -335,7 +335,7 @@ def shard_scan(queries, qlens, th, dindex=None, *, k: int, w: int,
                   dense_steps if index == "dense" else 0, k, w,
                   INDEX_MODES[index], emit, start, occ)
     if R:
-        _build.count(shard_scan)
+        shard_scan.launches += 1
     return emit, start, occ
 
 
@@ -454,7 +454,7 @@ def count_launch(hit, off, seg, scratch_off, scratch, *, k: int,
     over = torch.empty(R, dtype=torch.bool, device=dev)
     _build.launch("dtt_shard_count", dev, *args, hits, offs, counts, over)
     if R:
-        _build.count(shard_count)
+        shard_count.launches += 1
     return hits, offs, counts, over
 
 

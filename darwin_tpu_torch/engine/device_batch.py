@@ -28,8 +28,8 @@ compile prewarm and bank-size buckets exist for XLA compiles and TPU
 calibration and are not carried over.
 
 ShardedGactEngine runs one DeviceGactEngine a mesh entry (banks
-replicated on each), the calls placed by balance_calls, on CUDA one
-thread a mesh entry (parallel/collectives.on_each).
+replicated on each), the calls placed by balance_calls, the entries'
+loops run in turn (parallel/collectives.on_each).
 """
 
 from __future__ import annotations
@@ -425,10 +425,10 @@ class ShardedGactEngine:
     Calls are placed cost-aware (balance_calls, a call's query length as
     its tile-count estimate), not in contiguous blocks: the run ends
     when the slowest entry finishes.  run_async runs the entries' loops
-    (on CUDA one thread each, collectives.on_each) and returns when all
-    are done; finish downloads
-    the records entry by entry.  The arguments are DeviceGactEngine's,
-    with mesh (parallel/mesh.Mesh) in place of device."""
+    in turn (collectives.on_each) and returns when all are done; finish
+    downloads the records entry by entry.  The arguments are
+    DeviceGactEngine's, with mesh (parallel/mesh.Mesh) in place of
+    device."""
 
     def __init__(self, genome: Genome, queries: SeqBank, *, mesh, **kw):
         self.mesh = mesh

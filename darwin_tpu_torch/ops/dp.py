@@ -139,7 +139,8 @@ def align_tiles(ref: torch.Tensor, query: torch.Tensor,
     out = run_kernel(ref, query, ref_len, query_len, fmt=dir_format,
                      interleave=interleave, what="align_tiles", **kw)
     if ref.shape[0]:
-        _build.count(align_tiles, (dir_format, interleave))
+        align_tiles.launches += 1
+        align_tiles.variant_launches[(dir_format, interleave)] += 1
     if dir_format != "bytes":
         out["dir_words"] = out.pop("dir")
     return out

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import torch
 
-from darwin_tpu_torch import _build
 from darwin_tpu_torch.ops.dp import run_kernel
 from darwin_tpu_torch.ops.pack import pack_dir_words6, plane2_words
 from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
@@ -50,7 +49,7 @@ def plane2(ref: torch.Tensor, query: torch.Tensor, ref_len: torch.Tensor,
     out = run_kernel(ref, query, ref_len, query_len, fmt="plane2",
                      interleave=1, what="plane2", **kw)
     if ref.shape[0]:
-        _build.count(plane2)
+        plane2.launches += 1
     out["dir_words"] = out.pop("dir")
     out["dir2_words"] = out.pop("dir2")
     return out

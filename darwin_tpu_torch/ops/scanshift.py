@@ -57,7 +57,7 @@ def scanshift_shfl(x: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
         return scanshift_torch(x, steps)
     out = _scan(x, steps, "shfl")
     if x.shape[0]:
-        _build.count(scanshift_shfl)
+        scanshift_shfl.launches += 1
     return out
 
 
@@ -67,7 +67,7 @@ def scanshift_smem(x: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
         return scanshift_torch(x, steps)
     out = _scan(x, steps, "smem")
     if x.shape[0]:
-        _build.count(scanshift_smem)
+        scanshift_smem.launches += 1
     return out
 
 

@@ -89,7 +89,7 @@ def _launch(sets: list, backward: torch.Tensor, T: int, what: str) -> list:
     back = _build.arg(backward, "backward", torch.bool, (B,), dev)
     if B:
         _build.launch("dtt_fetch_tiles", dev, len(sets), *args, back, B, T)
-        _build.count(fetch_tiles)
+        fetch_tiles.launches += 1
     return outs
 
 

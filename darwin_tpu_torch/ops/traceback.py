@@ -127,7 +127,7 @@ def traceback(dirm: torch.Tensor, ref_len: torch.Tensor,
     if B:
         _build.launch("dtt_traceback", dev, *args, B, T, ET, raw, i_steps,
                       j_steps)
-        _build.count(traceback)
+        traceback.launches += 1
     return raw, i_steps, j_steps
 
 
@@ -375,7 +375,7 @@ def traceback_packed(words: torch.Tensor, ref_len: torch.Tensor,
                       max_j, early_terminate, 2 * early_terminate - 1,
                       "traceback_packed")
     if words.shape[0]:
-        _build.count(traceback_packed)
+        traceback_packed.launches += 1
     return out
 
 
@@ -397,7 +397,7 @@ def traceback_packed6(words: torch.Tensor, ref_len: torch.Tensor,
                       packed6_width(words.shape, early_terminate, compact_b),
                       "traceback_packed6")
     if words.shape[0]:
-        _build.count(traceback_packed6)
+        traceback_packed6.launches += 1
     return out
 
 

@@ -5,14 +5,12 @@ exchange data with psum, all_gather, all_to_all and pmax.  Here a mesh
 is a list of torch devices in one process (parallel/mesh.py): a
 collective takes one tensor a mesh entry, each on its entry's device,
 and returns one result a mesh entry, copied to that entry's device.
-on_each runs a function once a mesh entry, each in a thread of its own
-on its device, as the reference runs one pthread and one CUDA stream a
-read range (darwin.cpp:619-632).
+on_each runs a function once a mesh entry, in turn, each with its
+entry's device current.
 """
 
 from __future__ import annotations
 
-import concurrent.futures
 import functools
 
 import torch
@@ -52,26 +50,19 @@ def all_to_all(bufs: list) -> list:
 
 
 def on_each(devices, fn) -> list:
-    """[fn(i) for each mesh entry i].  On a mesh with CUDA entries each
-    call runs in a thread of its own with devices[i] as its current CUDA
-    device, so that one entry's host syncs do not hold up another's
-    launches; every result is read, so an exception in one is raised
-    here.  The kernel library is built first, before any thread can ask
-    for it.  A mesh of CPU entries runs them in turn in the calling
-    thread: there threads only contend (the GIL, and the page faults of
-    each op's freshly allocated outputs; over 8 entries on the tiny
-    fixture the engine took six times as long in threads)."""
+    """[fn(i) for each mesh entry i], in turn in the calling thread, each
+    call with devices[i] as the current CUDA device where it is one.
+    The reference runs one pthread and one CUDA stream a read range
+    (darwin.cpp:619-632); here one thread an entry was four to five
+    times slower on one H100 (tools/torch_mesh_engine.py), and six
+    times slower over CPU entries: the engines' loops are host-bound
+    and the threads contend for the GIL."""
     devices = [torch.device(d) for d in devices]
-    if not any(d.type == "cuda" for d in devices):
-        return [fn(i) for i in range(len(devices))]
-    from darwin_tpu_torch import _build
-
-    _build.lib(_build.CHECKED)
-
-    def run(i):
-        with torch.cuda.device(devices[i]):
-            return fn(i)
-
-    with concurrent.futures.ThreadPoolExecutor(len(devices)) as pool:
-        futures = [pool.submit(run, i) for i in range(len(devices))]
-        return [f.result() for f in futures]
+    out = []
+    for i, d in enumerate(devices):
+        if d.type == "cuda":
+            with torch.cuda.device(d):
+                out.append(fn(i))
+        else:
+            out.append(fn(i))
+    return out

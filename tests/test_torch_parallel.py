@@ -11,11 +11,13 @@ same size (JAX's 8 virtual CPU devices, tests/conftest.py; the port's
   port's DeviceGactEngine on the tiny fixture's merged-strand calls, and
   on skewed read lengths: the same record set (the slot pools differ, so
   the order does);
-* make_mesh raises when fewer CUDA devices are visible than asked for.
+* make_mesh raises when fewer CUDA devices are visible than asked for;
+* collectives.on_each runs the entries in turn, in the calling thread.
 """
 
 import dataclasses
 import sys
+import threading
 from pathlib import Path
 
 import jax
@@ -38,6 +40,7 @@ from darwin_tpu_torch.eval.datagen import sample_reads, synth_genome
 from darwin_tpu_torch.index.genome import Genome
 from darwin_tpu_torch.index.seed_table import SeedTable
 from darwin_tpu_torch.io.fasta import FastaRecord, parse_fasta, revcomp
+from darwin_tpu_torch.parallel.collectives import on_each
 from darwin_tpu_torch.parallel.mesh import (ShardedTileAligner, make_mesh,
                                             merge_overlap_records)
 from darwin_tpu_torch.pipeline import collect_calls
@@ -187,3 +190,16 @@ def test_make_mesh_raises_on_too_few_cuda_devices(monkeypatch):
     with pytest.raises(ValueError):
         make_mesh(3, devices=["cpu"] * 2)
     assert len(jax.devices()) >= P
+
+
+def test_on_each_runs_entries_in_turn_in_the_calling_thread():
+    """One path on every device type: entry i's call runs i-th, in the
+    caller's thread, and its result is the i-th."""
+    seen = []
+
+    def fn(i):
+        seen.append((i, threading.get_ident()))
+        return 10 * i
+
+    assert on_each(["cpu"] * 5, fn) == [0, 10, 20, 30, 40]
+    assert seen == [(i, threading.get_ident()) for i in range(5)]

@@ -6,9 +6,11 @@ from the native host D-SOFT), on one card.
     python3 tools/torch_mesh_engine.py [--entries 4] [--runs 3]
 
 For each run, in turns: DeviceGactEngine on cuda:0; ShardedGactEngine
-over --entries mesh entries of cuda:0, one host thread an entry (as the
-CLI's --mesh runs it); and the same engine with its entries run one
-after another in the calling thread.  Prints each run's align_s
+over --entries mesh entries of cuda:0, its entries run one after
+another in the calling thread (as the CLI's --mesh runs them); and the
+same engine with one host thread an entry, the reference's design
+(one pthread a read range), which this tool puts in place of the
+port's parallel/collectives.on_each.  Prints each run's align_s
 (seconds from the calls to the records on the host), engine
 iterations and records, the records checked equal to the dataset's
 expected ones, and the card's name and power limit; the last line is
@@ -18,6 +20,7 @@ the same as one JSON object.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import sys
 import time
@@ -53,14 +56,19 @@ def main(argv=None) -> int:
     want = (chip_smoke.DATA / "ecoli_shape" / "jax_cpu.darwin"
             ).read_text().splitlines()
     mesh = make_mesh(devices=[dev] * args.entries)
-    threaded = device_batch.on_each
+    in_turn = device_batch.on_each
 
-    def in_turn(devices, fn):
-        return [fn(i) for i in range(len(devices))]
+    def threaded(devices, fn):
+        def run(i):
+            with torch.cuda.device(devices[i]):
+                return fn(i)
 
-    ways = {"one device": (None, threaded),
-            f"mesh of {args.entries}, threads": (mesh, threaded),
-            f"mesh of {args.entries}, in turn": (mesh, in_turn)}
+        with concurrent.futures.ThreadPoolExecutor(len(devices)) as pool:
+            return list(pool.map(run, range(len(devices))))
+
+    ways = {"one device": (None, in_turn),
+            f"mesh of {args.entries}, in turn": (mesh, in_turn),
+            f"mesh of {args.entries}, threads": (mesh, threaded)}
     out = {w: [] for w in ways}
     for _ in range(args.runs):
         for way, (m, runner) in ways.items():
@@ -83,7 +91,7 @@ def main(argv=None) -> int:
             print(f"{way}: align_s {metrics['align_s']:.4f}, iterations "
                   f"{metrics['engine_iters']}, {len(lines)} records",
                   flush=True)
-    device_batch.on_each = threaded
+    device_batch.on_each = in_turn
     smi = chip_smoke.nvidia_smi_line()
     print(smi)
     print(json.dumps({"device": smi, **out}))
