@@ -89,8 +89,10 @@ Phases; any failure ends the run with a nonzero exit code:
    the DP's output, on walk_cases and at LARGE_ET, the fetch at both
    bank ends, SW at B = 64 and at its tiling's edges, both scan
    lowerings at B = 2048, C = 384 and at SCAN_WIDTHS, the D-SOFT kernel
-   on dsoft_cases and the E.coli read-strands, once and ten times over)
-   run in another child
+   on dsoft_cases and the E.coli read-strands, once and ten times over,
+   the table-sharded kernels on SHARDED_CASES and the E.coli
+   read-strands, shard_scan at each L % 4 and shard_count on
+   SHARD_COUNT_CASES) run in another child
    (``--checked``), which must exit 0 with every output equal to the
    normal library's;
 8. the golden soak: tests/test_fuzz_pipeline.py's pinned instances
@@ -105,11 +107,17 @@ Phases; any failure ends the run with a nonzero exit code:
    table-sharded kernels' launches on the kernels line come from these
    runs); the two kernels (csrc/dsoft_sharded.cu) against their plain
    versions on every shard, bit-exact, on the E.coli read-strands over
-   MESH and on SHARDED_CASES over SHARDED_P (some reads past
-   shard_count's shared-memory budget), each index mode and exchange,
-   the whole function also against dsoft_table_sharded_torch and, where
-   no read overflowed, the golden dsoft_scalar; each kernel timed on
-   shard 0's E.coli inputs beside its plain version and bound;
+   MESH and on SHARDED_CASES over SHARDED_P, each index mode and
+   exchange, the whole function also against dsoft_table_sharded_torch
+   and, where no read overflowed, the golden dsoft_scalar; shard_scan
+   alone on the first case's reads padded to each L % 4; shard_count
+   alone on SHARD_COUNT_CASES (reads at each of its forms' edges and
+   past its shared-memory budget), failing unless each of its three
+   forms (registers, shared memory, device memory) took reads; each
+   kernel timed on shard 0's E.coli inputs beside its plain version and
+   bound; the collector's wall and dsoft_table_sharded's steps (scan,
+   tuples, exchange, group, count: CUDA events at each step's end) under
+   each exchange;
    sharded_dsoft over MESH against one dsoft_device_batch call;
    ShardedTileAligner against TorchTileAligner at B = 512, T = 320;
    ShardedGactEngine over MESH on the E.coli slice (its records phase
@@ -129,9 +137,11 @@ CUDA device it prints no result and exits 1.  It imports no JAX.
 instead builds and imports TREE's darwin_tpu_torch (an older commit
 unpacked beside the repo, or the repo itself), prints its normal
 library's registers a kernel (when it builds it), and only times its
-byte walker, span fetch, word walkers, SW, D-SOFT (R = 920 and 9200)
-and scan lowerings (phase_ab), so that two trees run in turns compare
-on one card in one sitting.
+byte walker, span fetch, word walkers, SW, D-SOFT (R = 920 and 9200),
+scan lowerings and table-sharded kernels (shard_scan at R = 920 and
+9200, shard_count; the collector's wall and the kernels' part of it)
+(phase_ab), so that two trees run in turns compare on one card in one
+sitting.
 
     python3 chip_smoke.py --checked [--small | --trap] [--budgets B]
 
@@ -314,9 +324,34 @@ SHARDED_CASES = {
                             False, False),
     # 20 copies of a 2 kb unit (each minimizer under the table's
     # occurrence cap of 32): reads of thousands of tuples, past
-    # shard_count's shared-memory budget (its device-memory form).
+    # shard_count's register budget (its shared-memory form).
     "long repeats": (dict(seed=59, repetitive=True, err=0.02, unit=2000),
                      12, 800, 10**6, 65536, 512, 16384, False, False),
+}
+
+# csrc/dsoft_sharded.cu's shard_count budgets (kRegTuples, kSmemTuples): a
+# read of up to SHARD_COUNT_REG_TUPLES tuples sorts in registers, one of
+# up to SHARD_COUNT_SMEM_TUPLES in dynamic shared memory, a longer one in
+# device memory (tests/test_torch_sharded_table.py holds them equal).
+SHARD_COUNT_REG_TUPLES, SHARD_COUNT_SMEM_TUPLES = 1024, 22752
+# shard_count's synthetic cases (shard_count_case): name -> (seed, the
+# tuples of each read, shard_count's keywords).  The reads sit at each
+# form's edges and past the shared-memory budget, max_candidates capping
+# the longest; the second case caps the candidates below max_candidates
+# (overflow flags) and takes bin_size 1, so that hits past 2^31 give bins
+# past 2^31 (negative as int32).
+SHARD_COUNT_CASES = {
+    "form edges": (61, (0, 1, SHARD_COUNT_REG_TUPLES,
+                        SHARD_COUNT_REG_TUPLES + 1, 300,
+                        SHARD_COUNT_SMEM_TUPLES, SHARD_COUNT_SMEM_TUPLES + 1,
+                        0, 40000, 777),
+                   dict(k=12, bin_size=64, threshold=40,
+                        max_candidates=60, cand_max=512)),
+    "caps, bins past 2^31": (67, (5, SHARD_COUNT_REG_TUPLES,
+                                  SHARD_COUNT_REG_TUPLES + 1, 4000,
+                                  SHARD_COUNT_SMEM_TUPLES + 1),
+                             dict(k=14, bin_size=1, threshold=30,
+                                  max_candidates=12, cand_max=8)),
 }
 
 
@@ -1941,6 +1976,71 @@ def sharded_case_args(name: str, dev):
             st.place_shards(mesh, hs, ps, di), kw, a2a, over, gt, reads)
 
 
+def shard_count_case(name: str):
+    """(hit [N] uint32, off [N] int32, seg [R + 1] int64, shard_count's
+    keywords) of SHARD_COUNT_CASES[name], made with numpy from its seed as
+    the exchange groups a shard's tuples: by read, in (offset, hit) order
+    within a read, distinct pairs, hit >= offset, with tuples of no read
+    before seg[0] and after seg[R].  A read of n tuples holds n // 300 + 1
+    planted diagonals of 8-30 tuples in one bin (offsets 3-40 apart,
+    which cross threshold), the rest at random diagonals, on a query of
+    up to 12 kb; under bin_size 1 a third of the diagonals lie past
+    2^31."""
+    import numpy as np
+
+    seed, sizes, kw = SHARD_COUNT_CASES[name]
+    rng = np.random.default_rng(seed)
+    bs = kw["bin_size"]
+
+    def diagonals(m):
+        far = rng.random(m) < (1 / 3 if bs == 1 else 0)
+        return np.where(far, rng.integers(2 ** 31, 2 ** 32 - 20000, m),
+                        rng.integers(0, 2 ** 24, m)) // bs * bs
+
+    def read(n):
+        qlen = int(rng.integers(2000, 12000))
+        offs, diags = [], []
+        for d in diagonals(n // 300 + 1):
+            m = int(rng.integers(8, 31))
+            offs.append(np.cumsum(rng.integers(3, 41, m)) % qlen)
+            diags.append(d + rng.integers(0, bs, m))
+        offs.append(rng.integers(0, qlen, 2 * n))
+        diags.append(diagonals(2 * n))
+        o = np.concatenate(offs).astype(np.uint64)
+        h = o + np.concatenate(diags).astype(np.uint64)
+        pairs = (o << np.uint64(32)) | h
+        _, first = np.unique(pairs, return_index=True)
+        keep = np.sort(first)[:n]  # the planted tuples first
+        o, h = o[keep], h[keep]
+        order = np.lexsort((h, o))
+        return h[order].astype(np.uint32), o[order].astype(np.int32)
+
+    parts = [read(n) for n in (37, *sizes, 50)]
+    lens = np.array([len(h) for h, _ in parts])
+    seg = np.cumsum(np.concatenate([[0], lens]))[1:-1].astype(np.int64)
+    return (np.concatenate([h for h, _ in parts]),
+            np.concatenate([o for _, o in parts]), seg, dict(kw))
+
+
+def shard_count_case_args(name: str, dev):
+    """shard_count's (hit, off, seg) tensors on dev (hit as int32 bit
+    patterns) and keywords of one SHARD_COUNT_CASES entry."""
+    import torch
+
+    hit, off, seg, kw = shard_count_case(name)
+    return (torch.from_numpy(hit.view("int32")).to(dev),
+            torch.from_numpy(off).to(dev), torch.from_numpy(seg).to(dev)), kw
+
+
+def count_forms(seg) -> tuple:
+    """How many reads of seg shard_count takes in each form: (registers,
+    shared memory, device memory)."""
+    n = (seg[1:] - seg[:-1]).cpu()
+    reg = int((n <= SHARD_COUNT_REG_TUPLES).sum())
+    dev = int((n > SHARD_COUNT_SMEM_TUPLES).sum())
+    return reg, len(n) - reg - dev, dev
+
+
 # The E.coli slice's budgets by mesh size, derived once a process (a
 # host D-SOFT replay of several seconds): phase 7 hands its child the
 # MESH entry (--budgets), and phase 9's collector runs pass them.
@@ -2029,6 +2129,67 @@ def shard_count_bound(args, out) -> dict:
     return bound(8 * sum(n) + nbytes(seg, *out), sort_count_ops(n))
 
 
+def sharded_step_ms(args, kw: dict, reps: int = 5) -> dict:
+    """Median ms (over reps runs after one warm run) of each step of
+    dsoft_table_sharded(*args, **kw): a CUDA event is recorded at the call's
+    start, at each step's end (its mark: "scan" for each entry's scan,
+    "tuples", "exchange", and "group" and "count" for each owner) and at
+    its return ("end": the outputs gathered), and the time between two
+    events goes to the later's step; "total" is the whole call.  So
+    "scan" and "count" are the kernels with their launch paths, the rest
+    the PyTorch glue, each as the device's clock sees it."""
+    import torch
+
+    from darwin_tpu_torch.dsoft import sharded_table as st
+
+    runs = []
+    for _ in range(reps + 1):
+        events = []
+
+        def mark(step):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events.append((step, e))
+
+        torch.cuda.synchronize()
+        mark("start")
+        st.dsoft_table_sharded(*args, mark=mark, **kw)
+        mark("end")
+        torch.cuda.synchronize()
+        t = {}
+        for (_, e0), (step, e1) in zip(events, events[1:]):
+            t[step] = t.get(step, 0.0) + e0.elapsed_time(e1)
+        t["total"] = events[0][1].elapsed_time(events[-1][1])
+        runs.append(t)
+    return {k: statistics.median(r[k] for r in runs[1:]) for k in runs[1]}
+
+
+def collect_ms(dev, n: int, exchange: str, reps: int = 5) -> float:
+    """collect_calls_table_sharded's wall in ms (host clock, synchronised;
+    median of reps after one warm run) on the E.coli slice over n entries
+    of dev, its derived budgets passed.  Calls every tree since the mesh
+    layer has."""
+    import torch
+
+    from darwin_tpu_torch.parallel.mesh import make_mesh
+    from darwin_tpu_torch.pipeline import collect_calls_table_sharded
+
+    params, genome, table, merged, _, _ = _ecoli_seed_inputs()
+    mesh = make_mesh(devices=[dev] * n)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        collect_calls_table_sharded(table, genome, merged, params, mesh,
+                                    budgets=ecoli_budgets(n),
+                                    exchange=exchange)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    run()
+    return statistics.median(run() for _ in range(reps))
+
+
 def _checking(kernel, plain, calls: list):
     """A step for dsoft_table_sharded(steps=...) that runs kernel and its
     plain version on the same inputs, fails unless they are equal
@@ -2053,7 +2214,7 @@ def phase_mesh(dev, counters: dict, want: str) -> tuple:
     import numpy as np
     import torch
 
-    from darwin_tpu_torch import _build, cli, entry
+    from darwin_tpu_torch import cli, entry
     from darwin_tpu_torch.dsoft import sharded_table as st
     from darwin_tpu_torch.dsoft.device import dsoft_device_batch, sharded_dsoft
     from darwin_tpu_torch.engine.aligner import TorchTileAligner
@@ -2113,7 +2274,6 @@ def phase_mesh(dev, counters: dict, want: str) -> tuple:
     scans, counts = [], []
     steps = (_checking(st.shard_scan, st.shard_scan_torch, scans),
              _checking(st.shard_count, st.shard_count_torch, counts))
-    smem = _build.host_call("dtt_shard_count_smem_tuples")
     for index in ("dense", "searchsorted"):
         for a2a in (budgets.a2a_cap, None):
             t0 = time.perf_counter()
@@ -2130,7 +2290,16 @@ def phase_mesh(dev, counters: dict, want: str) -> tuple:
                 f"{int(got[3].sum())} overflowed "
                 f"({time.perf_counter() - t0:.1f} s)")
     timed = (scans[0], counts[0])  # dense, all-to-all, shard 0
-    n_big = 0
+    forms = [0, 0, 0]  # reads counted in registers, shared, device memory
+
+    def add_forms(calls):
+        for c in calls:
+            for i, v in enumerate(count_forms(c[0][2])):
+                forms[i] += v
+        return [sum(count_forms(c[0][2])[i] for c in calls)
+                for i in range(3)]
+
+    add_forms(counts)
     for name in SHARDED_CASES:
         mesh8, q8, l8, shards8, ckw, a2a, over, gt, reads = \
             sharded_case_args(name, dev)
@@ -2156,15 +2325,48 @@ def phase_mesh(dev, counters: dict, want: str) -> tuple:
                             offs[i, :cnt[i]].tolist())) != gold:
                         raise AssertionError(f"{name}, {index}: read {i} != "
                                              f"dsoft_scalar")
-        big = sum(int(((c[0][2][1:] - c[0][2][:-1]) > smem).sum())
-                  for c in counts)
-        n_big += big
         log(f"  table-sharded D-SOFT, {name} over {SHARDED_P}: exact under "
             f"each index mode and exchange, overflow {over}, golden where "
-            f"no read overflowed; {big} read counts past the shared-memory "
-            f"budget of {smem} tuples")
-    if not n_big:
+            f"no read overflowed; read counts in registers, shared memory, "
+            f"device memory: {add_forms(counts)}")
+    # shard_scan alone on every shard of the first case, the reads padded
+    # to each L % 4 (its vector stores take LP % 4 == 0, else a position
+    # at a time), and under the dense index with fewer refine steps than
+    # its widest bucket needs (the kernel's truncated search).
+    mesh8, q8, l8, shards8, ckw, *_ = sharded_case_args(
+        next(iter(SHARDED_CASES)), dev)
+    nsteps = ckw["dense_steps"]
+    runs = [(pad, index, nsteps) for pad in range(4)
+            for index in ("dense", "searchsorted")]
+    runs += [(0, "dense", s) for s in range(nsteps)]
+    for pad, index, s in runs:
+        qp = torch.nn.functional.pad(q8, (0, pad))
+        skw = dict(k=ckw["k"], w=ckw["w"], index=index, dense_steps=s)
+        for th, _, di in shards8:
+            if not _same(st.shard_scan(qp, l8, th, di, **skw),
+                         st.shard_scan_torch(qp, l8, th, di, **skw)):
+                raise AssertionError(f"shard_scan differs at L = "
+                                     f"{qp.shape[1]}, {index}, {s} steps")
+    log(f"  shard_scan on every shard, L = {q8.shape[1]} .. "
+        f"{q8.shape[1] + 3}, each index mode, and dense with 0 .. {nsteps} "
+        f"refine steps: exact")
+    # shard_count's synthetic cases: reads at each form's edges and past
+    # the shared-memory budget.
+    for name in SHARD_COUNT_CASES:
+        args, ckw = shard_count_case_args(name, dev)
+        got = st.shard_count(*args, **ckw)
+        if not _same(got, st.shard_count_torch(*args, **ckw)):
+            raise AssertionError(f"shard_count differs: {name}")
+        log(f"  shard_count, {name}: exact; reads in registers, shared "
+            f"memory, device memory: "
+            f"{add_forms([(args, ckw, got)])}; counts "
+            f"{got[2].tolist()}, over {got[3].long().tolist()}")
+    log(f"  shard_count's reads in registers, shared memory, device "
+        f"memory over phase 9's calls: {forms}")
+    if not forms[2]:
         raise AssertionError("shard_count's device-memory form never ran")
+    if not forms[1] or not forms[0]:
+        raise AssertionError(f"a shard_count form never ran: {forms}")
 
     res = {}
     for name, (args, skw, out), kernel, plain in (
@@ -2174,14 +2376,12 @@ def phase_mesh(dev, counters: dict, want: str) -> tuple:
         r = res[name] = {"max_abs_err": 0, "library_ms": None}
         r["ms"] = median_ms(lambda: kernel(*args, **skw), 20)
         r["plain_ms"] = median_ms(lambda: plain(*args, **skw), 3)
+        r["device_ms"] = graph_ms(lambda: kernel(*args, **skw), n=10)
         if name == "dsoft_shard_scan":
-            r["device_ms"] = graph_ms(lambda: kernel(*args, **skw), n=10)
             r.update(shard_scan_bound(args, skw, out))
-            shape = f"R={args[0].shape[0]} L={args[0].shape[1]}"
+            shape = (f"R={args[0].shape[0]} L={args[0].shape[1]}, "
+                     f"{int(out[0].sum())} lookups")
         else:
-            plan = st.count_scratch(args[2], skw["k"])
-            r["device_ms"] = graph_ms(
-                lambda: st.count_launch(*args, *plan, **skw), n=10)
             r.update(shard_count_bound(args, out))
             shape = (f"{args[2].shape[0] - 1} reads, "
                      f"{int(args[2][-1] - args[2][0])} tuples")
@@ -2189,6 +2389,19 @@ def phase_mesh(dev, counters: dict, want: str) -> tuple:
             f"all-to-all): kernel {r['ms']:.4f} ms (graph "
             f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    # Where the collector's time goes, E.coli over MESH, budgets derived.
+    kernels = MESH * sum(res[k]["device_ms"] for k in res)
+    for exchange, a2a in (("all_to_all", budgets.a2a_cap),
+                          ("all_gather", None)):
+        steps_ms = sharded_step_ms((mesh, Qt, lt, shards),
+                                   dict(kw, a2a_cap=a2a, index="dense"))
+        wall = collect_ms(dev, MESH, exchange)
+        log(f"  collect_calls_table_sharded, E.coli over {MESH}, {exchange}:"
+            f" wall {wall:.4f} ms (host clock, median of 5); "
+            f"dsoft_table_sharded's steps (CUDA events at each step's end, "
+            f"median of 5): " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in steps_ms.items())
+            + f" ms; the two kernels' device time x {MESH} {kernels:.4f} ms")
 
     # The read-sharded D-SOFT over MESH against one call.
     args, dkw = ecoli_dsoft_inputs(dev, "twolevel")
@@ -2360,7 +2573,10 @@ def checked_digests(dev, small: bool = False) -> dict:
     on dsoft_cases under each index mode and on the E.coli read-strands
     (R = 920 and 9200), and the table-sharded D-SOFT's two kernels on
     SHARDED_CASES and the E.coli read-strands (phase 9's inputs) under
-    each index mode and exchange.  small: B = 36, the tile size 64 and
+    each index mode and exchange, shard_scan on the first case's first
+    shard at the other three L % 4 and with one refine step, and
+    shard_count on SHARD_COUNT_CASES.
+    small: B = 36, the tile size 64 and
     one scoring, one large-ET walk, the scans at C = 33 and 1024 beside
     the probe's shape, the D-SOFT cases under the two-level index only,
     the table-sharded cases under the dense index only and no E.coli
@@ -2478,7 +2694,8 @@ def checked_digests(dev, small: bool = False) -> dict:
     # The table-sharded D-SOFT's kernels (through dsoft_table_sharded):
     # SHARDED_CASES over SHARDED_P entries and the E.coli read-strands
     # over MESH, each index mode and exchange.
-    from darwin_tpu_torch.dsoft.sharded_table import dsoft_table_sharded
+    from darwin_tpu_torch.dsoft.sharded_table import (dsoft_table_sharded,
+                                                      shard_count, shard_scan)
 
     sharded = []
     for name in SHARDED_CASES:
@@ -2495,6 +2712,22 @@ def checked_digests(dev, small: bool = False) -> dict:
                 run(f"dsoft_sharded {name} {index} a2a_cap={cap}",
                     lambda: dsoft_table_sharded(*args, a2a_cap=cap,
                                                 index=index, **skw))
+    # shard_scan's stores a position at a time (L % 4 != 0) and its
+    # truncated two-level search (fewer refine steps than a bucket needs)
+    # on the first case's first shard, and shard_count's synthetic cases
+    # (every form).
+    _, (_, q8, l8, shards8), ckw, _ = sharded[0]
+    th, _, di = shards8[0]
+    runs = [(pad, index, ckw["dense_steps"]) for pad in (1, 2, 3)
+            for index in (("dense",) if small else ("dense", "searchsorted"))]
+    for pad, index, steps in runs + [(0, "dense", 1)]:
+        qp = torch.nn.functional.pad(q8, (0, pad))
+        run(f"shard_scan L={qp.shape[1]} {index} steps={steps}",
+            lambda: shard_scan(qp, l8, th, di, k=ckw["k"], w=ckw["w"],
+                               index=index, dense_steps=steps))
+    for name in SHARD_COUNT_CASES:
+        args, kw = shard_count_case_args(name, dev)
+        run(f"shard_count {name}", lambda: shard_count(*args, **kw))
     return res
 
 
@@ -2577,15 +2810,25 @@ def phase_ab(dev, reps: int = 20) -> dict:
     byte walker and both word walkers, one fetch_tiles call, and two
     (one an engine iteration before fetch_tile_pair), SW at SW_B on
     SW_LEN-base pairs, the D-SOFT kernel on the E.coli read-strands
-    (two-level index) at R = 920 and ten times over, and both scan
-    lowerings at B = 2048, C = 384; each as the median of reps
+    (two-level index) at R = 920 and ten times over and on
+    dsoft_budget_reads (its large path, arrays in shared memory at
+    tup_max TUP_MAX and in device memory at 32768), and both scan
+    lowerings at B = 2048, C = 384, and the table-sharded D-SOFT's
+    kernels on the E.coli slice's table over MESH entries (dense index,
+    all-to-all): shard_scan on shard 0 at R = 920 and ten times over,
+    shard_count on shard 0's tuples; each as the median of reps
     event-timed calls (ms) and as device_ms, with each call's output
-    sum and digest, which must agree between trees.  Uses only calls
-    whose signatures every version of the port since the device D-SOFT
-    has kept."""
+    sum and digest, which must agree between trees.  A tree whose
+    shard_count sizes its scratch by a host sync (count_scratch) gives
+    shard_count's device_ms from count_launch alone, the scratch sized
+    once outside the graph (shard_count_device_call says which).  Then
+    sharded_share: the collector's wall and the two kernels' part of it.
+    Uses only calls whose signatures every version of the port since the
+    mesh layer has kept."""
     import numpy as np
     import torch
 
+    from darwin_tpu_torch.dsoft import sharded_table as st
     from darwin_tpu_torch.dsoft.device import dsoft_device_batch
     from darwin_tpu_torch.lab.scanshift_probe import probe_inputs
     from darwin_tpu_torch.ops.common import PAD_QUERY, PAD_REF
@@ -2619,6 +2862,10 @@ def phase_ab(dev, reps: int = 20) -> dict:
     back = torch.from_numpy(frng.random(B_MAIN) < 0.5).to(dev)
     dargs, dkw = ecoli_dsoft_inputs(dev, "twolevel")
     dbig = ecoli_x10(dargs)
+    gt, breads = dsoft_budget_reads()
+    budget = {t: dsoft_case_args(gt, list(breads), dict(
+        threshold=18, num_seeds_cap=BUDGET_CAP, max_candidates=10**6,
+        tup_max=t, cand_max=256), "twolevel", dev) for t in (TUP_MAX, 32768)}
     sx = torch.from_numpy(probe_inputs(1, 2048, 376)[0][0]).to(dev)
     calls = {
         "walker": lambda: traceback(*walks["bytes"], early_terminate=ET),
@@ -2635,18 +2882,106 @@ def phase_ab(dev, reps: int = 20) -> dict:
                         pad=PAD_QUERY)),
         "dsoft_920": lambda: dsoft_device_batch(*dargs, **dkw),
         "dsoft_9200": lambda: dsoft_device_batch(*dbig, **dkw),
+        "dsoft_large_smem": lambda: dsoft_device_batch(
+            *budget[TUP_MAX][0], **budget[TUP_MAX][1]),
+        "dsoft_large_gmem": lambda: dsoft_device_batch(
+            *budget[32768][0], **budget[32768][1]),
         "scan_shfl": lambda: (scanshift_shfl(sx),),
         "scan_smem": lambda: (scanshift_smem(sx),),
     }
-    res = {}
+    scan_args, scan_kw, count_args, count_kw = sharded_kernel_args(dev)
+    big = (scan_args[0].repeat(10, 1), scan_args[1].repeat(10),
+           *scan_args[2:])
+    calls["shard_scan_920"] = lambda: st.shard_scan(*scan_args, **scan_kw)
+    calls["shard_scan_9200"] = lambda: st.shard_scan(*big, **scan_kw)
+    calls["shard_count"] = lambda: st.shard_count(*count_args, **count_kw)
+    device_calls = {}
+    res = {"shard_count_device_call": "shard_count"}
+    if hasattr(st, "count_scratch"):
+        plan = st.count_scratch(count_args[2], count_kw["k"])
+        device_calls["shard_count"] = lambda: st.count_launch(
+            *count_args, *plan, **count_kw)
+        res["shard_count_device_call"] = "count_launch (count_scratch " \
+            "outside the graph)"
     for name, fn in calls.items():
         out = fn()
         res[f"{name}_sum"] = sum(int(o.long().sum()) for o in out)
         res[f"{name}_digest"] = _digest(out)
         res[f"{name}_ms"] = median_ms(fn, reps)
         res[f"{name}_device_ms"] = graph_ms(
-            fn, n=10 if name.startswith("dsoft") else GRAPH_LAUNCHES)
+            device_calls.get(name, fn),
+            n=10 if name.startswith(("dsoft", "shard")) else GRAPH_LAUNCHES)
+    res.update(sharded_share(dev))
     return res
+
+
+def sharded_kernel_args(dev) -> tuple:
+    """The table-sharded D-SOFT's kernel calls on the E.coli slice's table
+    over MESH entries of dev (dense index, all-to-all, derived budgets):
+    shard_scan's arguments and keywords on shard 0 (every read-strand),
+    and shard_count's on shard 0's tuples, taken from one
+    dsoft_table_sharded call."""
+    from darwin_tpu_torch.dsoft import sharded_table as st
+
+    mesh, budgets, _, shards = ecoli_sharded(str(dev))
+    Qt, lt, kw = ecoli_sharded_args(dev)
+    counts = []
+    st.dsoft_table_sharded(mesh, Qt, lt, shards, a2a_cap=budgets.a2a_cap,
+                           index="dense", steps=(st.shard_scan, _checking(
+                               st.shard_count, st.shard_count_torch, counts)),
+                           **kw)
+    th, _, di = shards[0]
+    return ((Qt, lt, th, di), dict(k=kw["k"], w=kw["w"], index="dense",
+                                   dense_steps=kw["dense_steps"]),
+            *counts[0][:2])
+
+
+def sharded_share(dev, reps: int = 5) -> dict:
+    """The E.coli collector over MESH entries of dev (all-to-all, dense
+    index, derived budgets): collect_calls_table_sharded's wall
+    (collect_ms), and in dsoft_table_sharded on the same read-strands the
+    whole call's and its eight kernel calls' time (CUDA events around
+    the call and around each kernel call, one run; medians of reps runs
+    after a warm one), in ms."""
+    import torch
+
+    from darwin_tpu_torch.dsoft import sharded_table as st
+
+    mesh, budgets, _, shards = ecoli_sharded(str(dev))
+    Qt, lt, kw = ecoli_sharded_args(dev)
+    runs = []
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def timed(fn, spans):
+        def step(*args, **skw):
+            e = events()
+            e[0].record()
+            out = fn(*args, **skw)
+            e[1].record()
+            spans.append(e)
+            return out
+        return step
+
+    for _ in range(reps + 1):
+        spans = {"scan": [], "count": []}
+        steps = (timed(st.shard_scan, spans["scan"]),
+                 timed(st.shard_count, spans["count"]))
+        e = events()
+        e[0].record()
+        st.dsoft_table_sharded(mesh, Qt, lt, shards, a2a_cap=budgets.a2a_cap,
+                               index="dense", steps=steps, **kw)
+        e[1].record()
+        torch.cuda.synchronize()
+        runs.append({"sharded_call_ms": e[0].elapsed_time(e[1]),
+                     **{f"sharded_{k}_ms": sum(a.elapsed_time(b)
+                                               for a, b in v)
+                        for k, v in spans.items()}})
+    out = {k: statistics.median(r[k] for r in runs[1:]) for k in runs[1]}
+    out["sharded_collect_ms"] = collect_ms(dev, MESH, "all_to_all", reps)
+    return out
 
 
 def run_phases(dev, golden_pool) -> tuple:

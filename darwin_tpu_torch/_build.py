@@ -64,13 +64,14 @@ _SIGNATURES = {
     # shift, nh, nb, steps), k, w, index mode, emit, start, occ.
     "dtt_shard_scan": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _I, _I, _P, _P, _P, _P],
-    # hit, off, seg, R, k, bin_size, threshold, max_candidates, cand_max,
-    # scratch_off, scratch, the four outputs.
-    "dtt_shard_count": [_P, _P, _P, *[_I] * 6, _P, _P, _P, _P, _P, _P, _P],
+    # hit, off, seg, R, N, k, bin_size, threshold, max_candidates,
+    # cand_max, the card's SMs, scratch, the four outputs.
+    "dtt_shard_count": [_P, _P, _P, _I, _L, *[_I] * 6, _P, _P, _P, _P, _P,
+                        _P],
 }
 # Host-only entries (no stream, nothing launched): argtypes, restype.
 _HOST_ENTRIES = {"dtt_dsoft_scratch_bytes": ([_I, _I, _I, _I], _L),
-                 "dtt_shard_count_smem_tuples": ([], _I)}
+                 "dtt_shard_count_scratch_bytes": ([_L], _L)}
 # The checked library's one more entry: the extents of the next launch.
 _SET_EXTENTS = ("dtt_set_extents", [_I, _P, _P])
 

@@ -400,59 +400,39 @@ def shard_count(hit, off, seg, *, k: int, bin_size: int, threshold: int,
                 max_candidates: int, cand_max: int):
     """Step (C) of one shard, shard_count_torch's contract.  CPU tensors
     take the plain version; CUDA tensors launch csrc/dsoft_sharded.cu's
-    shard_count (one block a read), with a scratch area in device memory
-    for each read past the kernel's shared-memory tuple budget
-    (count_scratch)."""
+    shard_count (a read at a time: in registers, in shared memory or, past
+    the shared-memory budget, in a scratch area of device memory sized
+    from the tuple count N alone), with no host sync.  Since no read's
+    length is known on the host, every call with N past the
+    shared-memory budget (22752 tuples) allocates that scratch,
+    dtt_shard_count_scratch_bytes(N) = r16(8N) + r16(N), about 9N bytes
+    beside the 8N of hit and off, whether or not a read needs it.  Raises
+    for N * k at or past 2^31."""
     kw = dict(k=k, bin_size=bin_size, threshold=threshold,
               max_candidates=max_candidates, cand_max=cand_max)
     if hit.device.type == "cpu":
         return shard_count_torch(hit, off, seg, **kw)
-    return count_launch(hit, off, seg, *count_scratch(seg, k), **kw)
-
-
-def count_scratch(seg, k: int):
-    """(scratch_off, scratch) of a shard_count launch over the reads of
-    seg (on a CUDA device; a host sync): a read of n tuples past the
-    kernel's shared-memory budget takes r16(8 * next_pow2(n)) bytes of
-    keys and r16(n) of flags at scratch_off[r] (csrc's layout).  Raises
-    for a read whose n * k reaches 2^31."""
-    dev = _build.require_cuda(seg, "shard_count")
-    n = (seg[1:] - seg[:-1]).cpu().numpy()
-    if len(n) and int(n.max()) * k >= 2 ** 31:
-        raise ValueError(f"shard_count: a read of {int(n.max())} tuples at "
-                         f"k={k}")
-    smem = _build.host_call("dtt_shard_count_smem_tuples")
-    p2 = np.left_shift(1, np.ceil(np.log2(np.maximum(n, 1))).astype(np.int64))
-    size = np.where(n > smem, (8 * p2 + 15) // 16 * 16 + (n + 15) // 16 * 16,
-                    0)
-    total = int(size.sum())
-    return (torch.from_numpy(np.cumsum(size) - size).to(dev),
-            torch.empty(total, dtype=torch.uint8, device=dev) if total
-            else torch.zeros(16, dtype=torch.uint8, device=dev))
-
-
-def count_launch(hit, off, seg, scratch_off, scratch, *, k: int,
-                 bin_size: int, threshold: int, max_candidates: int,
-                 cand_max: int):
-    """The shard_count kernel's launch alone (no host sync), with
-    count_scratch's scratch."""
     dev = _build.require_cuda(hit, "shard_count")
     if not (k >= 1 and bin_size >= 1 and cand_max >= 1):
         raise ValueError(f"shard_count: k={k}, bin_size={bin_size}, "
                          f"cand_max={cand_max}")
     N, R = hit.shape[0], seg.shape[0] - 1
+    if N * k >= 2 ** 31:
+        raise ValueError(f"shard_count: {N} tuples at k={k}")
     I32 = torch.int32
     args = [_build.arg(hit, "hit", I32, (N,), dev),
             _build.arg(off, "off", I32, (N,), dev),
-            _build.arg(seg, "seg", torch.int64, (R + 1,), dev),
-            R, k, bin_size, threshold, max_candidates, cand_max,
-            _build.arg(scratch_off, "scratch_off", torch.int64, (R,), dev),
-            scratch]
+            _build.arg(seg, "seg", torch.int64, (R + 1,), dev)]
+    need = _build.host_call("dtt_shard_count_scratch_bytes", N)
+    scratch = torch.empty(max(need, 16), dtype=torch.uint8, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     hits = torch.empty((R, cand_max), dtype=I32, device=dev)
     offs = torch.empty((R, cand_max), dtype=I32, device=dev)
     counts = torch.empty(R, dtype=I32, device=dev)
     over = torch.empty(R, dtype=torch.bool, device=dev)
-    _build.launch("dtt_shard_count", dev, *args, hits, offs, counts, over)
+    _build.launch("dtt_shard_count", dev, *args, R, N, k, bin_size,
+                  threshold, max_candidates, cand_max, sms, scratch, hits,
+                  offs, counts, over)
     if R:
         shard_count.launches += 1
     return hits, offs, counts, over
@@ -469,7 +449,7 @@ def dsoft_table_sharded(mesh, queries, qlens, shards, *, k: int, w: int,
                         tup_max: int = 8192, cand_max: int = 512,
                         a2a_cap: int | None = None,
                         index: str = "searchsorted", dense_steps: int = 0,
-                        steps=None):
+                        steps=None, mark=None):
     """Table-sharded D-SOFT over mesh (darwin_tpu's
     dsoft_table_sharded_fn(mesh, ...)(queries, qlens, ...)).
 
@@ -479,11 +459,17 @@ def dsoft_table_sharded(mesh, queries, qlens, shards, *, k: int, w: int,
     exchanges the tuples by an all-gather, a number by an all-to-all with
     that per-destination budget.  steps: the (scan, count) pair, by
     default the kernels' wrappers (dsoft_table_sharded_torch passes the
-    plain versions).  Returns (hits [R, cand_max] int64: uint32 values,
+    plain versions).  mark, when given, is called with a step's name as
+    each step ends, on the host in launch order: "scan" after each
+    entry's scan, "tuples" after the tuple expansion (step B), "exchange",
+    then for each owner "group" after its grouping sorts and "count"
+    (chip_smoke.py's phase 9 records a CUDA event at each).  Returns
+    (hits [R, cand_max] int64: uint32 values,
     0xFFFFFFFF beyond counts; offsets [R, cand_max] int32, -1 beyond
     counts; counts [R] int32; overflow [R] bool) on the mesh's first
     device."""
     scan, count = steps or (shard_scan, shard_count)
+    mark = mark or (lambda step: None)
     P = mesh.size
     R, L = queries.shape
     if R % P:
@@ -497,9 +483,11 @@ def dsoft_table_sharded(mesh, queries, qlens, shards, *, k: int, w: int,
     devs = mesh.devices
 
     # (A) every read's minimizers, looked up in each shard.
-    scans = [scan(queries.to(d), qlens.to(d), th, di, k=k, w=w, index=index,
-                  dense_steps=dense_steps)
-             for d, (th, _, di) in zip(devs, shards)]
+    scans = []
+    for d, (th, _, di) in zip(devs, shards):
+        scans.append(scan(queries.to(d), qlens.to(d), th, di, k=k, w=w,
+                          index=index, dense_steps=dense_steps))
+        mark("scan")
     occ_g = psum([occ for _, _, occ in scans])
 
     # (B) the tuples of each shard's kept minimizers under tup_max.
@@ -551,12 +539,14 @@ def dsoft_table_sharded(mesh, queries, qlens, shards, *, k: int, w: int,
 
             sent.append((route(r2, INT32_MAX), route(m2, 0), route(h2, 0)))
         flags.append(overflow_read)
+    mark("tuples")
 
     # The exchange.
     exchange = all_gather if a2a_cap is None else all_to_all
     a_read, a_mpos, a_hit = (exchange([s[j] for s in sent])
                              for j in range(3))
     overflow = por(flags)
+    mark("exchange")
 
     # (C) each owner's reads: its tuples grouped by read in (offset, hit)
     # order (a stable sort by hit, then by read and offset), then counted.
@@ -571,10 +561,12 @@ def dsoft_table_sharded(mesh, queries, qlens, shards, *, k: int, w: int,
         perm = by_hit[o2]
         seg = torch.searchsorted(
             key_s, torch.arange(R_local + 1, device=key_s.device) * LP)
+        mark("group")
         hits, offs, cnt, over_c = count(
             _bits32(ah[perm]), am[perm].to(torch.int32), seg, k=k,
             bin_size=bin_size, threshold=threshold,
             max_candidates=max_candidates, cand_max=cand_max)
+        mark("count")
         outs.append((_u32(hits), offs, cnt,
                      overflow[d][base:base + R_local] | over_c))
     return tuple(torch.cat([o[j].to(devs[0]) for o in outs])

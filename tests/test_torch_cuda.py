@@ -819,6 +819,52 @@ def test_table_sharded_kernels_match_plain(cuda, name):
     assert len(calls) == 4 * 2 * chip_smoke.SHARDED_P
 
 
+@pytest.mark.parametrize("index", ["dense", "searchsorted"])
+@pytest.mark.parametrize("name", list(chip_smoke.SHARDED_CASES))
+def test_shard_scan_kernel_matches_plain(cuda, name, index):
+    """shard_scan on every shard of chip_smoke's cases equals its plain
+    version (tolerance 0), the reads padded to each L % 4 (the kernel's
+    vector stores take LP % 4 == 0, else a position at a time); under the
+    dense index also with fewer refine steps than its widest bucket
+    needs (the kernel's truncated search)."""
+    from darwin_tpu_torch.dsoft import sharded_table as st
+
+    _, q, lens, shards, kw, *_ = chip_smoke.sharded_case_args(name, cuda)
+    steps = kw["dense_steps"]
+    runs = [(pad, steps) for pad in range(4)]
+    if index == "dense":
+        runs += [(0, s) for s in range(steps)]
+    for pad, s in runs:
+        qp = torch.nn.functional.pad(q, (0, pad))
+        skw = dict(k=kw["k"], w=kw["w"], index=index, dense_steps=s)
+        for th, _, di in shards:
+            got = st.shard_scan(qp, lens, th, di, **skw)
+            for g, w in zip(got, st.shard_scan_torch(qp, lens, th, di,
+                                                     **skw)):
+                assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.SHARD_COUNT_CASES))
+def test_shard_count_kernel_matches_plain_on_edge_cases(cuda, name):
+    """shard_count on chip_smoke's synthetic cases (reads at each form's
+    edges and past the shared-memory budget) equals its plain version
+    (tolerance 0), also when captured in a CUDA graph: its wrapper makes
+    no host sync."""
+    from darwin_tpu_torch.dsoft import sharded_table as st
+
+    args, kw = chip_smoke.shard_count_case_args(name, cuda)
+    want = st.shard_count_torch(*args, **kw)
+    for g, w in zip(st.shard_count(*args, **kw), want):
+        assert torch.equal(g, w)
+    graph, out = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        out.append(st.shard_count(*args, **kw))
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(out[0], want):
+        assert torch.equal(g, w)
+
+
 def test_mesh_paths_on_card(cuda, tmp_path):
     """The sharded engine and aligner over two cuda:0 entries equal the
     one-device ones on tiny; the CLI's --mesh 1 gives the fixture's

@@ -10,12 +10,20 @@ and overflow flags depend on it.
   modes: tests/test_sharded_table.py's fixtures (chip_smoke's copy of
   its _fixture is held to it), the num_seeds and max_candidates caps, a
   tup_max and an a2a_cap that overflow, a table past 2^31, and reads of
-  thousands of tuples (past the count kernel's shared-memory budget);
+  thousands of tuples (past the count kernel's register budget);
 * collect_calls_table_sharded (derived budgets, both exchanges, mesh
   sizes 8 and 1) and collect_calls_device(mesh=) against the host
-  collect_calls.
+  collect_calls;
+* chip_smoke's synthetic shard_count cases (phase 9 and the card tests
+  hold the count kernel to its plain version on them): reads at exactly
+  the stated tuple counts, at each of the kernel's forms' edges, whose
+  budgets chip_smoke mirrors from the source; and dsoft_table_sharded's
+  step marks.
 (The host helpers' copies are held to theirs in test_torch_standalone.py.)
 """
+
+import re
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -161,3 +169,71 @@ def test_collect_calls_device_mesh_equals_host(seeding, n):
     _same_calls(collect_calls_device(table, genome, bank, params, mesh=mesh,
                                      tup_max=64, metrics=metrics), want)
     assert metrics["dsoft_overflow_reads"] > 0
+
+
+def test_shard_count_budgets_mirror_the_kernel():
+    """chip_smoke's SHARD_COUNT_REG_TUPLES and SHARD_COUNT_SMEM_TUPLES are
+    csrc/dsoft_sharded.cu's kRegTuples and kSmemTuples."""
+    src = (Path(chip_smoke.__file__).parent / "darwin_tpu_torch" / "csrc"
+           / "dsoft_sharded.cu").read_text()
+    got = [int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+           for name in ("kRegTuples", "kSmemTuples")]
+    assert got == [chip_smoke.SHARD_COUNT_REG_TUPLES,
+                   chip_smoke.SHARD_COUNT_SMEM_TUPLES]
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.SHARD_COUNT_CASES))
+def test_shard_count_cases_hold_the_stated_reads(name):
+    """Each synthetic read has exactly its stated tuple count, grouped as
+    the exchange gives them (distinct (offset, hit) pairs in that order,
+    hit >= offset, tuples of no read around them), and the longer reads
+    cross threshold in several bins."""
+    _, sizes, kw = chip_smoke.SHARD_COUNT_CASES[name]
+    hit, off, seg, ckw = chip_smoke.shard_count_case(name)
+    assert ckw == kw and hit.dtype == np.uint32 and off.dtype == np.int32
+    assert np.diff(seg).tolist() == list(sizes)
+    assert 0 < seg[0] and seg[-1] < len(hit)
+    assert (hit.astype(np.int64) >= off).all()
+    for a, b in zip(seg[:-1], seg[1:]):
+        pairs = off[a:b].astype(np.int64) * 2 ** 32 + hit[a:b]
+        assert (np.diff(pairs) > 0).all()
+    args, _ = chip_smoke.shard_count_case_args(name, "cpu")
+    _, _, counts, _ = st.shard_count_torch(*args, **kw)
+    assert all(c >= 4 for n, c in zip(sizes, counts.tolist())
+               if n >= chip_smoke.SHARD_COUNT_REG_TUPLES)
+
+
+def test_shard_count_cases_reach_every_form():
+    """Over the synthetic cases, reads sit at 0 tuples, at each side of
+    the register budget and of the shared-memory budget, and past it."""
+    reg = chip_smoke.SHARD_COUNT_REG_TUPLES
+    smem = chip_smoke.SHARD_COUNT_SMEM_TUPLES
+    sizes = {n for _, ns, _ in chip_smoke.SHARD_COUNT_CASES.values()
+             for n in ns}
+    assert {0, reg, reg + 1, smem, smem + 1} <= sizes
+    assert max(sizes) > smem + 1
+    forms = np.sum([chip_smoke.count_forms(torch.from_numpy(
+        chip_smoke.shard_count_case(name)[2]))
+        for name in chip_smoke.SHARD_COUNT_CASES], axis=0)
+    assert forms.tolist() == [8, 4, 3]
+
+
+@pytest.mark.parametrize("exchange", ["all_gather", "all_to_all"])
+def test_table_sharded_marks_each_step(exchange):
+    """dsoft_table_sharded's mark is called as each step ends, in launch
+    order, and changes nothing."""
+    gt, reads, kw, a2a, _ = chip_smoke.sharded_case("seed 17")
+    hs, ps = make_sharded_table(gt.hashes, gt.pos_table, P)
+    di = make_sharded_dense_index(hs)
+    Q, lens = jax_pad_reads(JaxSeqBank(reads), range(len(reads)))
+    mesh = make_mesh(devices=["cpu"] * P)
+    args = (mesh, torch.from_numpy(Q), torch.from_numpy(lens),
+            st.place_shards(mesh, hs, ps, di))
+    kw.update(a2a_cap=a2a if exchange == "all_to_all" else None,
+              index="dense", dense_steps=di.steps)
+    marks = []
+    got = st.dsoft_table_sharded(*args, mark=marks.append, **kw)
+    assert marks == (["scan"] * P + ["tuples", "exchange"]
+                     + ["group", "count"] * P)
+    for g, w in zip(got, st.dsoft_table_sharded(*args, **kw)):
+        assert torch.equal(g, w)

@@ -85,6 +85,23 @@ def _tool(name: str):
     return mod
 
 
+@pytest.mark.parametrize("sharded", [False, True],
+                         ids=["dsoft.cu", "dsoft_sharded.cu"])
+def test_phase_tool_patches_the_kernels_it_times(sharded):
+    """tools/torch_dsoft_phases.py's stamps each find their place in the
+    kernel source they instrument, once (the tool raises otherwise, and
+    runs only on a card)."""
+    tool = _tool("torch_dsoft_phases")
+    csrc = REPO / "darwin_tpu_torch" / "csrc"
+    if sharded:
+        out = tool.instrument((csrc / "dsoft_sharded.cu").read_text(),
+                              tool.SHARDED_PATCHES, tool.SHARDED_READER)
+        assert out.count("PH(") == len(tool.SHARDED_PHASES) + 1
+    else:
+        out = tool.instrument((csrc / "dsoft.cu").read_text())
+        assert out.count("STAMP(") == 9
+
+
 def test_no_source_of_the_port_imports_darwin_tpu():
     files = [*sorted((REPO / "darwin_tpu_torch").rglob("*.py")),
              REPO / "chip_smoke.py",
