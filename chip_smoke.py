@@ -2818,13 +2818,12 @@ def phase_ab(dev, reps: int = 20) -> dict:
     all-to-all): shard_scan on shard 0 at R = 920 and ten times over,
     shard_count on shard 0's tuples; each as the median of reps
     event-timed calls (ms) and as device_ms, with each call's output
-    sum and digest, which must agree between trees.  A tree whose
-    shard_count sizes its scratch by a host sync (count_scratch) gives
-    shard_count's device_ms from count_launch alone, the scratch sized
-    once outside the graph (shard_count_device_call says which).  Then
-    sharded_share: the collector's wall and the two kernels' part of it.
+    sum and digest, which must agree between trees.  Then the same
+    collector: collect_calls_table_sharded's wall (collect_ms) and
+    dsoft_table_sharded's steps (sharded_step_ms, "sharded_" before each
+    step's name), whose "scan" and "count" are the two kernels' part.
     Uses only calls whose signatures every version of the port since the
-    mesh layer has kept."""
+    table-sharded kernels' redesign has kept."""
     import numpy as np
     import torch
 
@@ -2895,23 +2894,21 @@ def phase_ab(dev, reps: int = 20) -> dict:
     calls["shard_scan_920"] = lambda: st.shard_scan(*scan_args, **scan_kw)
     calls["shard_scan_9200"] = lambda: st.shard_scan(*big, **scan_kw)
     calls["shard_count"] = lambda: st.shard_count(*count_args, **count_kw)
-    device_calls = {}
-    res = {"shard_count_device_call": "shard_count"}
-    if hasattr(st, "count_scratch"):
-        plan = st.count_scratch(count_args[2], count_kw["k"])
-        device_calls["shard_count"] = lambda: st.count_launch(
-            *count_args, *plan, **count_kw)
-        res["shard_count_device_call"] = "count_launch (count_scratch " \
-            "outside the graph)"
+    res = {}
     for name, fn in calls.items():
         out = fn()
         res[f"{name}_sum"] = sum(int(o.long().sum()) for o in out)
         res[f"{name}_digest"] = _digest(out)
         res[f"{name}_ms"] = median_ms(fn, reps)
         res[f"{name}_device_ms"] = graph_ms(
-            device_calls.get(name, fn),
-            n=10 if name.startswith(("dsoft", "shard")) else GRAPH_LAUNCHES)
-    res.update(sharded_share(dev))
+            fn, n=10 if name.startswith(("dsoft", "shard")) else
+            GRAPH_LAUNCHES)
+    mesh, budgets, _, shards = ecoli_sharded(str(dev))
+    Qt, lt, skw = ecoli_sharded_args(dev)
+    steps = sharded_step_ms((mesh, Qt, lt, shards),
+                            dict(skw, a2a_cap=budgets.a2a_cap, index="dense"))
+    res.update({f"sharded_{k}_ms": v for k, v in steps.items()})
+    res["sharded_collect_ms"] = collect_ms(dev, MESH, "all_to_all")
     return res
 
 
@@ -2934,54 +2931,6 @@ def sharded_kernel_args(dev) -> tuple:
     return ((Qt, lt, th, di), dict(k=kw["k"], w=kw["w"], index="dense",
                                    dense_steps=kw["dense_steps"]),
             *counts[0][:2])
-
-
-def sharded_share(dev, reps: int = 5) -> dict:
-    """The E.coli collector over MESH entries of dev (all-to-all, dense
-    index, derived budgets): collect_calls_table_sharded's wall
-    (collect_ms), and in dsoft_table_sharded on the same read-strands the
-    whole call's and its eight kernel calls' time (CUDA events around
-    the call and around each kernel call, one run; medians of reps runs
-    after a warm one), in ms."""
-    import torch
-
-    from darwin_tpu_torch.dsoft import sharded_table as st
-
-    mesh, budgets, _, shards = ecoli_sharded(str(dev))
-    Qt, lt, kw = ecoli_sharded_args(dev)
-    runs = []
-
-    def events():
-        return (torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
-
-    def timed(fn, spans):
-        def step(*args, **skw):
-            e = events()
-            e[0].record()
-            out = fn(*args, **skw)
-            e[1].record()
-            spans.append(e)
-            return out
-        return step
-
-    for _ in range(reps + 1):
-        spans = {"scan": [], "count": []}
-        steps = (timed(st.shard_scan, spans["scan"]),
-                 timed(st.shard_count, spans["count"]))
-        e = events()
-        e[0].record()
-        st.dsoft_table_sharded(mesh, Qt, lt, shards, a2a_cap=budgets.a2a_cap,
-                               index="dense", steps=steps, **kw)
-        e[1].record()
-        torch.cuda.synchronize()
-        runs.append({"sharded_call_ms": e[0].elapsed_time(e[1]),
-                     **{f"sharded_{k}_ms": sum(a.elapsed_time(b)
-                                               for a, b in v)
-                        for k, v in spans.items()}})
-    out = {k: statistics.median(r[k] for r in runs[1:]) for k in runs[1]}
-    out["sharded_collect_ms"] = collect_ms(dev, MESH, "all_to_all", reps)
-    return out
 
 
 def run_phases(dev, golden_pool) -> tuple:

@@ -113,7 +113,9 @@ __device__ T block_excl(T v, T id, Op op, long long* sh_raw, T* total) {
 // (nh of them), 1 a dense CSR over the 4^k hashes (csr), 2 darwin_tpu's
 // two-level index (h = the distinct hashes, csr = their CSR starts, bkt
 // = the bucket directory of nb buckets, base and shift, steps refine
-// steps).
+// steps), 3 the same index and result with each bucket's hashes loaded
+// in one round.  dsoft.cu takes 2 and shard_scan 3, each the faster on
+// that kernel (PERF.md, PR 10).
 struct Index {
   const uint32_t* h;
   const int* csr;
@@ -171,58 +173,87 @@ __device__ void lookup_multi(const Index& ix, int base, int shift,
       start[e] = act[e] ? at(ix.csr, h) : 0;
       end[e] = act[e] ? at(ix.csr, h + 1) : 0;
     }
-  } else {  // INDEX 2
-    // darwin_tpu's twolevel_lookup in three rounds of loads: the bucket's
-    // bounds, its hashes (all at once: independent loads), the CSR pair.
-    // A bucket holds the distinct hashes of its bucket id only, so where
-    // it holds fewer than 2^steps of them (the steps refine steps then
-    // end at its lower bound of hv) that bound is lo plus the bucket's
-    // hashes below hv, and hv is in the index iff it is in its bucket.  A
-    // wider bucket (a caller that passes fewer steps than the index was
-    // built with) takes the steps refine steps and a verify load.  A hash
-    // outside the directory's range is absent, unloaded.
+  } else if constexpr (INDEX == 2) {  // darwin_tpu's twolevel_lookup
+    int lo[PP], hi[PP];
+    bool bvalid[PP];
+#pragma unroll
+    for (int e = 0; e < PP; ++e) {
+      const int rel = static_cast<int>(hv[e]) - base;
+      const int b = static_cast<int>(static_cast<unsigned>(max(rel, 0)) >>
+                                     shift);
+      bvalid[e] = rel >= 0 && b < ix.nb;
+      const int bc = min(b, ix.nb - 1);
+      lo[e] = act[e] ? at(ix.bkt, bc) : 0;
+      hi[e] = act[e] ? at(ix.bkt, bc + 1) : 0;
+    }
+    for (int s = 0; s < ix.steps; ++s) {
+      uint32_t v[PP];
+#pragma unroll
+      for (int e = 0; e < PP; ++e) {
+        const int mid = (lo[e] + hi[e]) >> 1;
+        v[e] = lo[e] < hi[e] ? at(ix.h, min(max(mid, 0), ix.nh - 1)) : 0u;
+      }
+#pragma unroll
+      for (int e = 0; e < PP; ++e) {
+        if (lo[e] < hi[e]) {
+          const int mid = (lo[e] + hi[e]) >> 1;
+          if (v[e] < hv[e]) lo[e] = mid + 1; else hi[e] = mid;
+        }
+      }
+    }
+    // The verify load and the CSR pair in one round.
+#pragma unroll
+    for (int e = 0; e < PP; ++e) {
+      const int d = min(lo[e], ix.nh - 1);
+      uint32_t hd = 0;
+      int c0 = 0, c1 = 0;
+      if (act[e]) {
+        hd = at(ix.h, d);
+        c0 = at(ix.csr, d);
+        c1 = at(ix.csr, d + 1);
+      }
+      const bool found = act[e] && bvalid[e] && lo[e] < ix.nh && hd == hv[e];
+      start[e] = found ? c0 : 0;
+      end[e] = found ? c1 : 0;
+    }
+  } else {  // INDEX 3
+    // Three rounds of loads: the bucket's bounds, its hashes (all at
+    // once: independent loads), the CSR pair.  A bucket holds the
+    // distinct hashes of its bucket id only, so where it holds fewer than
+    // 2^steps of them (the steps refine steps then end at its lower bound
+    // of hv) that bound is lo plus the bucket's hashes below hv, and hv
+    // is in the index iff it is in its bucket.  A thread with a wider
+    // bucket (a caller that passes fewer steps than the index was built
+    // with) takes INDEX 2.  A hash outside the directory's range is
+    // absent, unloaded.
     int lo[PP], hi[PP], lb[PP];
-    bool go[PP], found[PP];
+    bool found[PP];
     int wmax = 0;
 #pragma unroll
     for (int e = 0; e < PP; ++e) {
       const int rel = static_cast<int>(hv[e]) - base;
       const int b = static_cast<int>(static_cast<unsigned>(max(rel, 0)) >>
                                      shift);
-      go[e] = act[e] && rel >= 0 && b < ix.nb;
-      lo[e] = go[e] ? at(ix.bkt, b) : 0;
-      hi[e] = go[e] ? at(ix.bkt, b + 1) : 0;
+      const bool go = act[e] && rel >= 0 && b < ix.nb;
+      lo[e] = go ? at(ix.bkt, b) : 0;
+      hi[e] = go ? at(ix.bkt, b + 1) : 0;
       lb[e] = lo[e];
       found[e] = false;
       wmax = max(wmax, hi[e] - lo[e]);
     }
-    if (ix.steps >= 31 || wmax < (1 << ix.steps)) {
+    if (ix.steps < 31 && wmax >= (1 << ix.steps)) {
+      lookup_multi<2, PP>(ix, base, shift, hv, act, start, end);
+      return;
+    }
 #pragma unroll 4
-      for (int i = 0; i < wmax; ++i) {
-#pragma unroll
-        for (int e = 0; e < PP; ++e) {
-          if (lo[e] + i < hi[e]) {
-            const uint32_t v = at(ix.h, lo[e] + i);
-            lb[e] += v < hv[e];
-            found[e] |= v == hv[e];
-          }
-        }
-      }
-    } else {
-      for (int s = 0; s < ix.steps; ++s) {
-#pragma unroll
-        for (int e = 0; e < PP; ++e) {
-          if (lb[e] < hi[e]) {
-            const int mid = (lb[e] + hi[e]) >> 1;
-            const uint32_t v = at(ix.h, min(max(mid, 0), ix.nh - 1));
-            if (v < hv[e]) lb[e] = mid + 1; else hi[e] = mid;
-          }
-        }
-      }
+    for (int i = 0; i < wmax; ++i) {
 #pragma unroll
       for (int e = 0; e < PP; ++e) {
-        found[e] = go[e] && lb[e] < ix.nh &&
-                   at(ix.h, min(lb[e], ix.nh - 1)) == hv[e];
+        if (lo[e] + i < hi[e]) {
+          const uint32_t v = at(ix.h, lo[e] + i);
+          lb[e] += v < hv[e];
+          found[e] |= v == hv[e];
+        }
       }
     }
 #pragma unroll
