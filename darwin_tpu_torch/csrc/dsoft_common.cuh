@@ -115,7 +115,7 @@ __device__ T block_excl(T v, T id, Op op, long long* sh_raw, T* total) {
 // = the bucket directory of nb buckets, base and shift, steps refine
 // steps), 3 the same index and result with each bucket's hashes loaded
 // in one round.  dsoft.cu takes 2 and shard_scan 3, each the faster on
-// that kernel (PERF.md, PR 10).
+// that kernel (PERF.md §6).
 struct Index {
   const uint32_t* h;
   const int* csr;
