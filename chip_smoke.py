@@ -126,7 +126,20 @@ Phases; any failure ends the run with a nonzero exit code:
    fixture and on the E.coli slice with --seed-table (rank 0 builds it;
    both ranks' --merged-out equal to each other, to their darwin.<rank>.out
    files' union and to the one-process run's); entry.dryrun_multichip
-   over MESH entries.
+   over MESH entries;
+10. drain and bench: the engine's two-tier drain must stay off on the
+   E.coli slice (phase 4's device engine runs: no re-dispatch, the
+   gate's (tail, total) printed); tools/torch_drain_prof.py's skewed
+   workload (4.6 Mb genome, 1024 calls, every 16th on a 30 kb read, 512
+   slots, T = 320) with the counters zeroed under auto, where the gate
+   must engage and the engine re-dispatch, the kernels of its path
+   launched (the span fetch once an iteration of both tiers); then drain
+   off, auto and always in turns, DRAIN_REPS warm runs each (align_s
+   medians, iterations, active slot-iterations), one record set.  Then one
+   batch of darwin_tpu_torch.bench's step at B = 2048, T = 376 against
+   the plain versions' sink, and the bench at full size in a child
+   process, which must exit 0 with value > 0; its JSON line is printed
+   and the launches it reports count on the kernels line.
 
 The last three lines are a JSON summary of the kernels, nvidia-smi's
 name and power limit, and {"ok": true, "device": {...}}.  Without a
@@ -1515,11 +1528,14 @@ def _counted(counters: dict, run) -> tuple:
     return out, {name: c.launches for name, c in counters.items()}
 
 
-def phase_ecoli(dev, counters: dict, plain_overflow: int) -> dict:
+def phase_ecoli(dev, counters: dict, plain_overflow: int,
+                drains: dict) -> dict:
     """The five E.coli-shaped runs; returns {kernel: launches} summed
     over them.  The --dsoft device run must report plain_overflow
     overflowed reads (the plain version's count on the same
-    read-strands, phase 2)."""
+    read-strands, phase 2).  Fills drains with each device engine run's
+    {tag: (the drain gate's (tail, total) where the run shows it,
+    drain_redispatches)} (phase 10 checks them)."""
     from darwin_tpu_torch import cli, native
     from darwin_tpu_torch.config import Params
     from darwin_tpu_torch.eval.sensitivity import measure_sensitivity
@@ -1573,6 +1589,7 @@ def phase_ecoli(dev, counters: dict, plain_overflow: int) -> dict:
             recs, cc = run_device_merged(
                 genome, table, fwd, rev, params, same_file=True,
                 batch_size=512, prebuilt=prebuilt, metrics=m)
+            m["drain_gate"] = prebuilt[0].last_drain_gate
             lines = sorted(set(format_records(genome, reads, recs)))
             m["num_candidates"] = sum(cc)
             return "".join(line + "\n" for line in lines), m
@@ -1622,6 +1639,8 @@ def phase_ecoli(dev, counters: dict, plain_overflow: int) -> dict:
             for k, n in launches.items():
                 total[k] += n
             seed_s[tag] = m["seed_s"]
+            if "fetch_tiles" in ECOLI_RUNS[tag]:
+                drains[tag] = (m.get("drain_gate"), m["drain_redispatches"])
             if "--dsoft device" in tag:
                 log(f"    dsoft_overflow_reads {m['dsoft_overflow_reads']} "
                     f"(the plain version flags {plain_overflow})")
@@ -2933,8 +2952,143 @@ def sharded_kernel_args(dev) -> tuple:
             *counts[0][:2])
 
 
+# Phase 10: the kernels the skewed drain runs (the engine in bytes) and
+# the bench's step launch.
+DRAIN_KERNELS = ("align_tiles", "fetch_tiles", "traceback")
+BENCH_KERNELS = ("align_tiles", "traceback_packed6")
+DRAIN_REPS = 3
+
+
+def _drain_prof():
+    """tools/torch_drain_prof.py as a module."""
+    tools = str(REPO / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import torch_drain_prof
+
+    return torch_drain_prof
+
+
+def phase_drain(dev, counters: dict, ecoli_drains: dict) -> dict:
+    """Phase 10's drain: the gate off on the E.coli slice (phase 4's
+    runs, ecoli_drains); the skewed workload of tools/torch_drain_prof.py
+    under auto with the counters zeroed (the gate must engage and the
+    engine re-dispatch), then off, auto and always, DRAIN_REPS warm runs
+    each, one record set.  Returns {kernel: launches} of the counted
+    run."""
+    from darwin_tpu_torch.engine.device_batch import gate_engages
+
+    dp = _drain_prof()
+    for tag, (gate, redis) in ecoli_drains.items():
+        log(f"  E.coli {tag}: gate (tail, total) {gate}, drain_redispatches "
+            f"{redis}")
+        if redis or (gate is not None and gate_engages(*gate)):
+            raise AssertionError(f"the drain engaged on the E.coli slice "
+                                 f"({tag})")
+    if all(g is None for g, _ in ecoli_drains.values()):
+        raise AssertionError("no E.coli run evaluated the drain's gate")
+    t0 = time.perf_counter()
+    genome, bank, calls = dp.skewed_workload()
+    eng = dp.make_engine(genome, bank, dev)
+    log(f"  skewed workload: {len(calls)} calls, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    recs, launches = _counted(counters,
+                              lambda: eng.finish(eng.run_async(calls, False)))
+    log(f"  auto, counted: gate (tail, total) {eng.last_drain_gate}, "
+        f"re-dispatches {eng.last_drain_redispatches}, iterations "
+        f"{eng.last_iters}, launches {launches}")
+    if eng.last_drain_gate is None or not gate_engages(
+            *eng.last_drain_gate):
+        raise AssertionError(f"the gate did not engage on the skewed "
+                             f"workload: {eng.last_drain_gate}")
+    if eng.last_drain_redispatches < 1:
+        raise AssertionError("auto: no re-dispatch on the skewed workload")
+    idle = [k for k in DRAIN_KERNELS if launches[k] <= 0]
+    if idle or launches["fetch_tiles"] != eng.last_iters:
+        raise AssertionError(f"skewed auto run: {idle} not launched, or "
+                             f"fetch_tiles {launches['fetch_tiles']} times "
+                             f"in {eng.last_iters} iterations")
+    res = dp.engine_modes(eng, calls, DRAIN_REPS)
+    for mode, r in res.items():
+        log(f"  {mode}: align_s median {r['align_s_median']:.4f} s of "
+            f"{[round(t, 4) for t in r['align_s']]}, iterations "
+            f"{r['iters']}, active slot-iterations {r['active_sum']} "
+            f"(mean active/B {r['mean_active_over_B']:.4f}), re-dispatches "
+            f"{r['redispatches']}, records {len(r['records'])}")
+    want = dp.record_set(recs)
+    bad = [m for m, r in res.items() if r["records"] != want]
+    if bad or not want:
+        raise AssertionError(f"drain modes {bad} give another record set")
+    if (res["auto"]["redispatches"] < 1 or res["always"]["redispatches"] < 1
+            or res["off"]["redispatches"]):
+        raise AssertionError("re-dispatches: off must have none, auto and "
+                             "always at least one")
+    off, auto = res["off"]["align_s_median"], res["auto"]["align_s_median"]
+    log(f"  align_s auto / off: {auto / off:.4f}")
+    return launches
+
+
+def bench_bound(B: int, T: int) -> str:
+    """The bounds of one bench step at B full T x T tiles: the DP alone
+    (tiles and lengths in, packed6 words [B, T, T+1] int32 and four
+    int32 stats a tile out; DP_OPS_CELL a cell) and the whole step,
+    whose outputs are the walker's (the words stay on the card: an op
+    byte a step up to 2T steps, two int32 step counts and the stats a
+    tile)."""
+    cells = B * T * T
+    tiles_in = 2 * B * T + 2 * 4 * B
+    dp = bound(tiles_in + 4 * B * T * (T + 1) + 16 * B,
+               DP_OPS_CELL * cells)
+    step = bound(tiles_in + B * 2 * T + 8 * B + 16 * B,
+                 DP_OPS_CELL * cells)
+    return (f"DP {dp['bound_ms']:.4f} ms ({dp['bound_by']}), step "
+            f"{step['bound_ms']:.4f} ms ({step['bound_by']}), "
+            f"{cells / step['bound_ms'] / 1e6:.1f} GCUPS at the bound")
+
+
+def phase_bench(dev) -> tuple:
+    """Phase 10's bench: one batch's step sink at T = 376 against the
+    plain versions', then darwin_tpu_torch.bench at full size in a child
+    process.  Returns (its JSON line, {kernel: launches} it reports)."""
+    import torch
+
+    from darwin_tpu_torch import bench
+    from darwin_tpu_torch.lab import wrap32
+
+    b = bench.Batches(dev, bench.B, bench.T, 1)
+    got = wrap32(int(bench.one_step(b, 0, bench.ET)))
+    want = wrap32(int(bench.one_step(b, 0, bench.ET, plain=True)))
+    log(f"  step sink at B={bench.B}, T={bench.T}, ET={bench.ET}: kernels "
+        f"{got}, plain versions {want}")
+    if got != want:
+        raise AssertionError("bench step sink differs from the plain "
+                             "versions'")
+    del b
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "darwin_tpu_torch.bench"],
+                       cwd=REPO, capture_output=True, text=True, timeout=600)
+    for line in r.stderr.strip().splitlines()[-6:]:
+        log("  bench: " + line)
+    if r.returncode != 0:
+        raise AssertionError(f"darwin_tpu_torch.bench exited {r.returncode}")
+    lines = r.stdout.strip().splitlines()
+    out = json.loads(lines[-1])
+    log(f"  bench took {time.perf_counter() - t0:.1f} s")
+    if len(lines) != 1 or not out["value"] > 0:
+        raise AssertionError(f"bench printed {lines}")
+    launches = json.loads(next(ln for ln in r.stderr.splitlines()
+                               if ln.startswith("launches: "))[10:])
+    for t, et in bench.GEOMETRIES:
+        log(f"  bench bound at B={bench.B}, T={t}: " + bench_bound(bench.B, t))
+    idle = [k for k in BENCH_KERNELS if launches.get(k, 0) <= 0]
+    if idle:
+        raise AssertionError(f"bench: {idle} not launched")
+    return lines[-1], launches
+
+
 def run_phases(dev, golden_pool) -> tuple:
-    """Phases 1 (the build) to 9, phase 8's golden spec computed by
+    """Phases 1 (the build) to 10, phase 8's golden spec computed by
     golden_pool; returns the kernels line's numbers and launches, the
     main paths' first, then the lab's."""
     from darwin_tpu_torch import _build
@@ -2955,16 +3109,16 @@ def run_phases(dev, golden_pool) -> tuple:
     for line in _registers(report):
         log("  " + line)
 
-    log("[2/9] kernels against their plain versions (tolerance 0)")
+    log("[2/10] kernels against their plain versions (tolerance 0)")
     kres = phase_kernels(dev)
     kres["dsoft_device"], plain_overflow = phase_dsoft(dev)
     golden = golden_soak_start(golden_pool)
-    log("[3/9] fixtures against the reference binary's out.darwin, both "
+    log("[3/10] fixtures against the reference binary's out.darwin, both "
         "engines, and the device engine with --dsoft device")
     t0 = time.perf_counter()
     phase_fixtures(dev)
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
-    log("[4/9] E.coli-shaped slice: device engine in each tb_format, host "
+    log("[4/10] E.coli-shaped slice: device engine in each tb_format, host "
         "engine, device engine with --dsoft device")
     counters = {"align_tiles": align_tiles, "traceback": tb.traceback,
                 "traceback_packed": tb.traceback_packed,
@@ -2973,23 +3127,24 @@ def run_phases(dev, golden_pool) -> tuple:
                 "dsoft_device": dsoft_device_batch,
                 "dsoft_shard_scan": st.shard_scan,
                 "dsoft_shard_count": st.shard_count}
-    launches = phase_ecoli(dev, counters, plain_overflow)
-    log("[5/9] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
+    ecoli_drains: dict = {}
+    launches = phase_ecoli(dev, counters, plain_overflow, ecoli_drains)
+    log("[5/10] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
         "against its plain version")
     t0 = time.perf_counter()
     lres, llaunches = phase_lab(dev)
     log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
-    log("[6/9] score evaluator (darwin_tpu_torch.eval.score_eval)")
+    log("[6/10] score evaluator (darwin_tpu_torch.eval.score_eval)")
     launches["local_score_batch"] = phase_scoreeval(dev)
-    log("[7/9] phase 2's inputs through the checked library, in a child "
+    log("[7/10] phase 2's inputs through the checked library, in a child "
         "process")
     phase_checked(dev)
-    log("[8/9] golden soak: tests/test_fuzz_pipeline.py's pinned instances "
+    log("[8/10] golden soak: tests/test_fuzz_pipeline.py's pinned instances "
         "on the card against the golden spec")
     t0 = time.perf_counter()
     phase_golden(dev, golden)
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
-    log("[9/9] mesh and multi-host: the table-sharded D-SOFT's kernels, "
+    log("[9/10] mesh and multi-host: the table-sharded D-SOFT's kernels, "
         "the sharded D-SOFT, aligner and engine on a mesh of cuda:0 "
         "entries, the CLI's --mesh and --distributed, entry.py's "
         "dryrun")
@@ -3000,6 +3155,18 @@ def run_phases(dev, golden_pool) -> tuple:
         kres[k] = mres[k]
         launches[k] = mlaunches[k]
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+    log("[10/10] drain and bench: the gate off on the E.coli slice, the "
+        "skewed workload under drain off, auto and always, "
+        "darwin_tpu_torch.bench at full size")
+    t0 = time.perf_counter()
+    dlaunches = phase_drain(dev, counters, ecoli_drains)
+    bench_line, blaunches = phase_bench(dev)
+    print(bench_line, flush=True)
+    log(f"  launches: skewed auto run {dlaunches}, bench {blaunches}")
+    for part in (dlaunches, blaunches):
+        for k, n in part.items():
+            launches[k] += n
+    log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
     # The main paths' numbers first; the lab's for the kernels only the
     # lab runs.
     for k, v in lres.items():
@@ -3066,7 +3233,7 @@ def main(argv=None) -> int:
     if args.index_modes:
         print(json.dumps({"device": smi, **seed_times(dev)}))
         return 0
-    log(f"[1/9] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
+    log(f"[1/10] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     # Phase 8's golden spec runs on the host's cores from phase 3 on
     # (after phase 2's timings), in spawned processes (no CUDA state is

@@ -22,10 +22,23 @@ tensors:
 
 Where the JAX engine is one lax.while_loop, this one is a Python loop
 that launches the same steps eagerly.  Its only host syncs are the
-termination check, once per iteration, and the final download.  The
-loop runs every call to completion; the JAX engine's two-tier drain,
-compile prewarm and bank-size buckets exist for XLA compiles and TPU
-calibration and are not carried over.
+stop check, once per iteration (one read of calls_done, next_ci and
+the active slot count together), and the final download.  The JAX
+engine's compile prewarm and bank-size buckets exist for XLA compiles
+and are not carried over.
+
+The two-tier drain is the JAX engine's: the per-call state is one
+[N, 16] int32 matrix in its CSTATE column layout (fresh_state), which
+the loop takes as its start and returns at its end.  With the drain
+on, the loop stops once every call has been issued and fewer than B/4
+slots are still active; finish() then resumes the unfinished calls
+from their exported state in a loop of slots(n_undone) slots, and
+their records follow the first tier's.  The drain engages where the
+JAX engine's does: N > B >= 256 and, with the gate on, a slot-pool
+simulation of the calls' costs (_drain_tail_span) that predicts a
+deep straggler tail.  The flags drain and drain_gate are the JAX
+engine's drain_enabled: (True, True) its auto, (True, False) its
+"always", drain=False its False.
 
 ShardedGactEngine runs one DeviceGactEngine a mesh entry (banks
 replicated on each), the calls placed by balance_calls, the entries'
@@ -33,6 +46,8 @@ loops run in turn (parallel/collectives.on_each).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -110,6 +125,76 @@ def _score_ops(opsT: torch.Tensor, mbitsT: torch.Tensor,
     return delta, new_prev_gap, first_col_gap, has_ops, n_match
 
 
+# The per-call state matrix's columns (the JAX engine's CSTATE layout).
+CSTATE_COLS = ("rpos", "qpos", "rbpos", "qbpos", "first", "reverse",
+               "prev_gap", "term", "done", "score", "nmat", "ncol", "hp0",
+               "hp1", "fg0", "fg1")
+DONE = CSTATE_COLS.index("done")
+_INT_COLS = {"rpos", "qpos", "rbpos", "qbpos", "score", "nmat", "ncol"}
+
+
+class LoopOut(NamedTuple):
+    """What one slot loop leaves: the record table and its count (on
+    the device), the iterations and active slot-iterations it ran,
+    calls_done (host ints), and the final [N, 16] state matrix on the
+    device where the drain stopped the loop early (else None)."""
+    records: torch.Tensor
+    nrec: torch.Tensor
+    iters: int
+    act_sum: int
+    calls_done: int
+    state: torch.Tensor | None
+
+
+def fresh_state(ref_pos, query_pos) -> np.ndarray:
+    """[N, 16] per-call state matrix for fresh anchors (CSTATE_COLS;
+    darwin_tpu's DeviceGactEngine._fresh_state)."""
+    N = len(ref_pos)
+    cs = np.zeros((N, 16), np.int32)
+    cs[:, 0] = cs[:, 2] = ref_pos
+    cs[:, 1] = cs[:, 3] = query_pos
+    cs[:, 4] = 1  # first
+    cs[:, 5] = 1  # reverse phase
+    return cs
+
+
+def _drain_tail_span(costs: np.ndarray, B: int) -> tuple[int, int]:
+    """Event-driven slot-pool simulation: N calls with per-call
+    iteration costs, issued in order into B persistent slots (a slot
+    takes the next queued call when its current one finishes — the
+    engine's refill rule).  Returns (tail, total): total = predicted
+    engine iterations, tail = iterations the pool runs with fewer than
+    B//4 active slots, i.e. the span the two-tier drain could hand to
+    a small-B engine.  O(N log B) on the host, run once per dispatch.
+    """
+    import heapq
+
+    n = len(costs)
+    k = min(B, n)
+    finish = [int(c) for c in costs[:k]]
+    heapq.heapify(finish)
+    for c in costs[k:]:
+        t = heapq.heappop(finish)
+        heapq.heappush(finish, t + int(c))
+    f = sorted(finish, reverse=True)
+    total = f[0] if f else 0
+    q = B // 4
+    tail = total - f[q - 1] if q - 1 < len(f) else total
+    return tail, total
+
+
+# The auto gate (darwin_tpu's, calibrated on the TPU): the drain
+# engages only on a deep straggler tail that also dominates the run.
+DRAIN_MIN_TAIL_ITERS = 64
+DRAIN_MIN_TAIL_FRAC = 0.5
+
+
+def gate_engages(tail: int, total: int) -> bool:
+    """Whether the auto gate engages on _drain_tail_span's (tail,
+    total)."""
+    return tail >= DRAIN_MIN_TAIL_ITERS and tail >= DRAIN_MIN_TAIL_FRAC * total
+
+
 class DeviceGactEngine:
     """GACT engine whose slot loop runs on one device, with
     device-resident sequence banks."""
@@ -120,7 +205,8 @@ class DeviceGactEngine:
                  mismatch: int, gap_open: int, gap_extend: int,
                  same_file: bool, batch_size: int = 256,
                  compute_score: bool = True,
-                 device: torch.device | str, tb_format: str = "bytes"):
+                 device: torch.device | str, tb_format: str = "bytes",
+                 drain: bool = True, drain_gate: bool = True):
         if tb_format not in WALKERS:
             raise ValueError(f"tb_format {tb_format!r} not in "
                              f"{tuple(WALKERS)}")
@@ -144,12 +230,18 @@ class DeviceGactEngine:
         self.batch_size = batch_size
         self.compute_score = compute_score
         self.tb_format = tb_format
+        self.drain = drain
+        self.drain_gate = drain_gate
         self._gbank, self._qbank = device_banks(genome, queries,
                                                 self.device)
         self._g_start_all = (genome.chr_id_to_start_bin.astype(np.int64)
                              * genome.bin_size)
         self.last_iters = 0
         self.last_active_sum = 0
+        self.last_drain_redispatches = 0
+        # The gate's (tail, total) of the last run, None where it was
+        # not evaluated.
+        self.last_drain_gate = None
 
     def slots(self, n_calls: int) -> int:
         """Slot count for an n_calls batch: surplus slots only add
@@ -161,11 +253,12 @@ class DeviceGactEngine:
         return self.finish(self.run_async(calls, complement))
 
     def run_async(self, calls: GactCalls, complement, bank_ids=None):
-        """Run the whole batch on the device; returns a handle for
-        finish(), which downloads the records.
+        """Run the batch on the device (its first tier, where the drain
+        engages); returns a handle for finish(), which downloads the
+        records.
 
         The loop's launches are enqueued as it goes; it waits for the
-        device only on its per-iteration termination check.
+        device only on its per-iteration stop check.
         complement: bool for a single-strand batch, or an [N] array for
         merged-strand batches.  bank_ids (default query_id) indexes the
         query bank when it differs from the record read id (merged
@@ -180,22 +273,62 @@ class DeviceGactEngine:
                                                      dtype=np.int64)
         comp = np.broadcast_to(np.asarray(complement, dtype=np.int64),
                                (N,))
-        return self._loop(rid, qid, bid, comp, calls.ref_pos,
-                          calls.query_pos)
+        meta = (rid, qid, bid, comp)
+        B = self.slots(N)
+        return meta, self._loop(meta, fresh_state(calls.ref_pos,
+                                                  calls.query_pos),
+                                self.drain_threshold(bid, B))
+
+    def drain_threshold(self, bid: np.ndarray, B: int) -> int:
+        """The first tier's drain: the loop stops once every call is
+        issued and fewer than this many slots are active (0: it runs to
+        completion).  darwin_tpu's _dispatch gate; sets
+        last_drain_gate to the simulation's (tail, total) where the
+        gate ran it."""
+        self.last_drain_gate = None
+        if not (self.drain and len(bid) > B and B >= 256):
+            return 0
+        if self.drain_gate:
+            costs = self.queries.lengths[bid] // max(1, self.ET) + 2
+            self.last_drain_gate = _drain_tail_span(costs, B)
+            if not gate_engages(*self.last_drain_gate):
+                return 0
+        return B // 4
 
     def finish(self, handle) -> list[OverlapRecord]:
-        """Download the records of a run_async handle."""
+        """Download the records of a run_async handle and, where the
+        drain stopped the loop early, resume the unfinished calls
+        (done == 0, in index order) from the exported state in a loop
+        of slots(n_undone) slots that runs to completion; its records
+        follow the first tier's."""
+        self.last_drain_redispatches = 0
         if handle is None:
             return []
-        records, nrec, iters, act_sum = handle
-        n = int(nrec)
-        self.last_iters = iters
-        self.last_active_sum = int(act_sum)
+        meta, out = handle
+        recs = self._records(out)
+        self.last_iters, self.last_active_sum = out.iters, out.act_sum
+        if out.calls_done < len(meta[0]):
+            state = out.state.cpu().numpy()
+            idx = np.flatnonzero(state[:, DONE] == 0)
+            out = self._loop(tuple(m[idx] for m in meta), state[idx], 0)
+            recs += self._records(out)
+            self.last_iters += out.iters
+            self.last_active_sum += out.act_sum
+            self.last_drain_redispatches = 1
+        return recs
+
+    @staticmethod
+    def _records(out: LoopOut) -> list[OverlapRecord]:
         return [OverlapRecord(*(int(x) for x in row[:7]), bool(row[7]),
                               int(row[8]), int(row[9]))
-                for row in records[:n].cpu().numpy()]
+                for row in out.records[:int(out.nrec)].cpu().numpy()]
 
-    def _loop(self, rid, qid, bid, comp, ref_pos, query_pos):
+    def _loop(self, meta, cstate: np.ndarray, drain: int) -> LoopOut:
+        """The slot loop over the calls of meta (rid, qid, bid, comp),
+        started from cstate ([N, 16], CSTATE_COLS); stops when every
+        call is done or, with drain > 0, once every call is issued and
+        fewer than drain slots are active."""
+        rid, qid, bid, comp = meta
         dev = self.device
         N = len(rid)
         B = self.slots(N)
@@ -209,19 +342,15 @@ class DeviceGactEngine:
             a[:N] = x
             return torch.from_numpy(a).to(device=dev, dtype=dtype)
 
-        def flag(value: bool):
-            return torch.full((N + 1,), value, dtype=torch.bool, device=dev)
-
-        # Per-call state.
-        rpos = table(ref_pos, I32)
-        qpos = table(query_pos, I32)
-        rbpos = rpos.clone()
-        qbpos = qpos.clone()
-        first, reverse = flag(True), flag(True)
-        prev_gap, termp = flag(False), flag(False)
-        hp0, hp1, fg0, fg1 = (flag(False) for _ in range(4))
-        score, nmat, ncol = (torch.zeros(N + 1, dtype=I32, device=dev)
-                             for _ in range(3))
+        # Per-call state, from the [N, 16] matrix (dump row 0); the loop
+        # updates these columns in place.
+        cs = torch.zeros((N + 1, 16), dtype=I32, device=dev)
+        cs[:N] = torch.from_numpy(np.ascontiguousarray(cstate, np.int32)
+                                  ).to(dev)
+        cols = [cs[:, i].clone() if name in _INT_COLS else cs[:, i] != 0
+                for i, name in enumerate(CSTATE_COLS)]
+        (rpos, qpos, rbpos, qbpos, first, reverse, prev_gap, termp, donep,
+         score, nmat, ncol, hp0, hp1, fg0, fg1) = cols
         # Per-call constants.
         ridp = table(rid, I32)
         qidp = table(qid, I32)
@@ -242,11 +371,14 @@ class DeviceGactEngine:
         ones_b = torch.ones(B, dtype=torch.bool, device=dev)
         zeros_i = torch.zeros(B, dtype=I32, device=dev)
         iters = 0
+        # The stop check's host copies: calls done, next call to issue,
+        # slots active after the refill (darwin_tpu's loop condition).
+        n_done, n_next, n_active, n_act_sum = 0, min(B, N), min(B, N), 0
 
         def at(mask, ci):
             return torch.where(mask, ci, DUMP)
 
-        while int(calls_done) < N:
+        while n_done < N and not (n_next >= N and n_active < drain):
             # ---- prepare (gact.cpp:298-410) ---------------------------
             act = assign >= 0
             ci = at(act, assign)
@@ -289,6 +421,7 @@ class DeviceGactEngine:
             nrec = nrec + keep64.sum()
             done64 = fwd_done.to(I64)
             calls_done = calls_done + done64.sum()
+            donep[at(fwd_done, ci)] = ones_b
 
             # Slot refill.
             new_ci = next_ci + torch.cumsum(done64, 0) - done64
@@ -383,8 +516,14 @@ class DeviceGactEngine:
             termp[at(act2, ci2)] = termp[ci2] | new_term
 
             iters += 1
-            act_sum = act_sum + act2.sum()
-        return records, nrec, iters, act_sum
+            active = act2.sum()
+            act_sum = act_sum + active
+            n_done, n_next, n_active, n_act_sum = torch.stack(
+                [calls_done, next_ci, active, act_sum]).tolist()
+        state = None
+        if n_done < N:
+            state = torch.stack([c[:N].to(I32) for c in cols], dim=1)
+        return LoopOut(records, nrec, iters, n_act_sum, n_done, state)
 
 
 def balance_calls(costs: np.ndarray, nd: int) -> list[np.ndarray]:
@@ -436,10 +575,14 @@ class ShardedGactEngine:
         self.genome = genome
         self.queries = queries
         self.device = mesh.devices[0]
+        # Sharded runs never drain (darwin_tpu passes drain=0 to its
+        # sharded dispatches).
+        kw = {**kw, "drain": False}
         self.engines = [DeviceGactEngine(genome, queries, device=d, **kw)
                         for d in mesh.devices]
         self.last_iters = 0
         self.last_active_sum = 0
+        self.last_drain_redispatches = 0
 
     def run(self, calls: GactCalls, complement) -> list[OverlapRecord]:
         return self.finish(self.run_async(calls, complement))

@@ -315,9 +315,10 @@ def run_device_merged(genome: Genome, table: SeedTable,
     when prebuilt is None.
 
     Returns (records, [n_fwd_candidates, n_rev_candidates]).  With
-    metrics, adds seed_s, align_s, engine_iters and engine_active_sum
-    (slot-iterations with a call in flight) to it, and with the device
-    D-SOFT dsoft_overflow_reads.
+    metrics, adds seed_s, align_s, engine_iters, engine_active_sum
+    (slot-iterations with a call in flight) and drain_redispatches (the
+    engine's second tiers) to it, and with the device D-SOFT
+    dsoft_overflow_reads.
     """
     if prebuilt is not None:
         dev, merged, num_reads = prebuilt
@@ -339,16 +340,16 @@ def run_device_merged(genome: Genome, table: SeedTable,
     counts = [int((comp == 0).sum()), int((comp == 1).sum())]
     calls = GactCalls(calls_m.ref_id, calls_m.query_id % num_reads,
                       calls_m.ref_pos, calls_m.query_pos)
-    dev.last_iters = dev.last_active_sum = 0
+    dev.last_iters = dev.last_active_sum = dev.last_drain_redispatches = 0
     recs = dev.finish(dev.run_async(calls, comp, calls_m.query_id))
     if metrics is not None:
         metrics["seed_s"] = metrics.get("seed_s", 0.0) + t1 - t0
         metrics["align_s"] = (metrics.get("align_s", 0.0)
                               + time.perf_counter() - t1)
-        metrics["engine_iters"] = (metrics.get("engine_iters", 0)
-                                   + dev.last_iters)
-        metrics["engine_active_sum"] = (metrics.get("engine_active_sum", 0)
-                                        + dev.last_active_sum)
+        for key, n in (("engine_iters", dev.last_iters),
+                       ("engine_active_sum", dev.last_active_sum),
+                       ("drain_redispatches", dev.last_drain_redispatches)):
+            metrics[key] = metrics.get(key, 0) + n
     return recs, counts
 
 

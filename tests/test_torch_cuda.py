@@ -19,7 +19,8 @@ import torch
 
 import chip_smoke
 from darwin_tpu_torch.config import Params
-from darwin_tpu_torch.engine.device_batch import DeviceGactEngine
+from darwin_tpu_torch.engine.device_batch import (DeviceGactEngine,
+                                                  gate_engages)
 from darwin_tpu_torch.ops import (dp, plane2, scanshift, swscore, tile_fetch,
                                   traceback)
 from darwin_tpu_torch.ops.common import PAD_QUERY, PAD_REF
@@ -903,3 +904,45 @@ def test_mesh_paths_on_card(cuda, tmp_path):
         got[m is None] = set(format_records(genome, reads, recs))
     assert got[True] == got[False] == set(
         (TINY / "out.darwin").read_text().splitlines())
+
+
+def test_drain_on_card_with_one_sync_per_iteration(cuda):
+    """tools/torch_drain_prof.py's skewed workload on the card: under
+    auto the gate engages and a second tier runs; the records are drain
+    off's set, with the same iterations and active slot-iterations; the
+    loop waits for the device once an iteration in both tiers."""
+    dp = chip_smoke._drain_prof()
+    genome, bank, calls = dp.skewed_workload()
+    eng = dp.make_engine(genome, bank, cuda)
+    eng.drain = False
+    off = eng.finish(eng.run_async(calls, False))
+    off_counts = (eng.last_iters, eng.last_active_sum)
+    assert eng.last_drain_redispatches == 0
+    eng.drain = True
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            recs = eng.finish(eng.run_async(calls, False))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    assert gate_engages(*eng.last_drain_gate)
+    assert eng.last_drain_redispatches == 1
+    assert (eng.last_iters, eng.last_active_sum) == off_counts
+    assert dp.record_set(recs) == dp.record_set(off) and recs
+    # Besides the per-iteration check: each tier's set-up uploads and
+    # downloads, and the first tier's state.
+    assert eng.last_iters <= syncs <= eng.last_iters + 40, syncs
+
+
+@pytest.mark.parametrize("T,et", [(376, 256), (320, 200)])
+def test_bench_step_matches_plain(cuda, T, et):
+    """darwin_tpu_torch.bench's step sink from the kernels equals the
+    plain versions' at both of its geometries."""
+    from darwin_tpu_torch import bench
+
+    b = bench.Batches(cuda, 64, T, 2)
+    for v in range(2):
+        assert int(bench.one_step(b, v, et)) == int(
+            bench.one_step(b, v, et, plain=True))

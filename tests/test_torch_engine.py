@@ -138,6 +138,7 @@ def test_run_pipeline_tiny_matches_reference(data_dir):
                                    .splitlines())
     assert res.num_candidates_for + res.num_candidates_rev > 0
     assert metrics["engine_iters"] > 0 and metrics["align_s"] > 0
+    assert metrics["drain_redispatches"] == 0  # tiny: N <= B
     # darwin_tpu.pipeline.run_pipeline's keys.
     assert {"genome_banks_s", "engine_build_s", "table_s", "seed_s",
             "align_s", "format_s"} <= metrics.keys()

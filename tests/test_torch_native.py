@@ -47,6 +47,28 @@ def test_port_library_builds_and_loads():
     assert "-pthread" in native.CXX_FLAGS
 
 
+def test_stress_program_passes_on_the_ports_build(tmp_path):
+    """The native library's stress program (tools/torch_native_stress.py),
+    built with the port's -pthread flags, finds every thread count's
+    table build and D-SOFT batch the same."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "tools" / \
+        "torch_native_stress.py"
+    spec = importlib.util.spec_from_file_location("torch_native_stress",
+                                                  path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert "-pthread" in tool.flags() and "-fopenmp" not in tool.flags()
+    exe, err = tool.build(tmp_path)
+    assert err is None, err
+    r = tool.run(exe, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "STRESS OK" in r.stdout
+    assert r.stdout.count("deterministic") == 4
+
+
 def test_library_key_follows_cpu_line_and_rebuilds(tmp_path):
     """Another CPU model line names another library, which is built
     anew; an existing library is not rebuilt."""

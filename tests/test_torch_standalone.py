@@ -71,7 +71,9 @@ def _imports_darwin_tpu(path: Path) -> list[str]:
 
 
 PORT_TOOLS = ("torch_profile_ecoli.py", "torch_fuzz_soak.py",
-              "torch_dsoft_phases.py", "torch_mesh_engine.py")
+              "torch_dsoft_phases.py", "torch_mesh_engine.py",
+              "torch_bench_e2e.py", "torch_drain_prof.py",
+              "torch_native_stress.py")
 
 
 def _tool(name: str):
@@ -102,6 +104,14 @@ def test_phase_tool_patches_the_kernels_it_times(sharded):
         assert out.count("STAMP(") == 9
 
 
+def test_stress_source_is_the_references():
+    """native_src/stress_main.cpp, which tools/torch_native_stress.py
+    builds, is darwin_tpu/native/src/stress_main.cpp byte for byte."""
+    assert (REPO / "darwin_tpu_torch" / "native_src" / "stress_main.cpp"
+            ).read_bytes() == (REPO / "darwin_tpu" / "native" / "src"
+                               / "stress_main.cpp").read_bytes()
+
+
 def test_no_source_of_the_port_imports_darwin_tpu():
     files = [*sorted((REPO / "darwin_tpu_torch").rglob("*.py")),
              REPO / "chip_smoke.py",
@@ -127,8 +137,7 @@ assert not missing, missing
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-for tool in ("torch_profile_ecoli", "torch_fuzz_soak", "torch_dsoft_phases",
-             "torch_mesh_engine"):
+for tool in sys.argv[3].split(","):
     spec = importlib.util.spec_from_file_location(
         tool, sys.argv[1] + "/tools/" + tool + ".py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -136,12 +145,13 @@ new = set(sys.modules) - before
 bad = sorted(m for m in new if m.split(".")[0] in ("jax", "darwin_tpu"))
 print(len(names), bad)
 """
-    # The mesh and multi-host layers and entry.py among them.
+    # The mesh and multi-host layers, entry.py and bench.py among them.
     layers = ",".join(f"darwin_tpu_torch.{m}" for m in (
         "parallel.mesh", "parallel.collectives", "parallel.distributed",
-        "dsoft.sharded_table", "entry"))
-    out = subprocess.run([sys.executable, "-c", code, str(REPO), layers],
-                         cwd=REPO, capture_output=True, text=True,
+        "dsoft.sharded_table", "entry", "bench"))
+    tools = ",".join(t[:-3] for t in PORT_TOOLS)
+    out = subprocess.run([sys.executable, "-c", code, str(REPO), layers,
+                          tools], cwd=REPO, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     n, bad = out.stdout.split(" ", 1)
