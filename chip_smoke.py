@@ -139,7 +139,26 @@ Phases; any failure ends the run with a nonzero exit code:
    batch of darwin_tpu_torch.bench's step at B = 2048, T = 376 against
    the plain versions' sink, and the bench at full size in a child
    process, which must exit 0 with value > 0; its JSON line is printed
-   and the launches it reports count on the kernels line.
+   and the launches it reports count on the kernels line;
+11. scale and serving (tools/torch_scale_test.py,
+   torch_resident_serve.py, torch_bigcoord_dryrun.py): the guided
+   multi-chromosome dataset of tests/data/guided_shape (4 pieces of a
+   4.6 Mb genome, 4600 x 10 kb reads at 12% error, seed 42:
+   GUIDED_SHAPE_FLAGS) rebuilt by torch_scale_test's generator, its two
+   digests checked, then run through the device engine (bytes walker)
+   with the host D-SOFT and with the device D-SOFT, each record set
+   equal to jax_cpu.darwin (darwin_tpu's own CPU output), with its
+   sensitivity, specificity and reads/s; resident serving on the E.coli
+   slice (seed table, banks and engine built once, RESIDENT_REPS batches
+   after a first), every batch's records phase 4's; the bigcoord run
+   just past 2^31 bases (BIGCOORD_FLAGS: 40 pieces, every piece but the
+   last N), where the span fetch (on the genome bank past 2^31 bytes)
+   and the D-SOFT kernel (on the reads' strands, the table's positions
+   past 2^31) are held to their plain versions, then every read must
+   re-map through the device engine with the host and with the device
+   D-SOFT; peak host RSS and device memory.  Every run is counted, the
+   kernels of its path must launch, and its launches count on the
+   kernels line.
 
 The last three lines are a JSON summary of the kernels, nvidia-smi's
 name and power limit, and {"ok": true, "device": {...}}.  Without a
@@ -2959,14 +2978,19 @@ BENCH_KERNELS = ("align_tiles", "traceback_packed6")
 DRAIN_REPS = 3
 
 
-def _drain_prof():
-    """tools/torch_drain_prof.py as a module."""
+def _tool(name: str):
+    """tools/<name>.py as a module."""
+    import importlib
+
     tools = str(REPO / "tools")
     if tools not in sys.path:
         sys.path.insert(0, tools)
-    import torch_drain_prof
+    return importlib.import_module(name)
 
-    return torch_drain_prof
+
+def _drain_prof():
+    """tools/torch_drain_prof.py as a module."""
+    return _tool("torch_drain_prof")
 
 
 def phase_drain(dev, counters: dict, ecoli_drains: dict) -> dict:
@@ -3087,8 +3111,201 @@ def phase_bench(dev) -> tuple:
     return lines[-1], launches
 
 
+# Phase 11: tests/data/guided_shape's dataset, as tools/torch_scale_test.py
+# makes it from these flags (its README gives the JAX tool's command),
+# and the bigcoord run just past 2^31 bases, every piece but the last N.
+GUIDED_SHAPE_FLAGS = ("--guided", "--chromosomes", "4", "--genome", "4600000",
+                      "--reads", "4600", "--read-len", "10000", "--error",
+                      "0.12", "--seed", "42")
+BIGCOORD_FLAGS = ("--gb", "2.06", "--pieces", "40", "--filler", "N",
+                  "--engine", "device")
+SCALE_KERNELS = ("align_tiles", "traceback", "fetch_tiles")
+RESIDENT_REPS = 3
+
+
+def _launched(tag: str, launches: dict, iters=None, extra=()) -> None:
+    """Fails unless SCALE_KERNELS and extra launched in a run and, where
+    its engine iterations are given, the span fetch once an iteration."""
+    idle = [k for k in (*SCALE_KERNELS, *extra) if launches[k] <= 0]
+    if idle or iters not in (None, launches["fetch_tiles"]):
+        raise AssertionError(f"{tag}: {idle} not launched, or fetch_tiles "
+                             f"{launches['fetch_tiles']} times in {iters} "
+                             f"engine iterations")
+
+
+def guided_shape_digests() -> dict:
+    """{file: sha256} of tests/data/guided_shape/dataset.sha256."""
+    lines = (DATA / "guided_shape" / "dataset.sha256").read_text()
+    return {f: h for h, f in (ln.split() for ln in lines.splitlines())}
+
+
+def bigcoord_kernel_checks(b: dict, params, dev) -> None:
+    """The span fetch and the D-SOFT kernel against their plain versions
+    on a bigcoord build's inputs: tiles fetched from its genome bank past
+    2^31 bytes (spans at the reads' origins in the last piece, at random
+    in it and at the bank's end), and its reads' strands seeded from
+    its table, whose positions are uint32 lanes past 2^31 (at least one
+    hit must lie in the last piece, which starts past 2^31)."""
+    import numpy as np
+    import torch
+
+    from darwin_tpu_torch.dsoft.device import (dsoft_device_batch,
+                                               dsoft_device_batch_torch,
+                                               pad_reads)
+    from darwin_tpu_torch.engine.device_batch import device_banks
+    from darwin_tpu_torch.engine.seqbank import SeqBank
+    from darwin_tpu_torch.ops.common import PAD_QUERY, PAD_REF
+    from darwin_tpu_torch.ops.tile_fetch import (fetch_tile_pair,
+                                                 fetch_tile_pair_torch)
+    from darwin_tpu_torch.pipeline import _index_on
+
+    bc = _tool("torch_bigcoord_dryrun")
+    genome, table, reads = b["genome"], b["table"], b["reads"]
+    strands = SeqBank([*reads, *(bc.revcomp_codes(r) for r in reads)])
+    gbank, qbank = device_banks(genome, strands, dev)
+    n = gbank.shape[0]
+    B, T = 512, params.tile_size
+    rng = np.random.default_rng(2031)
+    last = int(genome.chr_id_to_start_bin[-1]) * genome.bin_size
+    g = np.concatenate([
+        last + np.repeat(b["origins"], B // 4 // len(reads))
+        + rng.integers(-T, T, size=B // 4 // len(reads) * len(reads)),
+        rng.integers(last, n, size=B // 2),
+        n - rng.integers(-T, 2 * T, size=B // 4)])
+    g = np.resize(g, B)
+    rl = rng.integers(0, T + 1, size=B, dtype=np.int32)
+    ql = rng.integers(0, T + 1, size=B, dtype=np.int32)
+    q = rng.integers(0, qbank.shape[0], size=B)
+    spans = [torch.from_numpy(x).to(dev) for x in (g, q, rl, ql)]
+    back = torch.from_numpy(rng.random(B) < 0.5).to(dev)
+    kw = dict(T=T, pad_ref=PAD_REF, pad_query=PAD_QUERY)
+    got = fetch_tile_pair(gbank, qbank, *spans, back, **kw)
+    want = fetch_tile_pair_torch(gbank, qbank, *spans, back, **kw)
+    if not _same(got, want):
+        raise AssertionError("fetch_tile_pair differs from its plain "
+                             "version on the bank past 2^31")
+    log(f"  fetch_tile_pair on the {n}-byte bank, spans from "
+        f"{int(g.min())} to {int(g.max())}: exact (B = {B}, T = {T})")
+    del gbank, qbank
+
+    th, tpos, steps = _index_on(table, "twolevel", dev)
+    Q, lens = pad_reads(strands, range(len(strands.lengths)))
+    args = (torch.from_numpy(Q).to(dev), torch.from_numpy(lens).to(dev),
+            th, tpos)
+    kw = dict(k=table.k, w=table.w, bin_size=table.bin_size,
+              kmer_max_occ=table.kmer_max_occurence,
+              num_seeds_cap=params.num_seeds, threshold=params.threshold,
+              max_candidates=params.max_candidates, tup_max=TUP_MAX,
+              cand_max=CAND_MAX, index="twolevel", tl_steps=steps)
+    got = dsoft_device_batch(*args, **kw)
+    if not _same(got, dsoft_device_batch_torch(*args, **kw)):
+        raise AssertionError("dsoft_device differs from its plain version "
+                             "on the table past 2^31")
+    hits, counts = got[0].cpu().numpy(), got[2].cpu().numpy()
+    top = max((int(hits[i, :c].max()) for i, c in enumerate(counts) if c),
+              default=0)
+    log(f"  dsoft_device on {len(counts)} read-strands against the "
+        f"{len(table.pos)}-entry table: exact, {int(counts.sum())} "
+        f"candidates, the largest hit {top} ({top / 2**31:.4f} x 2^31)")
+    if not top > last:
+        raise AssertionError("no D-SOFT hit in the last piece")
+
+
+def phase_scale(dev, counters: dict, ecoli_want: str) -> dict:
+    """Phase 11: guided_shape through the device engine under each
+    D-SOFT, resident serving on the E.coli slice, the bigcoord run past
+    2^31; each run with the counters zeroed just before it.  Returns
+    {kernel: launches} summed over the runs."""
+    import torch
+
+    from darwin_tpu_torch.config import Params
+    from darwin_tpu_torch.io.fasta import FastaRecord
+
+    st = _tool("torch_scale_test")
+    rs = _tool("torch_resident_serve")
+    bc = _tool("torch_bigcoord_dryrun")
+    mu = _tool("torch_mem_usage")
+    total = dict.fromkeys(counters, 0)
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] += n
+
+    want = (DATA / "guided_shape" / "jax_cpu.darwin").read_text().splitlines()
+    with tempfile.TemporaryDirectory() as td:
+        args = st.parse_args([*GUIDED_SHAPE_FLAGS, "--workdir", td])
+        t0 = time.perf_counter()
+        st.make_dataset(args, Path(td))
+        got = {f: hashlib.sha256((Path(td) / f).read_bytes()).hexdigest()
+               for f in ("genome.fasta", "reads.fasta")}
+        log(f"  guided_shape made in {time.perf_counter() - t0:.1f} s: "
+            f"{got}")
+        if got != guided_shape_digests():
+            raise AssertionError(f"guided_shape digests {got} != "
+                                 f"{guided_shape_digests()}")
+        for dsoft in ("host", "device"):
+            args = st.parse_args([*GUIDED_SHAPE_FLAGS, "--dsoft", dsoft,
+                                  "--warm", "0", "--workdir", td])
+            out, launches = _counted(counters, lambda: st.run(args))
+            log(f"  guided_shape, device engine, {dsoft} D-SOFT: records "
+                f"{out['records']} (expected {len(want)}), wall "
+                f"{out['cold_s']:.3f} s, seed table {out['table_s']:.3f} s, "
+                f"seed_s {out['seed_s']:.3f}, align_s {out['align_s']:.3f}, "
+                f"reads/s {out['reads_per_s']:.1f} (over seed_s + align_s "
+                f"{out['reads_per_s_seed_align']:.1f}), sensitivity "
+                f"{out['sensitivity']:.6f}, specificity "
+                f"{out['specificity']:.6f}; launches {launches}")
+            if out["records_list"] != want:
+                w, g = set(want), set(out["records_list"])
+                raise AssertionError(
+                    f"guided_shape records differ ({dsoft} D-SOFT): missing "
+                    f"{sorted(w - g)[:3]} extra {sorted(g - w)[:3]}")
+            _launched(f"guided_shape {dsoft}", launches, out["engine_iters"],
+                      ("dsoft_device",) if dsoft == "device" else ())
+            add(launches)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    recs = [FastaRecord([n], s) for n, s in ecoli_reads()]
+    res, launches = _counted(counters, lambda: rs.serve(
+        recs, recs, Params(), same_file=True, reps=RESIDENT_REPS,
+        batch_size=512, device=dev, log=lambda s: log("  resident: " + s)))
+    ecoli = ecoli_want.splitlines()
+    bad = [i for i, b in enumerate(res["batches"]) if b["records"] != ecoli]
+    if bad or res["first"] != ecoli or len(res["batches"]) != RESIDENT_REPS:
+        raise AssertionError(f"resident batches {bad} (or the first) differ "
+                             f"from phase 4's records")
+    log(f"  resident serving, E.coli slice: {RESIDENT_REPS} batches and the "
+        f"first equal to phase 4's records; launches {launches}; "
+        + mu.memory_line(dev))
+    _launched("resident serving", launches)
+    add(launches)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = Params()
+    args = bc.parse_args(list(BIGCOORD_FLAGS))
+    t0 = time.perf_counter()
+    b = bc.build(args, params, log=lambda s: log("  bigcoord: " + s))
+    log(f"  bigcoord build: {time.perf_counter() - t0:.1f} s")
+    if not b["big"]:
+        raise AssertionError(f"{BIGCOORD_FLAGS}: not past 2^31")
+    bigcoord_kernel_checks(b, params, dev)
+    for dsoft in ("host", "device"):
+        t0 = time.perf_counter()
+        _, launches = _counted(counters, lambda: bc.remap(
+            b, params, engine="device", dsoft=dsoft, batch=args.batch,
+            device=dev, log=lambda s: log("  bigcoord: " + s)))
+        log(f"  bigcoord, device engine, {dsoft} D-SOFT: every read re-maps "
+            f"past 2^31 ({time.perf_counter() - t0:.1f} s); launches "
+            f"{launches}")
+        _launched(f"bigcoord {dsoft}", launches,
+                  extra=("dsoft_device",) if dsoft == "device" else ())
+        add(launches)
+    log("  " + mu.memory_line(dev))
+    return total
+
+
 def run_phases(dev, golden_pool) -> tuple:
-    """Phases 1 (the build) to 10, phase 8's golden spec computed by
+    """Phases 1 (the build) to 11, phase 8's golden spec computed by
     golden_pool; returns the kernels line's numbers and launches, the
     main paths' first, then the lab's."""
     from darwin_tpu_torch import _build
@@ -3109,16 +3326,16 @@ def run_phases(dev, golden_pool) -> tuple:
     for line in _registers(report):
         log("  " + line)
 
-    log("[2/10] kernels against their plain versions (tolerance 0)")
+    log("[2/11] kernels against their plain versions (tolerance 0)")
     kres = phase_kernels(dev)
     kres["dsoft_device"], plain_overflow = phase_dsoft(dev)
     golden = golden_soak_start(golden_pool)
-    log("[3/10] fixtures against the reference binary's out.darwin, both "
+    log("[3/11] fixtures against the reference binary's out.darwin, both "
         "engines, and the device engine with --dsoft device")
     t0 = time.perf_counter()
     phase_fixtures(dev)
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
-    log("[4/10] E.coli-shaped slice: device engine in each tb_format, host "
+    log("[4/11] E.coli-shaped slice: device engine in each tb_format, host "
         "engine, device engine with --dsoft device")
     counters = {"align_tiles": align_tiles, "traceback": tb.traceback,
                 "traceback_packed": tb.traceback_packed,
@@ -3129,22 +3346,22 @@ def run_phases(dev, golden_pool) -> tuple:
                 "dsoft_shard_count": st.shard_count}
     ecoli_drains: dict = {}
     launches = phase_ecoli(dev, counters, plain_overflow, ecoli_drains)
-    log("[5/10] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
+    log("[5/11] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
         "against its plain version")
     t0 = time.perf_counter()
     lres, llaunches = phase_lab(dev)
     log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
-    log("[6/10] score evaluator (darwin_tpu_torch.eval.score_eval)")
+    log("[6/11] score evaluator (darwin_tpu_torch.eval.score_eval)")
     launches["local_score_batch"] = phase_scoreeval(dev)
-    log("[7/10] phase 2's inputs through the checked library, in a child "
+    log("[7/11] phase 2's inputs through the checked library, in a child "
         "process")
     phase_checked(dev)
-    log("[8/10] golden soak: tests/test_fuzz_pipeline.py's pinned instances "
+    log("[8/11] golden soak: tests/test_fuzz_pipeline.py's pinned instances "
         "on the card against the golden spec")
     t0 = time.perf_counter()
     phase_golden(dev, golden)
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
-    log("[9/10] mesh and multi-host: the table-sharded D-SOFT's kernels, "
+    log("[9/11] mesh and multi-host: the table-sharded D-SOFT's kernels, "
         "the sharded D-SOFT, aligner and engine on a mesh of cuda:0 "
         "entries, the CLI's --mesh and --distributed, entry.py's "
         "dryrun")
@@ -3155,7 +3372,7 @@ def run_phases(dev, golden_pool) -> tuple:
         kres[k] = mres[k]
         launches[k] = mlaunches[k]
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
-    log("[10/10] drain and bench: the gate off on the E.coli slice, the "
+    log("[10/11] drain and bench: the gate off on the E.coli slice, the "
         "skewed workload under drain off, auto and always, "
         "darwin_tpu_torch.bench at full size")
     t0 = time.perf_counter()
@@ -3167,6 +3384,16 @@ def run_phases(dev, golden_pool) -> tuple:
         for k, n in part.items():
             launches[k] += n
     log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+    log("[11/11] scale and serving: guided_shape (4 chromosomes, 10x the "
+        "E.coli slice's reads) under each D-SOFT, resident serving, the "
+        "bigcoord run past 2^31")
+    t0 = time.perf_counter()
+    slaunches = phase_scale(
+        dev, counters, (DATA / "ecoli_shape" / "jax_cpu.darwin").read_text())
+    log(f"  launches: {slaunches}")
+    for k, n in slaunches.items():
+        launches[k] += n
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
     # The main paths' numbers first; the lab's for the kernels only the
     # lab runs.
     for k, v in lres.items():
@@ -3233,7 +3460,7 @@ def main(argv=None) -> int:
     if args.index_modes:
         print(json.dumps({"device": smi, **seed_times(dev)}))
         return 0
-    log(f"[1/10] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
+    log(f"[1/11] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     # Phase 8's golden spec runs on the host's cores from phase 3 on
     # (after phase 2's timings), in spawned processes (no CUDA state is

@@ -1,8 +1,8 @@
 """Synthetic dataset generation for tests and benchmarks.
 
-The port's copy of darwin_tpu/eval/datagen.py's synth_genome,
-sample_reads and two_readsets (chip_smoke.py's datasets and
-tools/torch_profile_ecoli.py's).  Python-3 re-design of the reference's
+The port's copy of darwin_tpu/eval/datagen.py: synth_genome,
+sample_reads, two_readsets and overlap_pairs (chip_smoke.py's datasets,
+tools/torch_scale_test.py's and tools/torch_profile_ecoli.py's).  Python-3 re-design of the reference's
 generateperfect.py: reads sampled from a random genome, optionally with
 PBSIM-like errors, with the origin coordinates encoded in the read name
 as a single alnum/underscore token ``R<id>_<genome_pos>_<len>[_c]`` so
@@ -51,6 +51,33 @@ def _mutate(seq: np.ndarray, rate: float, rng: np.random.Generator
             pos = p + 1
     out.append(seq[pos:])
     return np.concatenate(out)
+
+
+def overlap_pairs(num_reads: int, read_len: int, min_overlap: int,
+                  max_overlap: int, rng: np.random.Generator
+                  ) -> tuple[list[tuple[str, str]], list[tuple[str, str]]]:
+    """Read pairs with an exact controlled overlap
+    (generateperfect.py:12-44): pair i shares a random overlap of
+    length in [min_overlap, max_overlap]; names encode a virtual genome
+    position ``G<i>_<genpos>_<len>`` with pairs spaced 2*read_len apart
+    so ground-truth overlap recovery works coordinate-wise.
+
+    Returns (reference_records, read_records) as (name, seq) lists.
+    """
+    refs: list[tuple[str, str]] = []
+    reads: list[tuple[str, str]] = []
+    for i in range(num_reads):
+        ov = int(rng.integers(min_overlap, max_overlap + 1))
+        head = synth_genome(read_len - ov, rng)
+        overlap = synth_genome(ov, rng)
+        tail = synth_genome(read_len - ov, rng)
+        read1 = head + overlap
+        read2 = overlap + tail
+        gen_pos = i * 2 * read_len
+        refs.append((f"G{i}_{gen_pos}_{len(read1)}", read1))
+        reads.append((f"G{i}_{gen_pos + read_len - ov}_{len(read2)}",
+                      read2))
+    return refs, reads
 
 
 def two_readsets(genome: str, num_reads: int, read_len: int,

@@ -135,7 +135,9 @@ def collect_calls_device(table: SeedTable, genome: Genome, queries: SeqBank,
     Reads whose fixed tuple or candidate budget overflowed take the
     exact host D-SOFT, as in darwin_tpu, so the calls equal
     collect_calls'; with metrics, their number is added to
-    dsoft_overflow_reads."""
+    dsoft_overflow_reads, and to dsoft_index_s the seconds spent
+    building the index and placing it on the device (0 once it is
+    cached on the table)."""
     from darwin_tpu_torch.dsoft.device import (default_index_mode,
                                                dsoft_device_batch, pad_reads,
                                                sharded_dsoft)
@@ -154,9 +156,17 @@ def collect_calls_device(table: SeedTable, genome: Genome, queries: SeqBank,
               max_candidates=params.max_candidates, tup_max=tup_max,
               cand_max=cand_max, index=index)
     Q, lens = pad_reads(queries, ids)
+    t0 = time.perf_counter()
     if mesh is None:
         device = torch.device(device)
         th, tpos, tl_steps = _index_on(table, index, device)
+    else:
+        th, tpos, tl_steps = zip(*(_index_on(table, index, d)
+                                   for d in mesh.devices))
+    if metrics is not None:
+        metrics["dsoft_index_s"] = (metrics.get("dsoft_index_s", 0.0)
+                                    + time.perf_counter() - t0)
+    if mesh is None:
         out = dsoft_device_batch(
             torch.from_numpy(Q).to(device), torch.from_numpy(lens).to(device),
             th, tpos, tl_steps=tl_steps, **kw)
@@ -164,8 +174,6 @@ def collect_calls_device(table: SeedTable, genome: Genome, queries: SeqBank,
         RM = -(-len(ids) // mesh.size) * mesh.size
         Q = np.pad(Q, ((0, RM - len(ids)), (0, 0)))
         lens = np.pad(lens, (0, RM - len(ids)))
-        th, tpos, tl_steps = zip(*(_index_on(table, index, d)
-                                   for d in mesh.devices))
         out = sharded_dsoft(mesh, torch.from_numpy(Q), torch.from_numpy(lens),
                             th, tpos, tl_steps=tl_steps[0], **kw)
     return _decode_calls(table, genome, queries, params, ids, out, metrics)

@@ -73,7 +73,9 @@ def _imports_darwin_tpu(path: Path) -> list[str]:
 PORT_TOOLS = ("torch_profile_ecoli.py", "torch_fuzz_soak.py",
               "torch_dsoft_phases.py", "torch_mesh_engine.py",
               "torch_bench_e2e.py", "torch_drain_prof.py",
-              "torch_native_stress.py")
+              "torch_native_stress.py", "torch_mem_usage.py",
+              "torch_scale_test.py", "torch_resident_serve.py",
+              "torch_bigcoord_dryrun.py", "torch_sharded_scale.py")
 
 
 def _tool(name: str):
@@ -285,6 +287,10 @@ def test_datagen_byte_equal_jax(seed):
     assert score_eval.theoretical_pairs(names, [n for n, _ in b], 300) == \
         jax_score_eval.theoretical_pairs(names, [n for n, _ in b], 300)
     assert score_eval._ints(names[0]) == jax_score_eval._ints(names[0])
+    assert datagen.overlap_pairs(
+        7, 1200, 200, 900, np.random.default_rng(seed)) == \
+        jax_datagen.overlap_pairs(7, 1200, 200, 900,
+                                  np.random.default_rng(seed))
 
 
 @pytest.mark.parametrize("seed", [101, 202, 303, 404, 505, 7032])
