@@ -158,7 +158,28 @@ Phases; any failure ends the run with a nonzero exit code:
    re-map through the device engine with the host and with the device
    D-SOFT; peak host RSS and device memory.  Every run is counted, the
    kernels of its path must launch, and its launches count on the
-   kernels line.
+   kernels line;
+12. the tools (phase_tools): tools/torch_tile_geom.py at T = 248, 320,
+   376 and 504, ET = 200 (each step chain's sink at B = 64 equal to the
+   plain versions', then GCUPS at B = 2048); tools/torch_profile.py's
+   kernel mode (B = 2048, T = 320) and pipeline mode (tests/data/tiny,
+   its records out.darwin's, the phase split within the wall), each
+   traced into a temporary directory whose Chrome trace must name the
+   path's kernels (TRACE_KERNELS); tools/torch_engine_prof.py at N =
+   1024 with --profile (every iteration one span fetch, the records'
+   coordinates the same with and without rescoring); at the A/B's
+   other sizes (376, 504, 248) one batch of B = 2048 through the DP in
+   bytes and packed6 and each format's walker, on the DP's output and on
+   walk_cases lanes, against the plain versions at tolerance 0
+   (geom_kernel_checks), and the A/B's recipe cut to a 60 kb slice run
+   on the card and on the CPU, the record sets equal a size
+   (geom_slice_check); tools/torch_geom_e2e_ab.py on the E.coli slice at
+   T = 320, 376, 504 and 248, two passes each after the cold ones (the
+   dataset's sha256
+   dataset.sha256's, every pass's records its size's first, T = 320's
+   jax_cpu.darwin); tools/torch_scaling_run.py over two processes of the
+   CLI on cuda:0 (PARITY: EXACT).  Every in-process run is counted and
+   the kernels of its path must launch.
 
 The last three lines are a JSON summary of the kernels, nvidia-smi's
 name and power limit, and {"ok": true, "device": {...}}.  Without a
@@ -3304,16 +3325,236 @@ def phase_scale(dev, counters: dict, ecoli_want: str) -> dict:
     return total
 
 
+# Phase 12: the profiling and geometry tools at these sizes.
+GEOM_TILES = (248, 320, 376, 504)
+GEOM_ET = 200
+GEOM_SINK_B, GEOM_SINK_V = 64, 2
+ENGINE_PROF_N = 1024
+GEOM_AB_FLAGS = ("--tiles", "320,376,504,248", "--reps", "2")
+# walk_cases lanes a size in geom_kernel_checks, and the A/B's recipe
+# cut to a slice that the kernels' plain versions run on the host in
+# seconds a size (geom_slice_check).
+GEOM_WALK_B = 4 * WALK_CASES
+GEOM_SLICE_FLAGS = ("--genome", "60000", "--reads", "16", "--read-len",
+                    "3000", "--reps", "0")
+# The kernels each traced run must name (csrc's __global__ functions).
+TRACE_KERNELS = {"kernel": ("align_tiles_kernel", "walk_kernel"),
+                 "pipeline": ("align_tiles_kernel", "traceback_kernel",
+                              "fetch_tiles_kernel")}
+
+
+def _trace_names(trace_dir: Path, tool, names) -> None:
+    """Fails unless trace_dir holds the tool's Chrome trace and it names
+    every kernel of names."""
+    text = (trace_dir / tool.TRACE_FILE).read_text()
+    missing = [n for n in names if n not in text]
+    log(f"  trace {trace_dir / tool.TRACE_FILE}: {len(text)} bytes")
+    if missing:
+        raise AssertionError(f"the trace names no {missing}")
+
+
+def geom_kernel_checks(dev, tiles, overlap: int) -> None:
+    """At each tile size of tiles, on one batch of bench.B related tiles
+    (half of them first tiles): the DP in bytes (the engine's format, so
+    the geom A/B's) and in packed6 (tile_geom's) against its plain
+    version, then that format's walker on the DP's output and on
+    GEOM_WALK_B walk_cases lanes against its plain version, the byte
+    walker at the A/B's early_terminate (T - overlap) and the packed6
+    walker at GEOM_ET; all at tolerance 0."""
+    import numpy as np
+    import torch
+
+    from darwin_tpu_torch import bench
+    from darwin_tpu_torch.lab.geom_sweep import max_abs_err
+    from darwin_tpu_torch.ops.dp import (PACKERS, align_tiles,
+                                         align_tiles_plain)
+
+    kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                  SCORINGS[0]))
+    rng = np.random.default_rng(5)
+    for T in tiles:
+        ref, query, rlen, qlen = (torch.from_numpy(x).to(dev) for x in
+                                  related_tiles(rng, bench.B, T))
+        first = torch.from_numpy(rng.random(bench.B) < 0.5).to(dev)
+        dirm, *rest = (torch.from_numpy(x).to(dev)
+                       for x in walk_case_batch(rng, T, GEOM_WALK_B))
+        for fmt, ET in (("bytes", T - overlap), ("packed6", GEOM_ET)):
+            got = align_tiles(ref, query, rlen, qlen, dir_format=fmt, **kw)
+            e_dp = max_abs_err(got, align_tiles_plain(
+                ref, query, rlen, qlen, dir_format=fmt, **kw))
+            key = "dir" if fmt == "bytes" else "dir_words"
+            packer = PACKERS[fmt]
+            e_walk = 0
+            for args in ((got[key], rlen, qlen, first, got["max_i"],
+                          got["max_j"]),
+                         (dirm if packer is None else packer(dirm), *rest)):
+                kernel, plain = _walker_pairs(fmt, ET, args)
+                e_walk = max(e_walk, max_abs_err(dict(enumerate(kernel())),
+                                                 dict(enumerate(plain()))))
+            name = WALKERS[fmt]
+            log(f"  B={bench.B} T={T} {fmt}: DP error {e_dp}, {name} at "
+                f"ET={ET} error {e_walk} (the DP's tiles and "
+                f"{GEOM_WALK_B} walk_cases lanes)")
+            if e_dp or e_walk:
+                raise AssertionError(f"T={T} {fmt}: the kernels differ from "
+                                     f"their plain versions")
+            del got
+
+
+def geom_slice_check(dev, ab, tiles) -> None:
+    """geom_e2e_ab's recipe cut to GEOM_SLICE_FLAGS, one pass a size of
+    tiles on the card and one on the host's CPU (the kernels' plain
+    versions): each size's record set must be the CPU's, and not
+    empty."""
+    import torch
+
+    args = ab.parse_args([*GEOM_SLICE_FLAGS,
+                          "--tiles", ",".join(map(str, tiles))])
+    refs, reads = ab.dataset(args)
+    t0 = time.perf_counter()
+    card = ab.run_ab(args, dev, refs, reads, log=lambda s: None)
+    cpu = ab.run_ab(args, torch.device("cpu"), refs, reads,
+                    log=lambda s: None)
+    for t in tiles:
+        if card[t]["records"] != cpu[t]["records"] or not cpu[t]["records"]:
+            raise AssertionError(f"geom slice T={t}: the card's records "
+                                 f"differ from the plain path's")
+    log(f"  geom slice ({' '.join(GEOM_SLICE_FLAGS[:-2])}): at T = "
+        f"{tiles} the card's records = the CPU plain path's "
+        f"({[len(card[t]['records']) for t in tiles]} records; card "
+        f"{[round(card[t]['cold_s'], 2) for t in tiles]} s, CPU "
+        f"{[round(cpu[t]['cold_s'], 2) for t in tiles]} s; "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
+def phase_tools(dev, counters: dict, ecoli_want: str) -> dict:
+    """Phase 12: tools/torch_tile_geom.py at GEOM_TILES (each sink against
+    the plain step at GEOM_SINK_B first), torch_profile.py's kernel and
+    pipeline modes traced, torch_engine_prof.py at ENGINE_PROF_N,
+    geom_kernel_checks and geom_slice_check at the A/B's sizes but
+    T_MAIN, torch_geom_e2e_ab.py on the E.coli slice (T = 320's records
+    phase 4's), then torch_scaling_run.py over two processes of the CLI on
+    cuda:0.  Each in-process run with the counters zeroed just before it;
+    returns {kernel: launches} summed over them (the scaling run's ranks
+    are processes of their own and are not counted)."""
+    from darwin_tpu_torch import bench
+    from darwin_tpu_torch.config import Params
+    from darwin_tpu_torch.io.fasta import write_fasta
+    from darwin_tpu_torch.lab import wrap32
+
+    tg = _tool("torch_tile_geom")
+    tp = _tool("torch_profile")
+    ep = _tool("torch_engine_prof")
+    ab = _tool("torch_geom_e2e_ab")
+    sr = _tool("torch_scaling_run")
+    total = dict.fromkeys(counters, 0)
+
+    def counted(tag, run, kernels):
+        out, launches = _counted(counters, run)
+        idle = [k for k in kernels if launches[k] <= 0]
+        if idle:
+            raise AssertionError(f"{tag}: {idle} not launched")
+        for k, n in launches.items():
+            total[k] += n
+        return out, launches
+
+    for t in GEOM_TILES:
+        small = tg.probe(dev, t, GEOM_ET, GEOM_SINK_B, GEOM_SINK_V)
+        b = bench.Batches(dev, GEOM_SINK_B, t, GEOM_SINK_V)
+        plain = wrap32(sum(int(bench.one_step(b, v, GEOM_ET, plain=True))
+                           for v in range(GEOM_SINK_V)))
+        if small["sink"] != plain:
+            raise AssertionError(f"tile_geom T={t}: sink {small['sink']} != "
+                                 f"the plain step's {plain}")
+        r, launches = counted(f"tile_geom T={t}",
+                              lambda: tg.probe(dev, t, GEOM_ET),
+                              ("align_tiles", "traceback_packed6"))
+        log(f"  tile_geom B={GEOM_SINK_B}: sink {plain} = the plain step's; "
+            f"B={bench.B}: {tg.line(r)}; launches {launches}")
+
+    with tempfile.TemporaryDirectory() as td:
+        r, launches = counted("profile kernel", lambda: tp.profile_kernel(
+            dev, bench.B, 320, trace_dir=Path(td) / "kernel"),
+            ("align_tiles", "traceback_packed6"))
+        _trace_names(Path(td) / "kernel", tp, TRACE_KERNELS["kernel"])
+        tiny = DATA / "tiny"
+        r, launches = counted("profile pipeline", lambda: tp.profile_pipeline(
+            dev, str(tiny / "reads.fasta"), str(tiny / "reads.fasta"),
+            str(tiny / "params.cfg"), trace_dir=Path(td) / "pipeline"),
+            ("align_tiles", "traceback", "fetch_tiles"))
+        _trace_names(Path(td) / "pipeline", tp, TRACE_KERNELS["pipeline"])
+        want = set((tiny / "out.darwin").read_text().splitlines())
+        if set(r["records"]) != want or not r["phases_s"] <= r["wall"]:
+            raise AssertionError("profile pipeline: tiny's records differ "
+                                 "from out.darwin, or its phases exceed "
+                                 "the wall")
+        log(f"  profile pipeline on tiny: records = out.darwin; launches "
+            f"{launches}")
+
+    w = ep.synthetic_calls(ENGINE_PROF_N)
+    res, launches = counted("engine_prof", lambda: ep.profile_engine(
+        dev, w, profile=True), ("align_tiles", "traceback", "fetch_tiles"))
+    coords = [sorted((x.ref_id, x.query_id, x.ab, x.ae, x.bb, x.be, x.comp)
+                     for x in r["records"]) for r in res.values()]
+    for score, r in res.items():
+        if not r["iters"] or r["launches"]["fetch_tiles"] != r["iters"]:
+            raise AssertionError(f"engine_prof score={score}: {r['iters']} "
+                                 f"iterations, launches {r['launches']}")
+    if coords[0] != coords[1] or not coords[0]:
+        raise AssertionError("engine_prof: the records' coordinates differ "
+                             "with and without rescoring")
+    log(f"  engine_prof N={ENGINE_PROF_N}: iterations "
+        f"{[r['iters'] for r in res.values()]}, launches {launches}")
+
+    args = ab.parse_args(list(GEOM_AB_FLAGS))
+    others = [int(t) for t in args.tiles.split(",") if int(t) != T_MAIN]
+    overlap = Params.from_cfg(args.params).tile_overlap
+    geom_kernel_checks(dev, others, overlap)
+    counted("geom slice", lambda: geom_slice_check(dev, ab, others),
+            ("align_tiles", "traceback", "fetch_tiles"))
+    refs, reads = ab.dataset(args)
+    with tempfile.TemporaryDirectory() as td:
+        fa = Path(td) / "reads.fasta"
+        write_fasta(fa, [(r.name, r.seq) for r in reads])
+        sha = hashlib.sha256(fa.read_bytes()).hexdigest()
+    want_sha = (DATA / "ecoli_shape" / "dataset.sha256").read_text().strip()
+    if sha != want_sha:
+        raise AssertionError(f"geom A/B dataset sha256 {sha} != {want_sha}")
+    res, launches = counted("geom A/B", lambda: ab.run_ab(
+        args, dev, refs, reads, log=lambda s: log("  geom A/B: " + s)),
+        ("align_tiles", "traceback", "fetch_tiles"))
+    if res[320]["records"] != ecoli_want.splitlines():
+        raise AssertionError("geom A/B: T = 320's records differ from "
+                             "jax_cpu.darwin")
+    for t, r in res.items():
+        log(f"  geom A/B T={t}: best {r['best_s']:.4f} s, median "
+            f"{r['median_s']:.4f} s of {[round(x, 4) for x in r['walls']]}, "
+            f"{r['reads_per_s']:.1f} reads/s, cold {r['cold_s']:.3f} s, "
+            f"{r['iters']} engine iterations, {len(r['records'])} records "
+            f"(T=320's: "
+            f"{r['records'] == res[320]['records']})")
+    log(f"  geom A/B: dataset sha256 = dataset.sha256, T=320's records = "
+        f"jax_cpu.darwin, every size stable over its passes; launches "
+        f"{launches}")
+
+    with tempfile.TemporaryDirectory() as td:
+        args = sr.parse_args(["--procs", "2", "--workdir", td])
+        t0 = time.perf_counter()
+        r = sr.run(args, dev)
+        if not r["parity"]:
+            raise AssertionError("scaling run: PARITY: FAILED")
+        log(f"  scaling run: PARITY: EXACT ({len(r['one']['merged'])} "
+            f"records), {time.perf_counter() - t0:.1f} s")
+        sr.report(args, r)
+    return total
+
+
 def run_phases(dev, golden_pool) -> tuple:
-    """Phases 1 (the build) to 11, phase 8's golden spec computed by
+    """Phases 1 (the build) to 12, phase 8's golden spec computed by
     golden_pool; returns the kernels line's numbers and launches, the
     main paths' first, then the lab's."""
     from darwin_tpu_torch import _build
-    from darwin_tpu_torch.dsoft import sharded_table as st
-    from darwin_tpu_torch.dsoft.device import dsoft_device_batch
-    from darwin_tpu_torch.ops import traceback as tb
-    from darwin_tpu_torch.ops.dp import align_tiles
-    from darwin_tpu_torch.ops.tile_fetch import fetch_tiles
+    from darwin_tpu_torch.lab import launch_counters
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -3326,42 +3567,36 @@ def run_phases(dev, golden_pool) -> tuple:
     for line in _registers(report):
         log("  " + line)
 
-    log("[2/11] kernels against their plain versions (tolerance 0)")
+    log("[2/12] kernels against their plain versions (tolerance 0)")
     kres = phase_kernels(dev)
     kres["dsoft_device"], plain_overflow = phase_dsoft(dev)
     golden = golden_soak_start(golden_pool)
-    log("[3/11] fixtures against the reference binary's out.darwin, both "
+    log("[3/12] fixtures against the reference binary's out.darwin, both "
         "engines, and the device engine with --dsoft device")
     t0 = time.perf_counter()
     phase_fixtures(dev)
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
-    log("[4/11] E.coli-shaped slice: device engine in each tb_format, host "
+    log("[4/12] E.coli-shaped slice: device engine in each tb_format, host "
         "engine, device engine with --dsoft device")
-    counters = {"align_tiles": align_tiles, "traceback": tb.traceback,
-                "traceback_packed": tb.traceback_packed,
-                "traceback_packed6": tb.traceback_packed6,
-                "fetch_tiles": fetch_tiles,
-                "dsoft_device": dsoft_device_batch,
-                "dsoft_shard_scan": st.shard_scan,
-                "dsoft_shard_count": st.shard_count}
+    counters = launch_counters()
     ecoli_drains: dict = {}
     launches = phase_ecoli(dev, counters, plain_overflow, ecoli_drains)
-    log("[5/11] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
+    log("[5/12] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
         "against its plain version")
     t0 = time.perf_counter()
     lres, llaunches = phase_lab(dev)
     log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
-    log("[6/11] score evaluator (darwin_tpu_torch.eval.score_eval)")
+    log("[6/12] score evaluator (darwin_tpu_torch.eval.score_eval)")
     launches["local_score_batch"] = phase_scoreeval(dev)
-    log("[7/11] phase 2's inputs through the checked library, in a child "
+    log("[7/12] phase 2's inputs through the checked library, in a child "
         "process")
     phase_checked(dev)
-    log("[8/11] golden soak: tests/test_fuzz_pipeline.py's pinned instances "
+    log("[8/12] golden soak: tests/test_fuzz_pipeline.py's pinned instances "
         "on the card against the golden spec")
     t0 = time.perf_counter()
     phase_golden(dev, golden)
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
-    log("[9/11] mesh and multi-host: the table-sharded D-SOFT's kernels, "
+    log("[9/12] mesh and multi-host: the table-sharded D-SOFT's kernels, "
         "the sharded D-SOFT, aligner and engine on a mesh of cuda:0 "
         "entries, the CLI's --mesh and --distributed, entry.py's "
         "dryrun")
@@ -3372,7 +3607,7 @@ def run_phases(dev, golden_pool) -> tuple:
         kres[k] = mres[k]
         launches[k] = mlaunches[k]
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
-    log("[10/11] drain and bench: the gate off on the E.coli slice, the "
+    log("[10/12] drain and bench: the gate off on the E.coli slice, the "
         "skewed workload under drain off, auto and always, "
         "darwin_tpu_torch.bench at full size")
     t0 = time.perf_counter()
@@ -3384,7 +3619,7 @@ def run_phases(dev, golden_pool) -> tuple:
         for k, n in part.items():
             launches[k] += n
     log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
-    log("[11/11] scale and serving: guided_shape (4 chromosomes, 10x the "
+    log("[11/12] scale and serving: guided_shape (4 chromosomes, 10x the "
         "E.coli slice's reads) under each D-SOFT, resident serving, the "
         "bigcoord run past 2^31")
     t0 = time.perf_counter()
@@ -3394,6 +3629,16 @@ def run_phases(dev, golden_pool) -> tuple:
     for k, n in slaunches.items():
         launches[k] += n
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+    log("[12/12] tools: tile_geom at four tile sizes, profile's kernel and "
+        "pipeline modes traced, engine_prof, the geom A/B on the E.coli "
+        "slice, the scaling run over two processes")
+    t0 = time.perf_counter()
+    tlaunches = phase_tools(
+        dev, counters, (DATA / "ecoli_shape" / "jax_cpu.darwin").read_text())
+    log(f"  launches: {tlaunches}")
+    for k, n in tlaunches.items():
+        launches[k] += n
+    log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
     # The main paths' numbers first; the lab's for the kernels only the
     # lab runs.
     for k, v in lres.items():
@@ -3460,7 +3705,7 @@ def main(argv=None) -> int:
     if args.index_modes:
         print(json.dumps({"device": smi, **seed_times(dev)}))
         return 0
-    log(f"[1/11] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
+    log(f"[1/12] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     # Phase 8's golden spec runs on the host's cores from phase 3 on
     # (after phase 2's timings), in spawned processes (no CUDA state is

@@ -116,8 +116,9 @@ def dp_only_step(b: Batches, v: int) -> torch.Tensor:
             + out["max_i"].sum(dtype=I64))
 
 
-def chained_ms(b: Batches, step, device: torch.device) -> tuple:
-    """(ms of V chained steps, median of PASSES after a warm-up pass;
+def chained_ms(b: Batches, step, device: torch.device,
+               passes: int = PASSES) -> tuple:
+    """(ms of V chained steps, median of passes after a warm-up pass;
     the chain's sink, int32-wrapped as bench.py's scan carry)."""
     def chain():
         acc = torch.zeros((), dtype=I64, device=device)
@@ -127,7 +128,7 @@ def chained_ms(b: Batches, step, device: torch.device) -> tuple:
 
     sink = wrap32(int(chain()))
     times = []
-    for _ in range(PASSES):
+    for _ in range(passes):
         if device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -148,7 +149,8 @@ def chained_ms(b: Batches, step, device: torch.device) -> tuple:
 
 def measure(device: torch.device, B: int, t: int, et: int, V: int,
             with_dp_split: bool) -> tuple:
-    """(GCUPS, step ms, DP ms or None) of one geometry."""
+    """(GCUPS, step ms, DP ms or None, the step chain's sink) of one
+    geometry."""
     b = Batches(device, B, t, V)
     ms, sink = chained_ms(b, lambda v: one_step(b, v, et), device)
     dp_ms = None
@@ -161,7 +163,7 @@ def measure(device: torch.device, B: int, t: int, et: int, V: int,
     print(f"T={t} ET={et}: {V} chained steps {ms:.4f} ms ({step_ms:.4f} "
           f"ms/step{split}; sink {sink}) -> {gcups:.4f} GCUPS",
           file=sys.stderr)
-    return gcups, step_ms, dp_ms
+    return gcups, step_ms, dp_ms, sink
 
 
 def nvidia_smi_line() -> str:
@@ -202,8 +204,8 @@ def main(argv: list[str] | None = None) -> int:
              else "cpu (plain versions, host wall times)")
     print(f"device: {where}; B={args.B} T={t} ET={et} (ref geom T={t_ref} "
           f"ET={et_ref}) V={args.V}", file=sys.stderr)
-    gcups, step_ms, dp_ms = measure(dev, args.B, t, et, args.V,
-                                    with_dp_split=True)
+    gcups, step_ms, dp_ms, _ = measure(dev, args.B, t, et, args.V,
+                                       with_dp_split=True)
     gcups_ref = measure(dev, args.B, t_ref, et_ref, args.V,
                         with_dp_split=False)[0]
     print(json.dumps({

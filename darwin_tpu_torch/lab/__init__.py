@@ -41,6 +41,24 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
+def launch_counters() -> dict:
+    """{name: wrapper} of the main paths' kernel wrappers, each of which
+    counts its launches on its .launches: the DP, the three walkers, the
+    span fetch and the device D-SOFT's three kernels."""
+    from ..dsoft import sharded_table as st
+    from ..dsoft.device import dsoft_device_batch
+    from ..ops import traceback as tb
+    from ..ops.dp import align_tiles
+    from ..ops.tile_fetch import fetch_tiles
+
+    return {"align_tiles": align_tiles, "traceback": tb.traceback,
+            "traceback_packed": tb.traceback_packed,
+            "traceback_packed6": tb.traceback_packed6,
+            "fetch_tiles": fetch_tiles, "dsoft_device": dsoft_device_batch,
+            "dsoft_shard_scan": st.shard_scan,
+            "dsoft_shard_count": st.shard_count}
+
+
 def related_batches(V: int, B: int, T: int):
     """V batches of B [T]-byte ref/query tiles as tools/kernel_lab.py
     and tools/plane2_probe.py make them from seed 0: ACGT refs, queries

@@ -75,7 +75,10 @@ PORT_TOOLS = ("torch_profile_ecoli.py", "torch_fuzz_soak.py",
               "torch_bench_e2e.py", "torch_drain_prof.py",
               "torch_native_stress.py", "torch_mem_usage.py",
               "torch_scale_test.py", "torch_resident_serve.py",
-              "torch_bigcoord_dryrun.py", "torch_sharded_scale.py")
+              "torch_bigcoord_dryrun.py", "torch_sharded_scale.py",
+              "torch_tile_geom.py", "torch_profile.py",
+              "torch_engine_prof.py", "torch_geom_e2e_ab.py",
+              "torch_scaling_run.py")
 
 
 def _tool(name: str):

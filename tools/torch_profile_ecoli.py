@@ -18,11 +18,11 @@ import statistics
 import subprocess
 import sys
 import time
-from collections import defaultdict
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
+sys.path.insert(0, str(REPO / "tools"))
 
 import darwin_tpu_torch  # noqa: F401,E402  (THP madvise guard)
 
@@ -37,6 +37,7 @@ from darwin_tpu_torch.index.seed_table import SeedTable  # noqa: E402
 from darwin_tpu_torch.io.fasta import FastaRecord  # noqa: E402
 from darwin_tpu_torch.pipeline import (make_merged_engine,  # noqa: E402
                                        read_banks, run_device_merged)
+from torch_profile import device_summary, kernel_lines  # noqa: E402
 
 REPS = 5
 
@@ -105,29 +106,15 @@ def main() -> int:
         t0 = time.perf_counter()
         _, m = engine_run()
         wall_us = (time.perf_counter() - t0) * 1e6
-    engine_us = m["align_s"] * 1e6
-    busy = defaultdict(float)
-    count = defaultdict(int)
-    launches = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            busy[e.name] += e.time_range.elapsed_us()
-            count[e.name] += 1
-        elif e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                        "cudaLaunchKernelExC"):
-            launches += 1
-    total = sum(busy.values())
     iters = m["engine_iters"]
+    s = device_summary(prof, m["align_s"], iters)
     print(f"profiled run: wall {wall_us / 1e6:.3f} s (seed "
           f"{m['seed_s']:.3f} s, engine {m['align_s']:.3f} s); device "
-          f"busy {total / 1e6:.4f} s = {100 * total / engine_us:.1f}% of "
-          f"the engine loop, idle {100 - 100 * total / engine_us:.1f}%; "
-          f"{launches} kernel launches = {launches / iters:.0f} per "
-          f"iteration over {iters} iterations", flush=True)
-    rows = sorted(busy.items(), key=lambda kv: -kv[1])
-    lines = [f"{v / 1e3:10.3f} ms {100 * v / total:5.1f}% "
-             f"{count[k]:7d}x {v / count[k] / 1e3:9.4f} ms each  {k[:100]}"
-             for k, v in rows]
+          f"busy {s['busy_s']:.4f} s = {100 * s['busy']:.1f}% of "
+          f"the engine loop, idle {100 - 100 * s['busy']:.1f}%; "
+          f"{s['launches']} kernel launches = {s['launches_per_iter']:.0f} "
+          f"per iteration over {iters} iterations", flush=True)
+    lines = kernel_lines(s)
     print("device time by kernel (top 12):")
     print("\n".join(lines[:12]), flush=True)
     full = ("\n".join(lines) + "\n\n"
