@@ -92,7 +92,8 @@ Phases; any failure ends the run with a nonzero exit code:
    on dsoft_cases and the E.coli read-strands, once and ten times over,
    the table-sharded kernels on SHARDED_CASES and the E.coli
    read-strands, shard_scan at each L % 4 and shard_count on
-   SHARD_COUNT_CASES) run in another child
+   SHARD_COUNT_CASES, and the split DP at SPLIT_CHECKED, every
+   instantiation and a partial last strip) run in another child
    (``--checked``), which must exit 0 with every output equal to the
    normal library's;
 8. the golden soak: tests/test_fuzz_pipeline.py's pinned instances
@@ -160,8 +161,9 @@ Phases; any failure ends the run with a nonzero exit code:
    kernels of its path must launch, and its launches count on the
    kernels line;
 12. the tools (phase_tools): tools/torch_tile_geom.py at T = 248, 320,
-   376 and 504, ET = 200 (each step chain's sink at B = 64 equal to the
-   plain versions', then GCUPS at B = 2048); tools/torch_profile.py's
+   376, 504, 1024, 1536 and 2048, ET = 200 (each step chain's sink at B
+   = 64 equal to the plain versions', then GCUPS at B = 2048, 1024 at
+   1536 and 512 at 2048); tools/torch_profile.py's
    kernel mode (B = 2048, T = 320) and pipeline mode (tests/data/tiny,
    its records out.darwin's, the phase split within the wall), each
    traced into a temporary directory whose Chrome trace must name the
@@ -174,12 +176,33 @@ Phases; any failure ends the run with a nonzero exit code:
    (geom_kernel_checks), and the A/B's recipe cut to a 60 kb slice run
    on the card and on the CPU, the record sets equal a size
    (geom_slice_check); tools/torch_geom_e2e_ab.py on the E.coli slice at
-   T = 320, 376, 504 and 248, two passes each after the cold ones (the
-   dataset's sha256
-   dataset.sha256's, every pass's records its size's first, T = 320's
-   jax_cpu.darwin); tools/torch_scaling_run.py over two processes of the
-   CLI on cuda:0 (PARITY: EXACT).  Every in-process run is counted and
-   the kernels of its path must launch.
+   T = 320, 376, 504, 248, 1024 and 2048, two passes each after the cold
+   ones (the dataset's sha256 dataset.sha256's, every pass's records its
+   size's first, T = 320's jax_cpu.darwin, 1024's and 2048's
+   tests/data/ecoli_shape_t<T>/jax_cpu.darwin); tools/torch_scaling_run.py
+   over two processes of the CLI on cuda:0 (PARITY: EXACT).  Every
+   in-process run is counted and the kernels of its path must launch;
+13. the split DP (phase_split), one tile over several warps, which takes
+   the tile sizes past the one-warp path's (T > 1023 at interleave 1,
+   > 384 at 2 and 4) up to the reference's 2048: against its plain
+   version at tolerance 0 at SPLIT_TILES (36 edge tiles, three
+   scorings, every format and interleave and plane 2, and at 1024 and
+   2048 each walker at ET = T - 120 on its output), forced over 2, 3,
+   4 and 8 warps a tile at T = 320 and 1023 against the one-warp path;
+   the lab's split variants launched (geom_sweep, plane 2's emit probe)
+   with the counters zeroed; kernel and plain times and bounds at
+   B = 512, T = 1024 (and K1 bytes and packed6 at 2048, K1 also as
+   device time), each output held to the plain version's at tolerance
+   0; ShardedTileAligner over
+   4 entries of cuda:0 against TorchTileAligner at T = 1024 and 2048;
+   then the E.coli slice at T = 1024 and 2048 through the CLI (device
+   engine, bytes), the device engine with the packed6 walker and, at
+   1024, the CLI's host engine, each with the counters zeroed, every
+   merged record set equal to tests/data/ecoli_shape_t<T>/jax_cpu.darwin
+   (darwin_tpu's own CPU output at that tile size) and the DP launched
+   on its split path.  The split kernel's launches count apart from the
+   one-warp kernel's, under the split variants' names (align_tiles.split
+   in ops/dp.py).
 
 The last three lines are a JSON summary of the kernels, nvidia-smi's
 name and power limit, and {"ok": true, "device": {...}}.  Without a
@@ -190,11 +213,11 @@ CUDA device it prints no result and exits 1.  It imports no JAX.
 instead builds and imports TREE's darwin_tpu_torch (an older commit
 unpacked beside the repo, or the repo itself), prints its normal
 library's registers a kernel (when it builds it), and only times its
-byte walker, span fetch, word walkers, SW, D-SOFT (R = 920 and 9200),
-scan lowerings and table-sharded kernels (shard_scan at R = 920 and
-9200, shard_count; the collector's wall and the kernels' part of it)
-(phase_ab), so that two trees run in turns compare on one card in one
-sitting.
+DP (K1 bytes and packed6 at T = 320), byte walker, span fetch, word
+walkers, SW, D-SOFT (R = 920 and 9200), scan lowerings and
+table-sharded kernels (shard_scan at R = 920 and 9200, shard_count; the
+collector's wall and the kernels' part of it) (phase_ab), so that two
+trees run in turns compare on one card in one sitting.
 
     python3 chip_smoke.py --checked [--small | --trap] [--budgets B]
 
@@ -213,6 +236,7 @@ mode, with each mode's kernel time (seed_times), and prints them as JSON.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import functools
 import hashlib
@@ -252,16 +276,34 @@ DP_OPS_CELL, SW_OPS_CELL, WALK_OPS_STEP, SCAN_OPS = 15, 10, 8, 2
 TUPLE_OPS = 10
 
 
-def _dp_variant(fmt: str, il: int) -> str:
-    """JSON name of one DP variant."""
-    if il == 1:
-        return "align_tiles" if fmt == "bytes" else f"align_tiles[{fmt}]"
-    return f"align_tiles[{fmt},il={il}]"
+def _dp_variant(fmt: str, il: int, split: bool = False) -> str:
+    """JSON name of one DP variant (split: its split-path
+    instantiations, one tile over several warps)."""
+    tags = ([] if fmt == "bytes" and il == 1 else [fmt]) + (
+        [f"il={il}"] if il > 1 else []) + (["split"] if split else [])
+    return "align_tiles" + (f"[{','.join(tags)}]" if tags else "")
 
 
-# The DP kernel's variants, by (dir_format, interleave).
+# The DP kernel's variants, by (dir_format, interleave), on the one-warp
+# path and on the split path.
 DP_VARIANTS = {(fmt, il): _dp_variant(fmt, il)
                for fmt in ("bytes", "packed", "packed6") for il in (1, 2, 4)}
+SPLIT_VARIANTS = {(fmt, il): _dp_variant(fmt, il, split=True)
+                  for fmt in ("bytes", "packed", "packed6")
+                  for il in (1, 2, 4)}
+PLANE2_SPLIT = "plane2[split]"
+
+
+def dp_counter(fmt: str, T: int) -> str:
+    """The name _counted gives the DP's launches in fmt at interleave 1
+    at tile size T: "align_tiles" (the one-warp kernel's counter, every
+    format) or the split variant's name."""
+    from darwin_tpu_torch.ops.dp import strips_for
+
+    return ("align_tiles" if strips_for(T, 1) == 1
+            else SPLIT_VARIANTS[(fmt, 1)])
+
+
 # Every kernel of the kernels line: (its source, the TPU kernel or JAX
 # function it replaces as "path:line", and what that line holds:
 # "pallas_call" for a Pallas kernel, else the name of the function
@@ -290,6 +332,12 @@ KERNELS = {
               + ("523" if il == 1 else "493"), "pallas_call")
        for (fmt, il), name in DP_VARIANTS.items() if name != "align_tiles"},
     "plane2": (DP_SRC, "tools/plane2_probe.py:209", "pallas_call"),
+    # The split path's instantiations (phase 13): the main path's two at
+    # tile sizes past 1023 first, then the lab's.
+    **{name: (DP_SRC, "darwin_tpu/ops/pallas_dp.py:"
+              + ("523" if il == 1 else "493"), "pallas_call")
+       for (fmt, il), name in SPLIT_VARIANTS.items()},
+    PLANE2_SPLIT: (DP_SRC, "tools/plane2_probe.py:209", "pallas_call"),
     "scanshift_shfl": ("darwin_tpu_torch/csrc/scanshift.cu",
                        "tools/scanshift_probe.py:97", "pallas_call"),
     "scanshift_smem": ("darwin_tpu_torch/csrc/scanshift.cu",
@@ -412,10 +460,20 @@ def log(*a):
     print(*a, flush=True)
 
 
+NO_SPILL = "0 bytes spill stores, 0 bytes spill loads"
+
+
 def _registers(report: str) -> list:
-    """nvcc -Xptxas -v's lines naming a kernel and its registers."""
-    return [ln.strip() for ln in report.splitlines()
-            if "registers" in ln or "Compiling entry" in ln]
+    """nvcc -Xptxas -v's lines naming a kernel and its registers, any
+    line of spill stores or loads that are not 0, and a count of the
+    kernels whose spill line reads 0."""
+    lines = report.splitlines()
+    clean = sum(NO_SPILL in ln for ln in lines)
+    return [ln.strip() for ln in lines
+            if "registers" in ln or "Compiling entry" in ln
+            or ("spill" in ln and NO_SPILL not in ln)] + [
+        f"{clean} of {sum('spill' in ln for ln in lines)} kernels: "
+        f"{NO_SPILL}"]
 
 
 def nvidia_smi_line() -> str:
@@ -526,6 +584,34 @@ def related_tiles(rng, B: int, T: int):
         q = np.insert(q, at, acgt[rng.integers(0, 4, size=len(at))])
         ref[b, :rlen[b]] = src[:rlen[b]]
         query[b, :qlen[b]] = q[:qlen[b]]
+    return ref, query, rlen, qlen
+
+
+def edge_tiles(rng, B: int, T: int):
+    """[B, T] ref/query tiles with the DP's edge cases in lanes 0-7:
+    idle, empty ref, empty query, an all-mismatch full tile, all-mismatch
+    rlen < T and qlen < T, an identical full tile, a one-column and a
+    one-row tile; the rest ACGT with 15% substitutions, random lengths
+    in 1..T (the card tests' too)."""
+    import numpy as np
+
+    from darwin_tpu_torch.ops.common import PAD_QUERY, PAD_REF
+
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ref = acgt[rng.integers(0, 4, size=(B, T))]
+    query = ref.copy()
+    mut = rng.random((B, T)) < 0.15
+    query[mut] = acgt[rng.integers(0, 4, size=int(mut.sum()))]
+    ref[3:5], query[3:5] = ord("A"), ord("C")
+    query[5] = ref[5]
+    rlen = rng.integers(1, T + 1, size=B).astype(np.int32)
+    qlen = rng.integers(1, T + 1, size=B).astype(np.int32)
+    half = max(1, T // 2)
+    rlen[:8] = [0, 0, T, T, half, T, T, 1]
+    qlen[:8] = [0, T, 0, T, max(1, T - half), T, 1, T]
+    k = np.arange(T)[None, :]
+    ref[k >= rlen[:, None]] = PAD_REF
+    query[k >= qlen[:, None]] = PAD_QUERY
     return ref, query, rlen, qlen
 
 
@@ -1561,11 +1647,67 @@ def phase_fixtures(dev) -> None:
 
 def _counted(counters: dict, run) -> tuple:
     """run() with every launch counter zeroed just before it; returns
-    (its result, {kernel: launches in it})."""
+    (its result, {kernel: launches in it}), the DP's split-path launches
+    under their SPLIT_VARIANTS names (counters' "align_tiles" counts the
+    one-warp kernel's only)."""
+    from darwin_tpu_torch.ops.dp import align_tiles
+
     for c in counters.values():
         c.launches = 0
+    align_tiles.split.variant_launches.clear()
     out = run()
-    return out, {name: c.launches for name, c in counters.items()}
+    launches = {name: c.launches for name, c in counters.items()}
+    launches.update((SPLIT_VARIANTS[v], n) for v, n in
+                    align_tiles.split.variant_launches.items())
+    return out, launches
+
+
+def ecoli_cli(fa: Path, out: Path, params_cfg: Path, *extra) -> tuple:
+    """The port's CLI on the E.coli FASTA fa against itself, 512 slots,
+    into out: (its merged records, its metrics).  A params_cfg that does
+    not exist means the reference's default params."""
+    from darwin_tpu_torch import cli
+
+    rc = cli.main([str(fa), str(fa), "--params", str(params_cfg),
+                   "--batch-size", "512", "--out-dir", str(out),
+                   "--merged-out", str(out / "merged.darwin"),
+                   "--metrics-json", str(out / "metrics.json"), *extra])
+    if rc != 0:
+        raise AssertionError(f"cli exited {rc}")
+    return ((out / "merged.darwin").read_text(),
+            json.loads((out / "metrics.json").read_text()))
+
+
+def ecoli_engine(fa: Path, params, fmt: str, dev) -> tuple:
+    """The device engine with walker fmt on the E.coli FASTA fa, 512
+    slots, through pipeline.run_device_merged: (the sorted-unique record
+    lines, metrics)."""
+    from darwin_tpu_torch import native
+    from darwin_tpu_torch.index.genome import Genome
+    from darwin_tpu_torch.index.seed_table import SeedTable
+    from darwin_tpu_torch.io.fasta import parse_fasta
+    from darwin_tpu_torch.pipeline import (format_records, make_merged_engine,
+                                           read_banks, run_device_merged)
+
+    reads = parse_fasta(fa)
+    genome = Genome(reads, params.bin_size)
+    t0 = time.perf_counter()
+    table = SeedTable.build(genome.concat, params.seed_size,
+                            params.seed_occurence_multiple,
+                            params.bin_size, params.window_size)
+    m = {"seed_table_s": time.perf_counter() - t0,
+         "host_native": native.available()}
+    fwd, rev = read_banks(reads)
+    prebuilt = make_merged_engine(
+        genome, fwd, rev, params, same_file=True, batch_size=512,
+        device=dev, tb_format=fmt)
+    recs, cc = run_device_merged(
+        genome, table, fwd, rev, params, same_file=True,
+        batch_size=512, prebuilt=prebuilt, metrics=m)
+    m["drain_gate"] = prebuilt[0].last_drain_gate
+    lines = sorted(set(format_records(genome, reads, recs)))
+    m["num_candidates"] = sum(cc)
+    return "".join(line + "\n" for line in lines), m
 
 
 def phase_ecoli(dev, counters: dict, plain_overflow: int,
@@ -1576,18 +1718,13 @@ def phase_ecoli(dev, counters: dict, plain_overflow: int,
     read-strands, phase 2).  Fills drains with each device engine run's
     {tag: (the drain gate's (tail, total) where the run shows it,
     drain_redispatches)} (phase 10 checks them)."""
-    from darwin_tpu_torch import cli, native
     from darwin_tpu_torch.config import Params
     from darwin_tpu_torch.eval.sensitivity import measure_sensitivity
-    from darwin_tpu_torch.index.genome import Genome
-    from darwin_tpu_torch.index.seed_table import SeedTable
     from darwin_tpu_torch.io.fasta import parse_fasta, write_fasta
-    from darwin_tpu_torch.pipeline import (format_records, make_merged_engine,
-                                           read_banks, run_device_merged)
 
     want_sha = (DATA / "ecoli_shape" / "dataset.sha256").read_text().strip()
     want = (DATA / "ecoli_shape" / "jax_cpu.darwin").read_text()
-    total = dict.fromkeys(counters, 0)
+    total = collections.Counter()
     with tempfile.TemporaryDirectory() as td:
         td = Path(td)
         fa = td / "reads.fasta"
@@ -1601,38 +1738,11 @@ def phase_ecoli(dev, counters: dict, plain_overflow: int,
         params = Params()  # the reference's defaults, as the CLI's
 
         def cli_run(tag, *extra):
-            out = td / tag
             # No params.cfg in td: the reference's default params.
-            rc = cli.main([str(fa), str(fa), "--params",
-                           str(td / "params.cfg"), "--batch-size", "512",
-                           "--out-dir", str(out), "--merged-out",
-                           str(out / "merged.darwin"), "--metrics-json",
-                           str(out / "metrics.json"), *extra])
-            if rc != 0:
-                raise AssertionError(f"cli exited {rc}")
-            return ((out / "merged.darwin").read_text(),
-                    json.loads((out / "metrics.json").read_text()))
+            return ecoli_cli(fa, td / tag, td / "params.cfg", *extra)
 
         def engine_run(fmt):
-            reads = parse_fasta(fa)
-            genome = Genome(reads, params.bin_size)
-            t0 = time.perf_counter()
-            table = SeedTable.build(genome.concat, params.seed_size,
-                                    params.seed_occurence_multiple,
-                                    params.bin_size, params.window_size)
-            m = {"seed_table_s": time.perf_counter() - t0,
-                 "host_native": native.available()}
-            fwd, rev = read_banks(reads)
-            prebuilt = make_merged_engine(
-                genome, fwd, rev, params, same_file=True, batch_size=512,
-                device=dev, tb_format=fmt)
-            recs, cc = run_device_merged(
-                genome, table, fwd, rev, params, same_file=True,
-                batch_size=512, prebuilt=prebuilt, metrics=m)
-            m["drain_gate"] = prebuilt[0].last_drain_gate
-            lines = sorted(set(format_records(genome, reads, recs)))
-            m["num_candidates"] = sum(cc)
-            return "".join(line + "\n" for line in lines), m
+            return ecoli_engine(fa, params, fmt, dev)
 
         runs = {
             "cli bytes": lambda: cli_run("bytes"),
@@ -2634,12 +2744,15 @@ def checked_digests(dev, small: bool = False) -> dict:
     SHARDED_CASES and the E.coli read-strands (phase 9's inputs) under
     each index mode and exchange, shard_scan on the first case's first
     shard at the other three L % 4 and with one refine step, and
-    shard_count on SHARD_COUNT_CASES.
+    shard_count on SHARD_COUNT_CASES; and the split DP (phase 13's
+    path) in every format, interleave and plane 2 at SPLIT_CHECKED on
+    edge_tiles, each walker at ET = T - 120 on its output, and forced
+    at T = 320.
     small: B = 36, the tile size 64 and
     one scoring, one large-ET walk, the scans at C = 33 and 1024 beside
     the probe's shape, the D-SOFT cases under the two-level index only,
-    the table-sharded cases under the dense index only and no E.coli
-    batch.
+    the table-sharded cases under the dense index only, no E.coli
+    batch and the split DP at SPLIT_CHECKED[0] only.
     On the checked library each case's name goes to stderr before it
     runs, so that a trap names it."""
     import numpy as np
@@ -2694,6 +2807,39 @@ def checked_digests(dev, small: bool = False) -> dict:
             args = (dirm if packer is None else packer(dirm), *rest)
             run(f"{WALKERS[fmt]} T={T} walk_cases",
                 lambda: walk(*args, early_terminate=ET))
+
+    # The split path: every format, interleave and plane 2 at
+    # SPLIT_CHECKED, each walker at ET = T - 120 on its output, and the
+    # path forced over 2 and 8 warps a tile at T = 320.
+    from darwin_tpu_torch.ops.dp import run_kernel
+
+    for T in SPLIT_CHECKED[:1] if small else SPLIT_CHECKED:
+        ref, query, rlen, qlen = (torch.from_numpy(x).to(dev) for x in
+                                  edge_tiles(np.random.default_rng(T),
+                                             SPLIT_B, T))
+        first = torch.from_numpy(np.arange(SPLIT_B) % 2 == 0).to(dev)
+        kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                      SCORINGS[0]))
+        for fmt, (key, walk) in WALK_FNS.items():
+            for il in (4, 2, 1):
+                out = run(f"split align_tiles[{fmt},il={il}] T={T}",
+                          lambda: align_tiles(ref, query, rlen, qlen,
+                                              dir_format=fmt, interleave=il,
+                                              **kw))
+            args = (out[key], rlen, qlen, first, out["max_i"], out["max_j"])
+            run(f"{WALKERS[fmt]} T={T} ET={T - 120} on the split DP",
+                lambda: walk(*args, early_terminate=T - 120))
+        run(f"split plane2 T={T}",
+            lambda: plane2(ref, query, rlen, qlen, **kw))
+        for strips in (2, 8):
+            for fmt in ("bytes", "packed6"):
+                run(f"split align_tiles[{fmt}] T=320 strips={strips}",
+                    lambda: run_kernel(ref[:, :320].contiguous(),
+                                       query[:, :320].contiguous(),
+                                       rlen.clamp(max=320),
+                                       qlen.clamp(max=320), fmt=fmt,
+                                       interleave=1, what="checked",
+                                       strips=strips, **kw))
 
     frng = np.random.default_rng(2)
     gbank, qbank = fetch_banks(frng, dev)
@@ -2864,9 +3010,10 @@ def phase_checked(dev) -> dict:
 
 
 def phase_ab(dev, reps: int = 20) -> dict:
-    """The imported tree's walkers, span fetch, SW, D-SOFT and scans on
-    phase 2's inputs at T_MAIN (its first draws; first scoring): the
-    byte walker and both word walkers, one fetch_tiles call, and two
+    """The imported tree's DP, walkers, span fetch, SW, D-SOFT and scans
+    on phase 2's inputs at T_MAIN (its first draws; first scoring): K1
+    in bytes and packed6 (the one-warp path), the byte walker and both
+    word walkers, one fetch_tiles call, and two
     (one an engine iteration before fetch_tile_pair), SW at SW_B on
     SW_LEN-base pairs, the D-SOFT kernel on the E.coli read-strands
     (two-level index) at R = 920 and ten times over and on
@@ -2926,6 +3073,10 @@ def phase_ab(dev, reps: int = 20) -> dict:
         tup_max=t, cand_max=256), "twolevel", dev) for t in (TUP_MAX, 32768)}
     sx = torch.from_numpy(probe_inputs(1, 2048, 376)[0][0]).to(dev)
     calls = {
+        "dp_bytes": lambda: tuple(align_tiles(ref, query, rlen, qlen,
+                                              **kw).values()),
+        "dp_packed6": lambda: tuple(align_tiles(
+            ref, query, rlen, qlen, dir_format="packed6", **kw).values()),
         "walker": lambda: traceback(*walks["bytes"], early_terminate=ET),
         "walker_packed": lambda: traceback_packed(*walks["packed"],
                                                   early_terminate=ET),
@@ -3246,7 +3397,7 @@ def phase_scale(dev, counters: dict, ecoli_want: str) -> dict:
     rs = _tool("torch_resident_serve")
     bc = _tool("torch_bigcoord_dryrun")
     mu = _tool("torch_mem_usage")
-    total = dict.fromkeys(counters, 0)
+    total = collections.Counter()
 
     def add(launches):
         for k, n in launches.items():
@@ -3326,11 +3477,17 @@ def phase_scale(dev, counters: dict, ecoli_want: str) -> dict:
 
 
 # Phase 12: the profiling and geometry tools at these sizes.
-GEOM_TILES = (248, 320, 376, 504)
+GEOM_TILES = (248, 320, 376, 504, 1024, 1536, 2048)
 GEOM_ET = 200
 GEOM_SINK_B, GEOM_SINK_V = 64, 2
+# tile_geom's batch at each size (bench.B = 2048 where it fits: at T =
+# 2048 the packed6 words of 2048 tiles would take 34 GB).
+GEOM_B = {1536: 1024, 2048: 512}
 ENGINE_PROF_N = 1024
-GEOM_AB_FLAGS = ("--tiles", "320,376,504,248", "--reps", "2")
+GEOM_AB_FLAGS = ("--tiles", "320,376,504,248,1024,2048", "--reps", "2")
+# The A/B's sizes held to their plain versions on the card and on a
+# slice on the host (the split path's are phase 13's).
+GEOM_CHECK_TILES = (376, 504, 248)
 # walk_cases lanes a size in geom_kernel_checks, and the A/B's recipe
 # cut to a slice that the kernels' plain versions run on the host in
 # seconds a size (geom_slice_check).
@@ -3431,9 +3588,10 @@ def phase_tools(dev, counters: dict, ecoli_want: str) -> dict:
     """Phase 12: tools/torch_tile_geom.py at GEOM_TILES (each sink against
     the plain step at GEOM_SINK_B first), torch_profile.py's kernel and
     pipeline modes traced, torch_engine_prof.py at ENGINE_PROF_N,
-    geom_kernel_checks and geom_slice_check at the A/B's sizes but
-    T_MAIN, torch_geom_e2e_ab.py on the E.coli slice (T = 320's records
-    phase 4's), then torch_scaling_run.py over two processes of the CLI on
+    geom_kernel_checks and geom_slice_check at GEOM_CHECK_TILES,
+    torch_geom_e2e_ab.py on the E.coli slice (T = 320's records phase
+    4's, SPLIT_ECOLI's their ecoli_shape_t<T>'s), then
+    torch_scaling_run.py over two processes of the CLI on
     cuda:0.  Each in-process run with the counters zeroed just before it;
     returns {kernel: launches} summed over them (the scaling run's ranks
     are processes of their own and are not counted)."""
@@ -3447,11 +3605,11 @@ def phase_tools(dev, counters: dict, ecoli_want: str) -> dict:
     ep = _tool("torch_engine_prof")
     ab = _tool("torch_geom_e2e_ab")
     sr = _tool("torch_scaling_run")
-    total = dict.fromkeys(counters, 0)
+    total = collections.Counter()
 
     def counted(tag, run, kernels):
         out, launches = _counted(counters, run)
-        idle = [k for k in kernels if launches[k] <= 0]
+        idle = [k for k in kernels if launches.get(k, 0) <= 0]
         if idle:
             raise AssertionError(f"{tag}: {idle} not launched")
         for k, n in launches.items():
@@ -3467,10 +3625,12 @@ def phase_tools(dev, counters: dict, ecoli_want: str) -> dict:
             raise AssertionError(f"tile_geom T={t}: sink {small['sink']} != "
                                  f"the plain step's {plain}")
         r, launches = counted(f"tile_geom T={t}",
-                              lambda: tg.probe(dev, t, GEOM_ET),
-                              ("align_tiles", "traceback_packed6"))
+                              lambda: tg.probe(dev, t, GEOM_ET,
+                                               GEOM_B.get(t, bench.B)),
+                              (dp_counter("packed6", t), "traceback_packed6"))
         log(f"  tile_geom B={GEOM_SINK_B}: sink {plain} = the plain step's; "
-            f"B={bench.B}: {tg.line(r)}; launches {launches}")
+            f"B={GEOM_B.get(t, bench.B)}: {tg.line(r)}; launches "
+            f"{launches}")
 
     with tempfile.TemporaryDirectory() as td:
         r, launches = counted("profile kernel", lambda: tp.profile_kernel(
@@ -3507,10 +3667,10 @@ def phase_tools(dev, counters: dict, ecoli_want: str) -> dict:
         f"{[r['iters'] for r in res.values()]}, launches {launches}")
 
     args = ab.parse_args(list(GEOM_AB_FLAGS))
-    others = [int(t) for t in args.tiles.split(",") if int(t) != T_MAIN]
     overlap = Params.from_cfg(args.params).tile_overlap
-    geom_kernel_checks(dev, others, overlap)
-    counted("geom slice", lambda: geom_slice_check(dev, ab, others),
+    geom_kernel_checks(dev, GEOM_CHECK_TILES, overlap)
+    counted("geom slice",
+            lambda: geom_slice_check(dev, ab, GEOM_CHECK_TILES),
             ("align_tiles", "traceback", "fetch_tiles"))
     refs, reads = ab.dataset(args)
     with tempfile.TemporaryDirectory() as td:
@@ -3522,10 +3682,16 @@ def phase_tools(dev, counters: dict, ecoli_want: str) -> dict:
         raise AssertionError(f"geom A/B dataset sha256 {sha} != {want_sha}")
     res, launches = counted("geom A/B", lambda: ab.run_ab(
         args, dev, refs, reads, log=lambda s: log("  geom A/B: " + s)),
-        ("align_tiles", "traceback", "fetch_tiles"))
+        ("align_tiles", SPLIT_VARIANTS[("bytes", 1)], "traceback",
+         "fetch_tiles"))
     if res[320]["records"] != ecoli_want.splitlines():
         raise AssertionError("geom A/B: T = 320's records differ from "
                              "jax_cpu.darwin")
+    for t in SPLIT_ECOLI:
+        if res[t]["records"] != (DATA / f"ecoli_shape_t{t}" /
+                                 "jax_cpu.darwin").read_text().splitlines():
+            raise AssertionError(f"geom A/B: T = {t}'s records differ from "
+                                 f"ecoli_shape_t{t}/jax_cpu.darwin")
     for t, r in res.items():
         log(f"  geom A/B T={t}: best {r['best_s']:.4f} s, median "
             f"{r['median_s']:.4f} s of {[round(x, 4) for x in r['walls']]}, "
@@ -3534,8 +3700,8 @@ def phase_tools(dev, counters: dict, ecoli_want: str) -> dict:
             f"(T=320's: "
             f"{r['records'] == res[320]['records']})")
     log(f"  geom A/B: dataset sha256 = dataset.sha256, T=320's records = "
-        f"jax_cpu.darwin, every size stable over its passes; launches "
-        f"{launches}")
+        f"jax_cpu.darwin, T={SPLIT_ECOLI}'s their ecoli_shape_t<T>'s, "
+        f"every size stable over its passes; launches {launches}")
 
     with tempfile.TemporaryDirectory() as td:
         args = sr.parse_args(["--procs", "2", "--workdir", td])
@@ -3549,8 +3715,334 @@ def phase_tools(dev, counters: dict, ecoli_want: str) -> dict:
     return total
 
 
+# Phase 13: the split DP (one tile over several warps) at the tile sizes
+# past the one-warp path's, up to the reference's 2048: its edges (a
+# full pass of strips, one column past it, T = 32 C S - 1 and full
+# again), SPLIT_B edge tiles a size; the one-warp sizes it is forced at;
+# the E.coli slice's sizes (tests/data/ecoli_shape_t<T>); the sizes K1
+# is timed at, B = B_MAIN.
+SPLIT_TILES = (1024, 1025, 1536, 2047, 2048)
+SPLIT_B = 36
+SPLIT_FORCED = (320, 1023)
+SPLIT_STRIPS = (2, 3, 4, 8)
+SPLIT_ECOLI = (1024, 2048)
+SPLIT_TIMED = (1024, 2048)
+# The split variants on the main path, also timed as device time.
+SPLIT_DEVICE_TIMED = (SPLIT_VARIANTS[("bytes", 1)],
+                      SPLIT_VARIANTS[("packed6", 1)])
+# Phase 7's sizes: every split instantiation (C = 16, 12 and 8 at
+# interleave 1, 8 interleaved) on full and partial last strips.
+SPLIT_CHECKED = (1024, 1025, 2047, 2048)
+# The E.coli runs at each SPLIT_ECOLI size and the kernels each must
+# launch (the DP on its split path in that run's format).
+SPLIT_ECOLI_RUNS = {
+    "cli bytes": (SPLIT_VARIANTS[("bytes", 1)], "fetch_tiles", "traceback"),
+    "packed6": (SPLIT_VARIANTS[("packed6", 1)], "fetch_tiles",
+                "traceback_packed6"),
+    "cli host": (SPLIT_VARIANTS[("packed6", 1)], "traceback_packed6"),
+}
+SPLIT_HOST_TILES = (1024,)  # the host engine's sizes (its DP is packed6)
+
+
+def tile_params_cfg(T: int, path: Path) -> Path:
+    """The reference's default params.cfg (the small fixture's) with
+    tile_size T, written to path."""
+    from darwin_tpu_torch.config import Params
+
+    text = (DATA / "small" / "params.cfg").read_text()
+    path.write_text(text.replace("tile_size = 320", f"tile_size = {T}"))
+    if Params.from_cfg(path) != Params(tile_size=T):
+        raise AssertionError(f"{path}: not the default params at T={T}")
+    return path
+
+
+def split_kernel_checks(dev) -> dict:
+    """The split path against the plain version at SPLIT_TILES (every
+    format at interleave 1, 2, 4 and plane 2, three scorings; at the
+    E.coli runs' sizes also each format's walker at ET = T - 120 on the
+    DP's output under the first), then forced at SPLIT_FORCED against
+    the one-warp path; all at tolerance 0.  Returns {name:
+    max_abs_err}."""
+    import numpy as np
+    import torch
+
+    from darwin_tpu_torch.lab.geom_sweep import max_abs_err
+    from darwin_tpu_torch.ops import dp
+    from darwin_tpu_torch.ops.pack import plane2_words
+    from darwin_tpu_torch.ops.plane2 import plane2
+    from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
+
+    errs = dict.fromkeys([*SPLIT_VARIANTS.values(), PLANE2_SPLIT], 0)
+    rng = np.random.default_rng(14)
+    for T in SPLIT_TILES:
+        ref, query, rlen, qlen = (torch.from_numpy(x).to(dev) for x in
+                                  edge_tiles(rng, SPLIT_B, T))
+        first = torch.from_numpy(rng.random(SPLIT_B) < 0.5).to(dev)
+        t0 = time.perf_counter()
+        for n, sc in enumerate(SCORINGS):
+            kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                          sc))
+            want = align_tiles_torch(ref, query, rlen, qlen, **kw)
+            d = want.pop("dir")
+            for fmt, packer in dp.PACKERS.items():
+                key = "dir" if packer is None else "dir_words"
+                w = {key: d if packer is None else packer(d), **want}
+                for il in dp.INTERLEAVES:
+                    got = dp.align_tiles(ref, query, rlen, qlen,
+                                         dir_format=fmt, interleave=il, **kw)
+                    name = SPLIT_VARIANTS[(fmt, il)]
+                    errs[name] = max(errs[name], max_abs_err(got, w))
+                    if il == 1 and n == 0 and T in SPLIT_ECOLI:
+                        kernel, plain = _walker_pairs(
+                            fmt, T - 120, (got[key], rlen, qlen, first,
+                                           got["max_i"], got["max_j"]))
+                        e = max_abs_err(dict(enumerate(kernel())),
+                                        dict(enumerate(plain())))
+                        errs[name] = max(errs[name], e)
+                    del got
+                del w
+            w6 = dp.PACKERS["packed6"](d)
+            got = plane2(ref, query, rlen, qlen, **kw)
+            errs[PLANE2_SPLIT] = max(errs[PLANE2_SPLIT], max_abs_err(
+                got, {"dir_words": w6, "dir2_words": plane2_words(d),
+                      **want}))
+            del got, w6, d
+        walks = f", the walkers at ET={T - 120}" if T in SPLIT_ECOLI else ""
+        log(f"  T={T} (strips {dp.strips_for(T, 1)} at interleave 1, "
+            f"{dp.strips_for(T, 2)} at 2 and 4): every format, interleave "
+            f"and plane 2 under {len(SCORINGS)} scorings{walks}: errors "
+            f"{set(errs.values())} ({time.perf_counter() - t0:.1f} s)")
+        if any(errs.values()):
+            raise AssertionError(f"split DP mismatch at T={T}: {errs}")
+    kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                  SCORINGS[0]))
+    for T in SPLIT_FORCED:
+        args = [torch.from_numpy(x).to(dev)
+                for x in edge_tiles(rng, SPLIT_B, T)]
+        n = 0
+        for fmt in (*dp.PACKERS, "plane2"):
+            one = dp.run_kernel(*args, fmt=fmt, interleave=1, what="forced",
+                                strips=1, **kw)
+            for il in (1,) if fmt == "plane2" else dp.INTERLEAVES:
+                name = (PLANE2_SPLIT if fmt == "plane2"
+                        else SPLIT_VARIANTS[(fmt, il)])
+                for strips in SPLIT_STRIPS:
+                    try:
+                        dp.check_strips(T, il, strips, "forced")
+                    except ValueError:
+                        continue
+                    got = dp.run_kernel(*args, fmt=fmt, interleave=il,
+                                        what="forced", strips=strips, **kw)
+                    errs[name] = max(errs[name], max_abs_err(got, one))
+                    n += 1
+        log(f"  T={T} forced over {SPLIT_STRIPS} warps a tile where they "
+            f"fit ({n} runs): equal to the one-warp path: "
+            f"{not any(errs.values())}")
+        if any(errs.values()):
+            raise AssertionError(f"forced split differs at T={T}: {errs}")
+    return errs
+
+
+def split_times(dev) -> dict:
+    """At B = B_MAIN on related_tiles: every split variant and plane 2 at
+    SPLIT_TIMED[0], K1 bytes and packed6 again at each larger size of
+    SPLIT_TIMED (the largest is the kernels line's), each with the plain
+    version's time (one a format and size: the plain version has no
+    interleave) and the bound, and held to the plain version's output
+    (tolerance 0, else AssertionError), K1's device time too (graph_ms);
+    the forced split against the one-warp path at T = 504 and 1023 (a
+    figure, the outputs equal).  Returns {name: numbers}."""
+    import numpy as np
+    import torch
+
+    from darwin_tpu_torch.lab import time_ms
+    from darwin_tpu_torch.lab.geom_sweep import max_abs_err
+    from darwin_tpu_torch.ops import dp
+    from darwin_tpu_torch.ops.plane2 import plane2, plane2_torch
+
+    res = {}
+    kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                  SCORINGS[0]))
+    rng = np.random.default_rng(15)
+
+    plain = {}  # (T, format) -> the plain version's (ms, output)
+
+    def timed(name, T, call, plain_call, fmt):
+        if (T, fmt) not in plain:
+            plain.clear()
+            torch.cuda.empty_cache()
+            plain[(T, fmt)] = time_ms(plain_call, dev, 1)
+        plain_ms, want = plain[(T, fmt)]
+        got = call()
+        r = dict(ms=median_ms(call, 10), library_ms=None, plain_ms=plain_ms,
+                 max_abs_err=max_abs_err(got, want), **dp_bound(*a, got))
+        del got
+        graph = ""
+        if name in SPLIT_DEVICE_TIMED:
+            # Two launches a graph: its pool holds each one's output (up
+            # to 8.6 GB at T = 2048 in packed6).
+            r["device_ms"] = graph_ms(call, n=2)
+            graph = f" (graph {r['device_ms']:.4f} ms)"
+        log(f"  {name} at B={B_MAIN} T={T}: kernel {r['ms']:.4f} ms{graph}, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), max_abs_err {r['max_abs_err']}")
+        if r["max_abs_err"]:
+            raise AssertionError(f"{name} at B={B_MAIN} T={T} differs from "
+                                 f"the plain version")
+        res[name] = r
+
+    for T in SPLIT_TIMED:
+        a = [torch.from_numpy(x).to(dev)
+             for x in related_tiles(rng, B_MAIN, T)]
+        for (fmt, il), name in SPLIT_VARIANTS.items():
+            if T == SPLIT_TIMED[0] or (il == 1 and fmt != "packed"):
+                timed(name, T, lambda fmt=fmt, il=il: dp.align_tiles(
+                    *a, dir_format=fmt, interleave=il, **kw),
+                    lambda fmt=fmt: dp.align_tiles_plain(
+                        *a, dir_format=fmt, **kw), fmt)
+        if T == SPLIT_TIMED[0]:
+            timed(PLANE2_SPLIT, T, lambda: plane2(*a, **kw),
+                  lambda: plane2_torch(*a, **kw), "plane2")
+        del a
+        plain.clear()
+    for T in (504, 1023):
+        a = [torch.from_numpy(x).to(dev)
+             for x in related_tiles(rng, B_MAIN, T)]
+        run = {strips: functools.partial(
+            dp.run_kernel, *a, fmt="bytes", interleave=1, what="forced",
+            strips=strips, **kw) for strips in (1, 2)}
+        ms = {strips: median_ms(f, 10) for strips, f in run.items()}
+        err = max_abs_err(run[2](), run[1]())
+        log(f"  forced split at B={B_MAIN} T={T}, bytes: one warp "
+            f"{ms[1]:.4f} ms, two warps a tile {ms[2]:.4f} ms, "
+            f"max_abs_err {err}")
+        if err:
+            raise AssertionError(f"forced split at B={B_MAIN} T={T} differs "
+                                 f"from the one-warp path")
+    return res
+
+
+def phase_split(dev, counters: dict) -> tuple:
+    """Phase 13: split_kernel_checks; the split variants' lab launches
+    (geom_sweep over every format and interleave, and plane 2's emit
+    probe, at T = SPLIT_TIMED[0] with the counters zeroed); split_times;
+    split_aligners; then the E.coli slice at SPLIT_ECOLI through the CLI
+    (device engine,
+    bytes), the device engine with the packed6 walker and, at
+    SPLIT_HOST_TILES, the CLI's host engine, each counted, every merged
+    record set equal to tests/data/ecoli_shape_t<T>/jax_cpu.darwin and
+    the DP launched on its split path.  Returns ({name: numbers} and
+    {name: lab launches} of the split variants, {kernel: launches} of
+    the E.coli runs, the DP's under its split variants' names)."""
+    from darwin_tpu_torch.lab import geom_sweep, plane2_probe
+    from darwin_tpu_torch.ops.dp import align_tiles
+    from darwin_tpu_torch.ops.plane2 import plane2
+
+    t0 = time.perf_counter()
+    errs = split_kernel_checks(dev)
+    log(f"  kernel checks took {time.perf_counter() - t0:.1f} s")
+    T = SPLIT_TIMED[0]
+    align_tiles.split.variant_launches.clear()
+    plane2.split.launches = 0
+    rows = geom_sweep.sweep([(64, T, fmt, il) for fmt, il in SPLIT_VARIANTS],
+                            dev)
+    plane2_probe.probe_emit(T, dev, B=64, V=2)
+    if any(r[4]["max_abs_err"] for r in rows):
+        raise AssertionError("the split geometry sweep differs from the "
+                             "plain version")
+    launches = {name: align_tiles.split.variant_launches[v]
+                for v, name in SPLIT_VARIANTS.items()}
+    launches[PLANE2_SPLIT] = plane2.split.launches
+    log(f"  lab launches on the split path: {launches}")
+    res = split_times(dev)
+    for name, e in errs.items():
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], e)
+    split_aligners(dev)
+    return res, launches, split_ecoli(dev, counters)
+
+
+def split_aligners(dev) -> None:
+    """At SPLIT_ECOLI: ShardedTileAligner over MESH entries of cuda:0
+    against TorchTileAligner (the host engine's packed6 DP and walker on
+    the split path) on one batch of 64 related tiles, half of them first
+    tiles, at ET = T - 120; every field equal."""
+    import numpy as np
+
+    from darwin_tpu_torch.engine.aligner import TorchTileAligner
+    from darwin_tpu_torch.parallel.mesh import ShardedTileAligner, make_mesh
+
+    rng = np.random.default_rng(16)
+    mesh = make_mesh(devices=[str(dev)] * MESH)
+    for T in SPLIT_ECOLI:
+        tiles = (*related_tiles(rng, 64, T), rng.random(64) < 0.5)
+        akw = dict(early_terminate=T - 120, match=1, mismatch=-1,
+                   gap_open=-1, gap_extend=-1, tile_size=T)
+        got = ShardedTileAligner(mesh, **akw)(*tiles)
+        exp = TorchTileAligner(device=dev, **akw)(*tiles)
+        for f in ("ops", "ref_steps", "query_steps", "score", "max_i",
+                  "max_j"):
+            if not np.array_equal(getattr(got, f), getattr(exp, f)):
+                raise AssertionError(f"ShardedTileAligner differs at T={T}: "
+                                     f"{f}")
+        log(f"  ShardedTileAligner over {MESH} entries of {dev} at B=64 "
+            f"T={T}: equal to TorchTileAligner (mean walk "
+            f"{float(np.mean(exp.ref_steps + exp.query_steps)):.1f} "
+            f"steps)")
+
+
+def split_ecoli(dev, counters: dict) -> collections.Counter:
+    """Phase 13's E.coli runs (phase_split); returns {kernel: launches}
+    summed over them, the DP's under its split variants' names."""
+    from darwin_tpu_torch.config import Params
+    from darwin_tpu_torch.io.fasta import write_fasta
+
+    total = collections.Counter()
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        fa = td / "reads.fasta"
+        write_fasta(fa, ecoli_reads())
+        want_sha = (DATA / "ecoli_shape" / "dataset.sha256").read_text()
+        if hashlib.sha256(fa.read_bytes()).hexdigest() != want_sha.strip():
+            raise AssertionError("E.coli dataset digest differs")
+        for T in SPLIT_ECOLI:
+            want = (DATA / f"ecoli_shape_t{T}" / "jax_cpu.darwin").read_text()
+            cfg = tile_params_cfg(T, td / f"params{T}.cfg")
+            runs = {
+                "cli bytes": lambda: ecoli_cli(fa, td / f"bytes{T}", cfg),
+                "packed6": lambda: ecoli_engine(fa, Params(tile_size=T),
+                                                "packed6", dev),
+            }
+            if T in SPLIT_HOST_TILES:
+                runs["cli host"] = lambda: ecoli_cli(
+                    fa, td / f"host{T}", cfg, "--engine", "host")
+            for tag, run in runs.items():
+                t0 = time.perf_counter()
+                (got, m), n = _counted(counters, run)
+                wall = time.perf_counter() - t0
+                log(f"  T={T} {tag}: records {len(got.splitlines())} "
+                    f"(expected {len(want.splitlines())}), wall {wall:.3f} "
+                    f"s, seed_s {m['seed_s']:.3f}, align_s "
+                    f"{m['align_s']:.3f}, engine iterations "
+                    f"{m['engine_iters']}; launches {n}")
+                if got != want:
+                    w, g = set(want.splitlines()), set(got.splitlines())
+                    raise AssertionError(
+                        f"T={T} {tag}: records differ from ecoli_shape_t{T}: "
+                        f"missing {sorted(w - g)[:3]} extra "
+                        f"{sorted(g - w)[:3]}")
+                idle = [k for k in SPLIT_ECOLI_RUNS[tag] if n.get(k, 0) <= 0]
+                if idle:
+                    raise AssertionError(f"T={T} {tag}: {idle} not launched")
+                if ("fetch_tiles" in SPLIT_ECOLI_RUNS[tag]
+                        and n["fetch_tiles"] != m["engine_iters"]):
+                    raise AssertionError(f"T={T} {tag}: the fetch is not "
+                                         f"once an iteration")
+                total.update(n)
+    return total
+
+
 def run_phases(dev, golden_pool) -> tuple:
-    """Phases 1 (the build) to 12, phase 8's golden spec computed by
+    """Phases 1 (the build) to 13, phase 8's golden spec computed by
     golden_pool; returns the kernels line's numbers and launches, the
     main paths' first, then the lab's."""
     from darwin_tpu_torch import _build
@@ -3567,36 +4059,36 @@ def run_phases(dev, golden_pool) -> tuple:
     for line in _registers(report):
         log("  " + line)
 
-    log("[2/12] kernels against their plain versions (tolerance 0)")
+    log("[2/13] kernels against their plain versions (tolerance 0)")
     kres = phase_kernels(dev)
     kres["dsoft_device"], plain_overflow = phase_dsoft(dev)
     golden = golden_soak_start(golden_pool)
-    log("[3/12] fixtures against the reference binary's out.darwin, both "
+    log("[3/13] fixtures against the reference binary's out.darwin, both "
         "engines, and the device engine with --dsoft device")
     t0 = time.perf_counter()
     phase_fixtures(dev)
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
-    log("[4/12] E.coli-shaped slice: device engine in each tb_format, host "
+    log("[4/13] E.coli-shaped slice: device engine in each tb_format, host "
         "engine, device engine with --dsoft device")
     counters = launch_counters()
     ecoli_drains: dict = {}
     launches = phase_ecoli(dev, counters, plain_overflow, ecoli_drains)
-    log("[5/12] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
+    log("[5/13] kernel lab (darwin_tpu_torch.lab), then each lab kernel "
         "against its plain version")
     t0 = time.perf_counter()
     lres, llaunches = phase_lab(dev)
     log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
-    log("[6/12] score evaluator (darwin_tpu_torch.eval.score_eval)")
+    log("[6/13] score evaluator (darwin_tpu_torch.eval.score_eval)")
     launches["local_score_batch"] = phase_scoreeval(dev)
-    log("[7/12] phase 2's inputs through the checked library, in a child "
+    log("[7/13] phase 2's inputs through the checked library, in a child "
         "process")
     phase_checked(dev)
-    log("[8/12] golden soak: tests/test_fuzz_pipeline.py's pinned instances "
+    log("[8/13] golden soak: tests/test_fuzz_pipeline.py's pinned instances "
         "on the card against the golden spec")
     t0 = time.perf_counter()
     phase_golden(dev, golden)
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
-    log("[9/12] mesh and multi-host: the table-sharded D-SOFT's kernels, "
+    log("[9/13] mesh and multi-host: the table-sharded D-SOFT's kernels, "
         "the sharded D-SOFT, aligner and engine on a mesh of cuda:0 "
         "entries, the CLI's --mesh and --distributed, entry.py's "
         "dryrun")
@@ -3607,7 +4099,7 @@ def run_phases(dev, golden_pool) -> tuple:
         kres[k] = mres[k]
         launches[k] = mlaunches[k]
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
-    log("[10/12] drain and bench: the gate off on the E.coli slice, the "
+    log("[10/13] drain and bench: the gate off on the E.coli slice, the "
         "skewed workload under drain off, auto and always, "
         "darwin_tpu_torch.bench at full size")
     t0 = time.perf_counter()
@@ -3619,7 +4111,7 @@ def run_phases(dev, golden_pool) -> tuple:
         for k, n in part.items():
             launches[k] += n
     log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
-    log("[11/12] scale and serving: guided_shape (4 chromosomes, 10x the "
+    log("[11/13] scale and serving: guided_shape (4 chromosomes, 10x the "
         "E.coli slice's reads) under each D-SOFT, resident serving, the "
         "bigcoord run past 2^31")
     t0 = time.perf_counter()
@@ -3629,7 +4121,7 @@ def run_phases(dev, golden_pool) -> tuple:
     for k, n in slaunches.items():
         launches[k] += n
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
-    log("[12/12] tools: tile_geom at four tile sizes, profile's kernel and "
+    log("[12/13] tools: tile_geom at seven tile sizes, profile's kernel and "
         "pipeline modes traced, engine_prof, the geom A/B on the E.coli "
         "slice, the scaling run over two processes")
     t0 = time.perf_counter()
@@ -3639,11 +4131,21 @@ def run_phases(dev, golden_pool) -> tuple:
     for k, n in tlaunches.items():
         launches[k] += n
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+    log("[13/13] the split DP (one tile over several warps) past the "
+        "one-warp path's tile sizes: against its plain version and the "
+        "one-warp path, timed, and the E.coli slice at T = "
+        f"{', '.join(map(str, SPLIT_ECOLI))} under both engines")
+    t0 = time.perf_counter()
+    sres, slab, elaunches = phase_split(dev, counters)
+    log(f"  launches: the E.coli runs {elaunches}")
+    kres.update(sres)
+    launches.update(elaunches)  # a Counter: adds
+    log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
     # The main paths' numbers first; the lab's for the kernels only the
     # lab runs.
     for k, v in lres.items():
         kres.setdefault(k, v)
-    for k, v in llaunches.items():
+    for k, v in {**llaunches, **slab}.items():
         launches.setdefault(k, v)
     return kres, launches
 
@@ -3654,8 +4156,8 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", help="time only this tree's walkers, fetch, "
-                    "SW, D-SOFT and scans (phase_ab)")
+    ap.add_argument("--root", help="time only this tree's DP, walkers, "
+                    "fetch, SW, D-SOFT and scans (phase_ab)")
     ap.add_argument("--checked", action="store_true",
                     help="print checked_digests of the checked library "
                          "(phase 7's child)")
@@ -3705,7 +4207,7 @@ def main(argv=None) -> int:
     if args.index_modes:
         print(json.dumps({"device": smi, **seed_times(dev)}))
         return 0
-    log(f"[1/12] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
+    log(f"[1/13] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     # Phase 8's golden spec runs on the host's cores from phase 3 on
     # (after phase 2's timings), in spawned processes (no CUDA state is

@@ -44,7 +44,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures (see the csrc files); the last argument is the stream.
 _SIGNATURES = {
     "dtt_align_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _P, _P, _P, _P, _P, _P, _P],
+                        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "dtt_traceback": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _P, _P, _P, _P],
     # nsets, then two sets of (bank, n, n_read, start, len, pad, out).

@@ -220,9 +220,11 @@ def main(argv: list[str] | None = None) -> int:
         "traceback_ms": step_ms - dp_ms,
         "gcups_ref_geom_t320": gcups_ref,
     }))
-    # The kernels' launches in this run (counted on a card only).
+    # The kernels' launches in this run (counted on a card only); the DP's
+    # split path (T past the one-warp path's) counts apart.
     print("launches: " + json.dumps(
         {"align_tiles": align_tiles.launches,
+         "align_tiles_split": align_tiles.split.launches,
          "traceback_packed6": traceback_packed6.launches}), file=sys.stderr)
     return 0
 

@@ -8,9 +8,10 @@ every output bit-exact against the plain version
 block_b has no counterpart here (a warp holds whole tiles), so its
 matrix loses that column and one duplicate row, and gains interleave 4.
 --warps runs each config at each number of warps a thread block (the
-kernel's occupancy knob) and prints the time of each.  All configs run
-in one process: the tool's child-per-config isolation exists only for
-Mosaic aborts.
+one-warp path's occupancy knob) and prints the time of each.  A T past
+that path's limit (ops/dp.py ONE_WARP_TILE) runs the split path, one
+tile over several warps.  All configs run in one process: the tool's
+child-per-config isolation exists only for Mosaic aborts.
 
 Usage:
   python -m darwin_tpu_torch.lab.geom_sweep [--device cuda|cpu]
@@ -71,8 +72,12 @@ def max_abs_err(got: dict, want: dict) -> int:
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"{k}: {tuple(g.shape)} {g.dtype} vs "
                                  f"{tuple(w.shape)} {w.dtype}")
-        if g.numel():
-            err = max(err, int((g.long() - w.long()).abs().max()))
+        # By pieces of 2^26 elements: the split path's outputs at B = 512,
+        # T = 2048 hold 2^31 words.
+        for gp, wp in zip(g.reshape(-1).split(1 << 26),
+                          w.reshape(-1).split(1 << 26)):
+            if gp.numel():
+                err = max(err, int((gp.long() - wp.long()).abs().max()))
     return err
 
 

@@ -12,8 +12,13 @@ padding is not carried over: every direction output is [B, T, T+1].
   together with their instructions interleaved (the Hopper form of the
   TPU kernel's N batch streams); the results are bit-identical for
   every N.  B must divide by N.
+* T runs up to MAX_TILE = 2048, the reference's limit, at every
+  interleave.  Up to ONE_WARP_TILE a warp holds whole tiles (the
+  one-warp path); past it one block of S warps holds a tile, each warp
+  a strip of its columns, pipelined (the split path; strips_for picks
+  S, and run_kernel's ``strips`` forces it for the lab and the tests).
 * align_tiles_pallas's ``block_b`` is not ported: it is a Mosaic block
-  shape, and here a warp always holds whole tiles.
+  shape.
 
 A CPU tensor runs the plain version, align_tiles_plain
 (reference_dp.align_tiles_torch followed by the packer); a CUDA tensor
@@ -23,6 +28,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import collections
+import types
 
 import torch
 
@@ -30,13 +36,21 @@ from darwin_tpu_torch import _build
 from darwin_tpu_torch.ops.pack import pack_dir_words, pack_dir_words6
 from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
 
-# A warp's 32 lanes each hold C columns of a tile in registers (csrc/
-# dp.cu by_strip): C <= 32 with one tile a warp; with four, C = 16 needs
-# more than the 255 registers a thread may have and spills, so two and
-# four tiles a warp stop at C = 12.
-MAX_TILE = 1023
-MAX_TILE_INTERLEAVED = 384
+# The reference's limit (align.h MAX_TILE_SIZE 2049 bytes a row), for
+# every interleave.
+MAX_TILE = 2048
 INTERLEAVES = (1, 2, 4)
+# This module picks the path and the strip width; csrc/dp.cu takes them
+# as given and returns an error for a width it does not instantiate.
+# The one-warp path: a warp's 32 lanes each hold C columns of a tile in
+# registers (csrc/dp.cu by_strip): C <= 32 with one tile a warp; with
+# four, C = 16 needs more than the 255 registers a thread may have and
+# spills, so two and four tiles a warp stop at C = 12.
+ONE_WARP_TILE = {1: 1023, 2: 384, 4: 384}
+# The split path (csrc/dp.cu by_split) over larger tiles: one block of S
+# warps a tile, each holding C columns a lane, C one of the widths that
+# dp.cu instantiates (the widest sets S).
+SPLIT_WIDTHS = {1: (8, 12, 16), 2: (8,), 4: (8,)}
 # Warps a thread block (lab/geom_sweep.py --warps measures 1-8).
 WARPS = 4
 MAX_WARPS = 8  # csrc/dp.cu kMaxWarps
@@ -47,14 +61,37 @@ FORMAT_CODES = {"bytes": 0, "packed": 1, "packed6": 2, "plane2": 3}
 _STATS = ("max_score", "max_i", "max_j", "pos_score")
 
 
-def check_tile_size(T: int, what: str, interleave: int = 1) -> None:
+def check_tile_size(T: int, what: str) -> None:
     """Raise ValueError for a tile size the CUDA kernel does not take
     (the plain version, on the CPU, takes any)."""
-    limit = MAX_TILE if interleave == 1 else MAX_TILE_INTERLEAVED
-    if not 1 <= T <= limit:
-        raise ValueError(f"{what}: tile size {T} outside 1..{limit}, the "
-                         f"CUDA DP kernel's limit at interleave "
-                         f"{interleave}")
+    if not 1 <= T <= MAX_TILE:
+        raise ValueError(f"{what}: tile size {T} outside 1..{MAX_TILE}, "
+                         f"the CUDA DP kernel's limit")
+
+
+def strips_for(T: int, interleave: int) -> int:
+    """Warps a tile on the card: 1 (the one-warp path) up to
+    ONE_WARP_TILE, else the least S whose strips of the widest split
+    width cover T."""
+    if T <= ONE_WARP_TILE[interleave]:
+        return 1
+    return -(-T // (32 * SPLIT_WIDTHS[interleave][-1]))
+
+
+def check_strips(T: int, interleave: int, strips: int, what: str) -> int:
+    """The columns a lane for T over `strips` warps a tile: 0 for the
+    one-warp path (strips 1, T up to ONE_WARP_TILE; dp.cu picks its
+    width), else the least split width whose 32 * strips lanes cover T
+    (strips 2..MAX_WARPS).  Raises ValueError when the kernel does not
+    take T that way."""
+    if strips == 1 and T <= ONE_WARP_TILE[interleave]:
+        return 0
+    if 2 <= strips <= MAX_WARPS:
+        for width in SPLIT_WIDTHS[interleave]:
+            if 32 * width * strips >= T:
+                return width
+    raise ValueError(f"{what}: tile size {T} does not run over {strips} "
+                     f"warps a tile at interleave {interleave}")
 
 
 def check_geometry(B: int, T: int, interleave: int, what: str, *,
@@ -68,7 +105,7 @@ def check_geometry(B: int, T: int, interleave: int, what: str, *,
         raise ValueError(f"{what}: batch {B} does not divide by "
                          f"interleave {interleave}")
     if on_card:
-        check_tile_size(T, what, interleave)
+        check_tile_size(T, what)
 
 
 def align_tiles_plain(ref: torch.Tensor, query: torch.Tensor,
@@ -86,17 +123,23 @@ def run_kernel(ref: torch.Tensor, query: torch.Tensor,
                ref_len: torch.Tensor, query_len: torch.Tensor, *,
                match: int, mismatch: int, gap_open: int, gap_extend: int,
                fmt: str, interleave: int, what: str,
-               warps: int = WARPS) -> dict:
-    """Launch csrc/dp.cu on CUDA tensors, `warps` warps a block (the
-    caller counts the launch).  Returns dict(dir [B, T, T+1] uint8 for
-    "bytes" or int32 otherwise, dir2 for "plane2", and the four [B]
-    int32 stats)."""
+               warps: int = WARPS, strips: int | None = None) -> dict:
+    """Launch csrc/dp.cu on CUDA tensors (the caller counts the launch):
+    the one-warp path with `warps` warps a block, or the split path with
+    one block of `strips` warps a tile.  `strips` defaults to
+    strips_for(T, interleave); the lab and the tests force it (1, or 2
+    and more at any T the width allows).  Returns dict(dir [B, T, T+1]
+    uint8 for "bytes" or int32 otherwise, dir2 for "plane2", and the
+    four [B] int32 stats)."""
     if not 1 <= warps <= MAX_WARPS:
         raise ValueError(f"{what}: {warps} warps a block, not in "
                          f"1..{MAX_WARPS}")
     dev = _build.require_cuda(ref, what)
     B, T = ref.shape
     check_geometry(B, T, interleave, what)
+    if strips is None:
+        strips = strips_for(T, interleave)
+    width = check_strips(T, interleave, strips, what)
     u8, i32 = torch.uint8, torch.int32
     args = [_build.arg(ref, "ref", u8, (B, T), dev),
             _build.arg(query, "query", u8, (B, T), dev),
@@ -113,7 +156,8 @@ def run_kernel(ref: torch.Tensor, query: torch.Tensor,
         _build.launch(
             "dtt_align_tiles", dev, *args, B, T, match, mismatch,
             gap_open, gap_extend, FORMAT_CODES[fmt], interleave, warps,
-            out["dir"], out.get("dir2"), *(out[k] for k in _STATS))
+            strips, width, out["dir"], out.get("dir2"),
+            *(out[k] for k in _STATS))
     return out
 
 
@@ -139,13 +183,19 @@ def align_tiles(ref: torch.Tensor, query: torch.Tensor,
     out = run_kernel(ref, query, ref_len, query_len, fmt=dir_format,
                      interleave=interleave, what="align_tiles", **kw)
     if ref.shape[0]:
-        align_tiles.launches += 1
-        align_tiles.variant_launches[(dir_format, interleave)] += 1
+        count = (align_tiles if strips_for(ref.shape[1], interleave) == 1
+                 else align_tiles.split)
+        count.launches += 1
+        count.variant_launches[(dir_format, interleave)] += 1
     if dir_format != "bytes":
         out["dir_words"] = out.pop("dir")
     return out
 
 
-# Launches of the kernel, in all and by (dir_format, interleave).
+# Launches of the one-warp kernel, in all and by (dir_format,
+# interleave); align_tiles.split counts the split kernel's the same two
+# ways.
 align_tiles.launches = 0
 align_tiles.variant_launches = collections.Counter()
+align_tiles.split = types.SimpleNamespace(
+    launches=0, variant_launches=collections.Counter())

@@ -18,9 +18,11 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import types
+
 import torch
 
-from darwin_tpu_torch.ops.dp import run_kernel
+from darwin_tpu_torch.ops.dp import run_kernel, strips_for
 from darwin_tpu_torch.ops.pack import pack_dir_words6, plane2_words
 from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
 
@@ -49,10 +51,14 @@ def plane2(ref: torch.Tensor, query: torch.Tensor, ref_len: torch.Tensor,
     out = run_kernel(ref, query, ref_len, query_len, fmt="plane2",
                      interleave=1, what="plane2", **kw)
     if ref.shape[0]:
-        plane2.launches += 1
+        count = plane2 if strips_for(ref.shape[1], 1) == 1 else plane2.split
+        count.launches += 1
     out["dir_words"] = out.pop("dir")
     out["dir2_words"] = out.pop("dir2")
     return out
 
 
+# Launches of the one-warp kernel; plane2.split counts the split
+# kernel's.
 plane2.launches = 0
+plane2.split = types.SimpleNamespace(launches=0)

@@ -114,41 +114,29 @@ def test_dp_word_formats_and_interleave_match_plain(cuda, T):
 
 
 def _edge_tiles(seed, B, T, device):
-    """[B, T] tiles with the DP's edge cases in lanes 0-7: idle, empty
-    ref, empty query, all-mismatch full tile, all-mismatch rlen < T and
-    qlen < T, identical full tile, a one-column and a one-row tile; the
-    rest related ACGT (15% substitutions) of random lengths in 1..T."""
-    rng = np.random.default_rng(seed)
-    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
-    ref = acgt[rng.integers(0, 4, size=(B, T))]
-    query = ref.copy()
-    mut = rng.random((B, T)) < 0.15
-    query[mut] = acgt[rng.integers(0, 4, size=int(mut.sum()))]
-    ref[3:5], query[3:5] = ord("A"), ord("C")
-    query[5] = ref[5]
-    rlen = rng.integers(1, T + 1, size=B).astype(np.int32)
-    qlen = rng.integers(1, T + 1, size=B).astype(np.int32)
-    half = max(1, T // 2)
-    rlen[:8] = [0, 0, T, T, half, T, T, 1]
-    qlen[:8] = [0, T, 0, T, max(1, T - half), T, 1, T]
-    k = np.arange(T)[None, :]
-    ref[k >= rlen[:, None]] = PAD_REF
-    query[k >= qlen[:, None]] = PAD_QUERY
-    return [torch.from_numpy(x).to(device) for x in (ref, query, rlen, qlen)]
+    """chip_smoke.edge_tiles from seed, on device: [B, T] tiles with the
+    DP's edge cases in lanes 0-7 (idle, empty ref, empty query,
+    all-mismatch full tile, all-mismatch rlen < T and qlen < T,
+    identical full tile, a one-column and a one-row tile); the rest
+    related ACGT (15% substitutions) of random lengths in 1..T."""
+    return [torch.from_numpy(x).to(device) for x in
+            chip_smoke.edge_tiles(np.random.default_rng(seed), B, T)]
 
 
-@pytest.mark.parametrize("T", [1, 24, 31, 32, 33, 64, 320, 376, 504,
+@pytest.mark.parametrize("T", [1, 24, 31, 32, 33, 64, 320, 376, 384, 385,
+                               504, 1023, 1024, 1025, 1536, 2047,
                                dp.MAX_TILE])
 def test_dp_kernel_edge_geometries_match_plain(cuda, T):
     """The warp-wavefront DP in every format and interleave, and plane
     2, bit-exact against the plain version under three scorings, at the
-    strip widths' edges (T = 31, 32, 33, 64, 320, ...) and the largest
-    tiles allowed, on edge-case tiles, B = 36 (not a multiple of 32).
-    An all-mismatch tile's max cell is (rlen, qlen) at score 0."""
+    strip widths' edges (T = 31, 32, 33, 64, 320, ...), at each side of
+    the one-warp path's limits (384 / 385 interleaved, 1023 / 1024) and
+    on the split path up to the largest tiles allowed (1025: one column
+    past two strips; 2047, 2048), on edge-case tiles, B = 36 (not a
+    multiple of 32).  An all-mismatch tile's max cell is (rlen, qlen) at
+    score 0."""
     B = 36
     ref, query, rlen, qlen = _edge_tiles(T, B, T, cuda)
-    ils = [il for il in dp.INTERLEAVES
-           if il == 1 or T <= dp.MAX_TILE_INTERLEAVED]
     for sc in SCORINGS[:3]:
         kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"), sc))
         plain = align_tiles_torch(ref, query, rlen, qlen, **kw)
@@ -160,7 +148,7 @@ def test_dp_kernel_edge_geometries_match_plain(cuda, T):
             want = dict(plain)
             if packer is not None:
                 want["dir_words"] = packer(want.pop("dir"))
-            for il in ils:
+            for il in dp.INTERLEAVES:
                 got = dp.align_tiles(ref, query, rlen, qlen, dir_format=fmt,
                                      interleave=il, **kw)
                 for key in want:
@@ -170,6 +158,52 @@ def test_dp_kernel_edge_geometries_match_plain(cuda, T):
         want = plane2.plane2_torch(ref, query, rlen, qlen, **kw)
         for key in want:
             assert torch.equal(got[key], want[key]), (sc, "plane2", key)
+
+
+@pytest.mark.parametrize("T", [320, 1023])
+def test_forced_split_equals_the_one_warp_path(cuda, T):
+    """The split path forced (run_kernel's strips) over 2, 3, 4 and 8
+    warps a tile, where their strips cover T, in every format and
+    interleave and plane 2, gives the one-warp path's outputs."""
+    ref, query, rlen, qlen = _edge_tiles(T + 7, 36, T, cuda)
+    kw = dict(match=2, mismatch=-3, gap_open=-4, gap_extend=-2)
+    runs = 0
+    for fmt in (*dp.PACKERS, "plane2"):
+        want = dp.run_kernel(ref, query, rlen, qlen, fmt=fmt, interleave=1,
+                             what="test", strips=1, **kw)
+        for il in (1,) if fmt == "plane2" else dp.INTERLEAVES:
+            for strips in (2, 3, 4, 8):
+                if T > 32 * dp.SPLIT_WIDTHS[il][-1] * strips:
+                    continue
+                got = dp.run_kernel(ref, query, rlen, qlen, fmt=fmt,
+                                    interleave=il, what="test",
+                                    strips=strips, **kw)
+                runs += 1
+                for key in want:
+                    assert torch.equal(got[key], want[key]), (fmt, il,
+                                                              strips, key)
+    assert runs >= 28
+
+
+def test_split_path_counts_its_launches(cuda):
+    """Past the one-warp limit align_tiles and plane2 launch the split
+    path and count it on their .split, not on the one-warp kernel's
+    counters; at T = 1023 the reverse."""
+    at = dp.align_tiles
+    for T, split in ((1023, 0), (1024, 1)):
+        ref, query, rlen, qlen = _edge_tiles(T, 8, T, cuda)
+        kw = dict(match=1, mismatch=-1, gap_open=-1, gap_extend=-1)
+        n = (at.launches, at.variant_launches[("packed6", 1)],
+             at.split.launches, at.split.variant_launches[("packed6", 1)])
+        dp.align_tiles(ref, query, rlen, qlen, dir_format="packed6", **kw)
+        assert (at.launches, at.variant_launches[("packed6", 1)],
+                at.split.launches,
+                at.split.variant_launches[("packed6", 1)]) == (
+            n[0] + 1 - split, n[1] + 1 - split, n[2] + split, n[3] + split)
+        n = (plane2.plane2.launches, plane2.plane2.split.launches)
+        plane2.plane2(ref, query, rlen, qlen, **kw)
+        assert (plane2.plane2.launches, plane2.plane2.split.launches) == (
+            n[0] + 1 - split, n[1] + split)
 
 
 @pytest.mark.parametrize("warps", [1, 2, 3, 8])
@@ -662,7 +696,7 @@ def test_wrappers_reject_bad_arguments(cuda):
         dp.align_tiles(ref, query, rlen.cpu(), qlen, **kw)
     with pytest.raises(ValueError):
         dp.align_tiles(ref.t().contiguous().t(), query, rlen, qlen, **kw)
-    big = torch.zeros((2, 1024), dtype=torch.uint8, device=cuda)
+    big = torch.zeros((2, dp.MAX_TILE + 1), dtype=torch.uint8, device=cuda)
     n2 = torch.zeros(2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         dp.align_tiles(big, big, n2, n2, **kw)
@@ -672,9 +706,8 @@ def test_wrappers_reject_bad_arguments(cuda):
     with pytest.raises(ValueError):  # B = 6 does not divide by 4
         dp.align_tiles(ref[:6], query[:6], rlen[:6], qlen[:6],
                        interleave=4, **kw)
-    wide = torch.zeros((2, 512), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
-        dp.align_tiles(wide, wide, n2, n2, interleave=2, **kw)
+        dp.align_tiles(big, big, n2, n2, interleave=2, **kw)
     with pytest.raises(ValueError):
         scanshift.scanshift_smem(torch.zeros((2, 1025), dtype=torch.int32,
                                              device=cuda))

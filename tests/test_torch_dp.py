@@ -166,16 +166,15 @@ def test_align_tiles_rejects_bad_geometry():
 
 @pytest.mark.parametrize("B,T,interleave,ok", [
     (4, 1, 1, True), (4, 504, 1, True), (4, dp.MAX_TILE, 1, True),
-    (4, dp.MAX_TILE + 1, 1, False), (4, 376, 2, True), (4, 376, 4, True),
-    (4, dp.MAX_TILE_INTERLEAVED, 4, True),
-    (4, dp.MAX_TILE_INTERLEAVED + 1, 2, False), (4, 0, 1, False),
+    (4, dp.MAX_TILE + 1, 1, False), (4, 376, 2, True), (4, 1536, 4, True),
+    (4, dp.MAX_TILE, 4, True),
+    (4, dp.MAX_TILE + 1, 2, False), (4, 0, 1, False),
     (6, 24, 4, False)])
 def test_check_geometry_limits(B, T, interleave, ok):
-    """The warp-wavefront kernel's limits: one tile a warp up to T =
-    1023 (32 columns a lane), two or four tiles a warp up to T = 384 (12
-    columns a lane: four tiles at 16 spill registers), never below the
-    configs' 504 and the lab's 376; B divides by the interleave."""
-    assert dp.MAX_TILE == 1023 and dp.MAX_TILE_INTERLEAVED == 384
+    """The kernel's limits: T up to 2048, the reference's MAX_TILE_SIZE
+    2049 less one, at every interleave (the one-warp path up to 1023 or
+    384, the split path past it); B divides by the interleave."""
+    assert dp.MAX_TILE == 2048
     if ok:
         dp.check_geometry(B, T, interleave, "test")
     else:
@@ -185,10 +184,10 @@ def test_check_geometry_limits(B, T, interleave, ok):
 
 def test_align_tiles_takes_any_tile_size_on_the_cpu():
     """The plain version has no tile limit, as the JAX lax DP has none:
-    T = 1100, past the CUDA kernel's MAX_TILE, equals align_tiles_jax in
-    every format; the limit is the kernel's (check_tile_size)."""
-    rng = np.random.default_rng(1100)
-    B, T = 2, 1100
+    T = 2049, past the CUDA kernel's MAX_TILE, equals align_tiles_jax in
+    bytes and packed6; the limit is the kernel's (check_tile_size)."""
+    rng = np.random.default_rng(2049)
+    B, T = 2, 2049
     ref, query, rlen, qlen = make_batch(rng, B, T)
     kw = _scoring((MATCH, MISMATCH, GO, GE))
     want = align_tiles_jax(ref, query, rlen, qlen, **kw)
@@ -198,7 +197,7 @@ def test_align_tiles_takes_any_tile_size_on_the_cpu():
     words = dp.align_tiles(*args, dir_format="packed6", **kw)["dir_words"]
     assert torch.equal(words, dp.PACKERS["packed6"](
         torch.from_numpy(np.array(want["dir"]))))
-    with pytest.raises(ValueError, match="1023"):
+    with pytest.raises(ValueError, match="2048"):
         dp.check_tile_size(T, "test")
 
 

@@ -163,15 +163,16 @@ def test_engine_rejects_pieces_past_int32(tiny_calls):
 @pytest.mark.parametrize("engine", ["device", "host"])
 def test_tile_size_past_the_kernel_fails_before_seed_work(
         data_dir, tmp_path, monkeypatch, engine):
-    """tile_size 1024 in params.cfg: on "cuda" the engine (or aligner)
-    raises naming the limit, before the seed table or D-SOFT run (no
-    card is touched: the check comes first); on the CPU it is built."""
+    """tile_size 2049 in params.cfg, past the reference's limit: on
+    "cuda" the engine (or aligner) raises naming the limit, 2048, before
+    the seed table or D-SOFT run (no card is touched: the check comes
+    first); on the CPU it is built."""
     d = data_dir / "tiny"
     cfg = tmp_path / "params.cfg"
     cfg.write_text((d / "params.cfg").read_text()
-                   .replace("tile_size = 64", "tile_size = 1024"))
+                   .replace("tile_size = 64", "tile_size = 2049"))
     params = Params.from_cfg(cfg)
-    assert params.tile_size == 1024
+    assert params.tile_size == 2049
     reads = parse_fasta(d / "reads.fasta")
 
     def no_seed_work(*a, **k):
@@ -179,24 +180,24 @@ def test_tile_size_past_the_kernel_fails_before_seed_work(
 
     monkeypatch.setattr(SeedTable, "build", no_seed_work)
     monkeypatch.setattr(pipeline, "collect_calls", no_seed_work)
-    with pytest.raises(ValueError, match="1023"):
+    with pytest.raises(ValueError, match="2048"):
         run_pipeline(reads, reads, params, True, engine=engine,
                      device="cuda")
     monkeypatch.setattr(cli.torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="1023"):
+    with pytest.raises(ValueError, match="2048"):
         cli.main([str(d / "reads.fasta"), str(d / "reads.fasta"),
                   "--params", str(cfg), "--engine", engine, "--out-dir",
                   str(tmp_path / "out")])
     kw = dict(early_terminate=params.early_terminate, match=1, mismatch=-1,
-              gap_open=-1, gap_extend=-1, tile_size=1024)
-    with pytest.raises(ValueError, match="TorchTileAligner.*1023"):
+              gap_open=-1, gap_extend=-1, tile_size=2049)
+    with pytest.raises(ValueError, match="TorchTileAligner.*2048"):
         TorchTileAligner(device="cuda", **kw)
     TorchTileAligner(device="cpu", **kw)
     genome = Genome(reads, params.bin_size)
     bank = SeqBank([seq_to_bytes(r.seq) for r in reads])
-    ekw = dict(tile_size=1024, early_terminate=params.early_terminate,
+    ekw = dict(tile_size=2049, early_terminate=params.early_terminate,
                first_tile_score_threshold=0, match=1, mismatch=-1,
                gap_open=-1, gap_extend=-1, same_file=True)
-    with pytest.raises(ValueError, match="DeviceGactEngine.*1023"):
+    with pytest.raises(ValueError, match="DeviceGactEngine.*2048"):
         DeviceGactEngine(genome, bank, device="cuda", **ekw)
     DeviceGactEngine(genome, bank, device="cpu", **ekw)
