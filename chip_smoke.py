@@ -184,25 +184,32 @@ Phases; any failure ends the run with a nonzero exit code:
    in-process run is counted and the kernels of its path must launch;
 13. the split DP (phase_split), one tile over several warps, which takes
    the tile sizes past the one-warp path's (T > 1023 at interleave 1,
-   > 384 at 2 and 4) up to the reference's 2048: against its plain
-   version at tolerance 0 at SPLIT_TILES (36 edge tiles, three
-   scorings, every format and interleave and plane 2, and at 1024 and
-   2048 each walker at ET = T - 120 on its output), forced over 2, 3,
-   4 and 8 warps a tile at T = 320 and 1023 against the one-warp path;
-   the lab's split variants launched (geom_sweep, plane 2's emit probe)
-   with the counters zeroed; kernel and plain times and bounds at
-   B = 512, T = 1024 (and K1 bytes and packed6 at 2048, K1 also as
-   device time), each output held to the plain version's at tolerance
-   0; ShardedTileAligner over
-   4 entries of cuda:0 against TorchTileAligner at T = 1024 and 2048;
-   then the E.coli slice at T = 1024 and 2048 through the CLI (device
-   engine, bytes), the device engine with the packed6 walker and, at
-   1024, the CLI's host engine, each with the counters zeroed, every
-   merged record set equal to tests/data/ecoli_shape_t<T>/jax_cpu.darwin
+   > 384 at 2 and 4) up to the reference's 2048, on two kernels: the
+   16-bit one (two tiles a block in 16-bit halves; ops/dp.py's gate
+   picks it at interleave 1 where the scores stay clear of the 16-bit
+   sentinel, as at the default scoring) and the int32 one (interleaved,
+   plane 2, a scoring outside the gate).  Both against the plain
+   version at tolerance 0 at SPLIT_TILES (36 edge tiles, three scorings
+   and OUTSIDE16, every format and interleave and plane 2, the 16-bit
+   kernel also on 35 tiles, and at 1024 and 2048 each walker at ET = T
+   - 120 on its output), forced over 2, 3, 4 and 8 warps a tile at T =
+   320 and 1023 against the one-warp path; the lab's split variants
+   launched (geom_sweep, align_tiles under OUTSIDE16, plane 2's emit
+   probe) with the counters zeroed; kernel and plain times and bounds
+   at B = 512, T = 1024 (and K1 bytes and packed6 at 2048 on both
+   kernels, also as device time), each output held to the plain
+   version's at tolerance 0; ShardedTileAligner over 4 entries of
+   cuda:0 against TorchTileAligner at T = 1024 and 2048; then the
+   E.coli slice at T = 1024 and 2048 through the CLI (device engine,
+   bytes), the device engine with the packed6 walker and, at 1024, the
+   CLI's host engine, each with the counters zeroed, every merged
+   record set equal to tests/data/ecoli_shape_t<T>/jax_cpu.darwin
    (darwin_tpu's own CPU output at that tile size) and the DP launched
-   on its split path.  The split kernel's launches count apart from the
-   one-warp kernel's, under the split variants' names (align_tiles.split
-   in ops/dp.py).
+   on its 16-bit split path only.  Each split kernel's launches count
+   apart from the one-warp kernel's, under its variants' names
+   (align_tiles.split and align_tiles.split16 in ops/dp.py).  Phase 1
+   also logs the SASS instructions a cell of both split kernels
+   (tools/torch_sass_cells.py).
 
 The last three lines are a JSON summary of the kernels, nvidia-smi's
 name and power limit, and {"ok": true, "device": {...}}.  Without a
@@ -276,11 +283,12 @@ DP_OPS_CELL, SW_OPS_CELL, WALK_OPS_STEP, SCAN_OPS = 15, 10, 8, 2
 TUPLE_OPS = 10
 
 
-def _dp_variant(fmt: str, il: int, split: bool = False) -> str:
-    """JSON name of one DP variant (split: its split-path
-    instantiations, one tile over several warps)."""
+def _dp_variant(fmt: str, il: int, split: str = "") -> str:
+    """JSON name of one DP variant (split "split": its int32 split-path
+    instantiations, one tile over several warps; "split16": the 16-bit
+    split path's, two tiles a block)."""
     tags = ([] if fmt == "bytes" and il == 1 else [fmt]) + (
-        [f"il={il}"] if il > 1 else []) + (["split"] if split else [])
+        [f"il={il}"] if il > 1 else []) + ([split] if split else [])
     return "align_tiles" + (f"[{','.join(tags)}]" if tags else "")
 
 
@@ -288,19 +296,30 @@ def _dp_variant(fmt: str, il: int, split: bool = False) -> str:
 # path and on the split path.
 DP_VARIANTS = {(fmt, il): _dp_variant(fmt, il)
                for fmt in ("bytes", "packed", "packed6") for il in (1, 2, 4)}
-SPLIT_VARIANTS = {(fmt, il): _dp_variant(fmt, il, split=True)
+SPLIT_VARIANTS = {(fmt, il): _dp_variant(fmt, il, split="split")
                   for fmt in ("bytes", "packed", "packed6")
                   for il in (1, 2, 4)}
+SPLIT16_VARIANTS = {fmt: _dp_variant(fmt, 1, split="split16")
+                    for fmt in ("bytes", "packed", "packed6")}
 PLANE2_SPLIT = "plane2[split]"
+# The default scoring (the reference's params.cfg), inside the 16-bit
+# gate at every T, and one outside it at every split T (ops/dp.py
+# fits_int16: (T + 2) x 64 > 20000 from T = 311), which the int32 split
+# kernel runs.
+DEFAULT_SCORING = dict(match=1, mismatch=-1, gap_open=-1, gap_extend=-1)
+OUTSIDE16 = dict(match=40, mismatch=-30, gap_open=-64, gap_extend=-20)
 
 
 def dp_counter(fmt: str, T: int) -> str:
     """The name _counted gives the DP's launches in fmt at interleave 1
-    at tile size T: "align_tiles" (the one-warp kernel's counter, every
-    format) or the split variant's name."""
-    from darwin_tpu_torch.ops.dp import strips_for
+    at tile size T under the default scoring: "align_tiles" (the
+    one-warp kernel's counter, every format) or the 16-bit split
+    variant's name."""
+    from darwin_tpu_torch.ops.dp import align_tiles, kernel_counter
 
-    return ("align_tiles" if strips_for(T, 1) == 1
+    counter = kernel_counter(T, fmt, 1, **DEFAULT_SCORING)
+    return ("align_tiles" if counter is align_tiles
+            else SPLIT16_VARIANTS[fmt] if counter is align_tiles.split16
             else SPLIT_VARIANTS[(fmt, 1)])
 
 
@@ -309,6 +328,7 @@ def dp_counter(fmt: str, T: int) -> str:
 # "pallas_call" for a Pallas kernel, else the name of the function
 # defined there).  The main paths' kernels come first.
 DP_SRC = "darwin_tpu_torch/csrc/dp.cu"
+DP16_SRC = "darwin_tpu_torch/csrc/dp16.cu"
 WALK_SRC = "darwin_tpu_torch/csrc/traceback_words.cu"
 SHARDED_SRC = "darwin_tpu_torch/csrc/dsoft_sharded.cu"
 SHARDED_REPLACES = "darwin_tpu/dsoft/sharded_table.py:265"
@@ -332,8 +352,12 @@ KERNELS = {
               + ("523" if il == 1 else "493"), "pallas_call")
        for (fmt, il), name in DP_VARIANTS.items() if name != "align_tiles"},
     "plane2": (DP_SRC, "tools/plane2_probe.py:209", "pallas_call"),
-    # The split path's instantiations (phase 13): the main path's two at
-    # tile sizes past 1023 first, then the lab's.
+    # The split path's instantiations (phase 13): the 16-bit ones, the
+    # main path's at tile sizes past 1023 under a scoring inside the gate
+    # (bytes and packed6 first), then the int32 ones (a scoring outside
+    # it, the interleaved split), then the lab's.
+    **{name: (DP16_SRC, "darwin_tpu/ops/pallas_dp.py:523", "pallas_call")
+       for name in SPLIT16_VARIANTS.values()},
     **{name: (DP_SRC, "darwin_tpu/ops/pallas_dp.py:"
               + ("523" if il == 1 else "493"), "pallas_call")
        for (fmt, il), name in SPLIT_VARIANTS.items()},
@@ -1648,17 +1672,20 @@ def phase_fixtures(dev) -> None:
 def _counted(counters: dict, run) -> tuple:
     """run() with every launch counter zeroed just before it; returns
     (its result, {kernel: launches in it}), the DP's split-path launches
-    under their SPLIT_VARIANTS names (counters' "align_tiles" counts the
-    one-warp kernel's only)."""
+    under their SPLIT_VARIANTS and SPLIT16_VARIANTS names (counters'
+    "align_tiles" counts the one-warp kernel's only)."""
     from darwin_tpu_torch.ops.dp import align_tiles
 
     for c in counters.values():
         c.launches = 0
     align_tiles.split.variant_launches.clear()
+    align_tiles.split16.variant_launches.clear()
     out = run()
     launches = {name: c.launches for name, c in counters.items()}
     launches.update((SPLIT_VARIANTS[v], n) for v, n in
                     align_tiles.split.variant_launches.items())
+    launches.update((SPLIT16_VARIANTS[fmt], n) for (fmt, _), n in
+                    align_tiles.split16.variant_launches.items())
     return out, launches
 
 
@@ -2745,9 +2772,10 @@ def checked_digests(dev, small: bool = False) -> dict:
     each index mode and exchange, shard_scan on the first case's first
     shard at the other three L % 4 and with one refine step, and
     shard_count on SHARD_COUNT_CASES; and the split DP (phase 13's
-    path) in every format, interleave and plane 2 at SPLIT_CHECKED on
-    edge_tiles, each walker at ET = T - 120 on its output, and forced
-    at T = 320.
+    path) at SPLIT_CHECKED on edge_tiles, the int32 kernel in every
+    format and interleave and plane 2, the 16-bit kernel in every format
+    (and on an odd batch), each walker at ET = T - 120 on its output,
+    and both kernels forced at T = 320.
     small: B = 36, the tile size 64 and
     one scoring, one large-ET walk, the scans at C = 33 and 1024 beside
     the probe's shape, the D-SOFT cases under the two-level index only,
@@ -2822,10 +2850,16 @@ def checked_digests(dev, small: bool = False) -> dict:
                       SCORINGS[0]))
         for fmt, (key, walk) in WALK_FNS.items():
             for il in (4, 2, 1):
-                out = run(f"split align_tiles[{fmt},il={il}] T={T}",
-                          lambda: align_tiles(ref, query, rlen, qlen,
-                                              dir_format=fmt, interleave=il,
-                                              **kw))
+                run(f"split int32 align_tiles[{fmt},il={il}] T={T}",
+                    lambda: run_kernel(ref, query, rlen, qlen, fmt=fmt,
+                                       interleave=il, what="checked",
+                                       dp16=False, **kw))
+            run(f"split16 align_tiles[{fmt}] T={T} B={SPLIT_B - 1}",
+                lambda: align_tiles(ref[1:], query[1:], rlen[1:], qlen[1:],
+                                    dir_format=fmt, **kw))
+            out = run(f"split16 align_tiles[{fmt}] T={T}",
+                      lambda: align_tiles(ref, query, rlen, qlen,
+                                          dir_format=fmt, **kw))
             args = (out[key], rlen, qlen, first, out["max_i"], out["max_j"])
             run(f"{WALKERS[fmt]} T={T} ET={T - 120} on the split DP",
                 lambda: walk(*args, early_terminate=T - 120))
@@ -2833,13 +2867,15 @@ def checked_digests(dev, small: bool = False) -> dict:
             lambda: plane2(ref, query, rlen, qlen, **kw))
         for strips in (2, 8):
             for fmt in ("bytes", "packed6"):
-                run(f"split align_tiles[{fmt}] T=320 strips={strips}",
-                    lambda: run_kernel(ref[:, :320].contiguous(),
-                                       query[:, :320].contiguous(),
-                                       rlen.clamp(max=320),
-                                       qlen.clamp(max=320), fmt=fmt,
-                                       interleave=1, what="checked",
-                                       strips=strips, **kw))
+                for dp16 in (False, True):
+                    run(f"split align_tiles[{fmt}] T=320 strips={strips} "
+                        f"dp16={dp16}",
+                        lambda: run_kernel(ref[:, :320].contiguous(),
+                                           query[:, :320].contiguous(),
+                                           rlen.clamp(max=320),
+                                           qlen.clamp(max=320), fmt=fmt,
+                                           interleave=1, what="checked",
+                                           strips=strips, dp16=dp16, **kw))
 
     frng = np.random.default_rng(2)
     gbank, qbank = fetch_banks(frng, dev)
@@ -3682,7 +3718,7 @@ def phase_tools(dev, counters: dict, ecoli_want: str) -> dict:
         raise AssertionError(f"geom A/B dataset sha256 {sha} != {want_sha}")
     res, launches = counted("geom A/B", lambda: ab.run_ab(
         args, dev, refs, reads, log=lambda s: log("  geom A/B: " + s)),
-        ("align_tiles", SPLIT_VARIANTS[("bytes", 1)], "traceback",
+        ("align_tiles", SPLIT16_VARIANTS["bytes"], "traceback",
          "fetch_tiles"))
     if res[320]["records"] != ecoli_want.splitlines():
         raise AssertionError("geom A/B: T = 320's records differ from "
@@ -3727,19 +3763,23 @@ SPLIT_FORCED = (320, 1023)
 SPLIT_STRIPS = (2, 3, 4, 8)
 SPLIT_ECOLI = (1024, 2048)
 SPLIT_TIMED = (1024, 2048)
-# The split variants on the main path, also timed as device time.
-SPLIT_DEVICE_TIMED = (SPLIT_VARIANTS[("bytes", 1)],
+# K1 split in the main path's two formats on both kernels, also timed
+# as device time.
+SPLIT_DEVICE_TIMED = (SPLIT16_VARIANTS["bytes"], SPLIT16_VARIANTS["packed6"],
+                      SPLIT_VARIANTS[("bytes", 1)],
                       SPLIT_VARIANTS[("packed6", 1)])
 # Phase 7's sizes: every split instantiation (C = 16, 12 and 8 at
 # interleave 1, 8 interleaved) on full and partial last strips.
 SPLIT_CHECKED = (1024, 1025, 2047, 2048)
 # The E.coli runs at each SPLIT_ECOLI size and the kernels each must
-# launch (the DP on its split path in that run's format).
+# launch (the DP on its 16-bit split path in that run's format: the
+# default scoring is inside the gate; the int32 split kernel must not
+# launch).
 SPLIT_ECOLI_RUNS = {
-    "cli bytes": (SPLIT_VARIANTS[("bytes", 1)], "fetch_tiles", "traceback"),
-    "packed6": (SPLIT_VARIANTS[("packed6", 1)], "fetch_tiles",
+    "cli bytes": (SPLIT16_VARIANTS["bytes"], "fetch_tiles", "traceback"),
+    "packed6": (SPLIT16_VARIANTS["packed6"], "fetch_tiles",
                 "traceback_packed6"),
-    "cli host": (SPLIT_VARIANTS[("packed6", 1)], "traceback_packed6"),
+    "cli host": (SPLIT16_VARIANTS["packed6"], "traceback_packed6"),
 }
 SPLIT_HOST_TILES = (1024,)  # the host engine's sizes (its DP is packed6)
 
@@ -3757,12 +3797,16 @@ def tile_params_cfg(T: int, path: Path) -> Path:
 
 
 def split_kernel_checks(dev) -> dict:
-    """The split path against the plain version at SPLIT_TILES (every
-    format at interleave 1, 2, 4 and plane 2, three scorings; at the
-    E.coli runs' sizes also each format's walker at ET = T - 120 on the
-    DP's output under the first), then forced at SPLIT_FORCED against
-    the one-warp path; all at tolerance 0.  Returns {name:
-    max_abs_err}."""
+    """The split path against the plain version at SPLIT_TILES, all at
+    tolerance 0: under three scorings every format at interleave 1 on
+    the 16-bit kernel (the gate's choice) and on the int32 one (forced),
+    at 2 and 4 on the int32 kernel, and plane 2 (int32); the 16-bit
+    kernel also on an odd batch (its last block's second tile idle); at
+    the E.coli runs' sizes each format's walker at ET = T - 120 on the
+    16-bit DP's output under the first scoring; a scoring outside the
+    16-bit gate (OUTSIDE16) through align_tiles, which must launch the
+    int32 kernel; then both kernels forced at SPLIT_FORCED against the
+    one-warp path.  Returns {name: max_abs_err}."""
     import numpy as np
     import torch
 
@@ -3772,46 +3816,81 @@ def split_kernel_checks(dev) -> dict:
     from darwin_tpu_torch.ops.plane2 import plane2
     from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
 
-    errs = dict.fromkeys([*SPLIT_VARIANTS.values(), PLANE2_SPLIT], 0)
+    errs = dict.fromkeys([*SPLIT16_VARIANTS.values(),
+                          *SPLIT_VARIANTS.values(), PLANE2_SPLIT], 0)
     rng = np.random.default_rng(14)
+    scorings = [dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                         sc)) for sc in SCORINGS] + [OUTSIDE16]
     for T in SPLIT_TILES:
         ref, query, rlen, qlen = (torch.from_numpy(x).to(dev) for x in
                                   edge_tiles(rng, SPLIT_B, T))
         first = torch.from_numpy(rng.random(SPLIT_B) < 0.5).to(dev)
         t0 = time.perf_counter()
-        for n, sc in enumerate(SCORINGS):
-            kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
-                          sc))
+        for n, kw in enumerate(scorings):
             want = align_tiles_torch(ref, query, rlen, qlen, **kw)
             d = want.pop("dir")
             for fmt, packer in dp.PACKERS.items():
                 key = "dir" if packer is None else "dir_words"
                 w = {key: d if packer is None else packer(d), **want}
-                for il in dp.INTERLEAVES:
+                if kw is OUTSIDE16:
+                    n32 = dp.align_tiles.split.launches
                     got = dp.align_tiles(ref, query, rlen, qlen,
-                                         dir_format=fmt, interleave=il, **kw)
+                                         dir_format=fmt, **kw)
+                    if dp.align_tiles.split.launches != n32 + 1:
+                        raise AssertionError(f"T={T} {fmt}: a scoring "
+                                             f"outside the gate did not "
+                                             f"launch the int32 kernel")
+                    name = SPLIT_VARIANTS[(fmt, 1)]
+                    errs[name] = max(errs[name], max_abs_err(got, w))
+                    continue
+                n16 = dp.align_tiles.split16.launches
+                got = dp.align_tiles(ref, query, rlen, qlen,
+                                     dir_format=fmt, **kw)
+                if dp.align_tiles.split16.launches != n16 + 1:
+                    raise AssertionError(f"T={T} {fmt}: the 16-bit kernel "
+                                         f"did not launch")
+                name = SPLIT16_VARIANTS[fmt]
+                errs[name] = max(errs[name], max_abs_err(got, w))
+                if n == 0:
+                    odd = dp.align_tiles(ref[:-1], query[:-1], rlen[:-1],
+                                         qlen[:-1], dir_format=fmt, **kw)
+                    errs[name] = max(errs[name], max_abs_err(
+                        odd, {k: v[:-1] for k, v in w.items()}))
+                    del odd
+                if n == 0 and T in SPLIT_ECOLI:
+                    kernel, plain = _walker_pairs(
+                        fmt, T - 120, (got[key], rlen, qlen, first,
+                                       got["max_i"], got["max_j"]))
+                    e = max_abs_err(dict(enumerate(kernel())),
+                                    dict(enumerate(plain())))
+                    errs[name] = max(errs[name], e)
+                del got
+                for il in dp.INTERLEAVES:
+                    got = dp.run_kernel(ref, query, rlen, qlen, fmt=fmt,
+                                        interleave=il, what="split checks",
+                                        dp16=False, **kw)
+                    if packer is not None:
+                        got["dir_words"] = got.pop("dir")
                     name = SPLIT_VARIANTS[(fmt, il)]
                     errs[name] = max(errs[name], max_abs_err(got, w))
-                    if il == 1 and n == 0 and T in SPLIT_ECOLI:
-                        kernel, plain = _walker_pairs(
-                            fmt, T - 120, (got[key], rlen, qlen, first,
-                                           got["max_i"], got["max_j"]))
-                        e = max_abs_err(dict(enumerate(kernel())),
-                                        dict(enumerate(plain())))
-                        errs[name] = max(errs[name], e)
                     del got
                 del w
-            w6 = dp.PACKERS["packed6"](d)
-            got = plane2(ref, query, rlen, qlen, **kw)
-            errs[PLANE2_SPLIT] = max(errs[PLANE2_SPLIT], max_abs_err(
-                got, {"dir_words": w6, "dir2_words": plane2_words(d),
-                      **want}))
-            del got, w6, d
+            if kw is not OUTSIDE16:
+                w6 = dp.PACKERS["packed6"](d)
+                got = plane2(ref, query, rlen, qlen, **kw)
+                errs[PLANE2_SPLIT] = max(errs[PLANE2_SPLIT], max_abs_err(
+                    got, {"dir_words": w6, "dir2_words": plane2_words(d),
+                          **want}))
+                del got, w6
+            del d
         walks = f", the walkers at ET={T - 120}" if T in SPLIT_ECOLI else ""
         log(f"  T={T} (strips {dp.strips_for(T, 1)} at interleave 1, "
-            f"{dp.strips_for(T, 2)} at 2 and 4): every format, interleave "
-            f"and plane 2 under {len(SCORINGS)} scorings{walks}: errors "
-            f"{set(errs.values())} ({time.perf_counter() - t0:.1f} s)")
+            f"{dp.strips_for(T, 2)} at 2 and 4): the 16-bit kernel in every "
+            f"format (and on B={SPLIT_B - 1}), the int32 kernel in every "
+            f"format and interleave, plane 2, under {len(SCORINGS)} "
+            f"scorings{walks}, and the int32 kernel under {OUTSIDE16}: "
+            f"errors {set(errs.values())} "
+            f"({time.perf_counter() - t0:.1f} s)")
         if any(errs.values()):
             raise AssertionError(f"split DP mismatch at T={T}: {errs}")
     kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
@@ -3823,21 +3902,27 @@ def split_kernel_checks(dev) -> dict:
         for fmt in (*dp.PACKERS, "plane2"):
             one = dp.run_kernel(*args, fmt=fmt, interleave=1, what="forced",
                                 strips=1, **kw)
-            for il in (1,) if fmt == "plane2" else dp.INTERLEAVES:
+            kinds = [(il, False) for il in ((1,) if fmt == "plane2"
+                                            else dp.INTERLEAVES)]
+            if fmt != "plane2":
+                kinds.append((1, True))
+            for il, dp16 in kinds:
                 name = (PLANE2_SPLIT if fmt == "plane2"
+                        else SPLIT16_VARIANTS[fmt] if dp16
                         else SPLIT_VARIANTS[(fmt, il)])
                 for strips in SPLIT_STRIPS:
                     try:
-                        dp.check_strips(T, il, strips, "forced")
+                        dp.check_strips(T, il, strips, "forced", dp16)
                     except ValueError:
                         continue
                     got = dp.run_kernel(*args, fmt=fmt, interleave=il,
-                                        what="forced", strips=strips, **kw)
+                                        what="forced", strips=strips,
+                                        dp16=dp16, **kw)
                     errs[name] = max(errs[name], max_abs_err(got, one))
                     n += 1
         log(f"  T={T} forced over {SPLIT_STRIPS} warps a tile where they "
-            f"fit ({n} runs): equal to the one-warp path: "
-            f"{not any(errs.values())}")
+            f"fit, both split kernels ({n} runs): equal to the one-warp "
+            f"path: {not any(errs.values())}")
         if any(errs.values()):
             raise AssertionError(f"forced split differs at T={T}: {errs}")
     return errs
@@ -3846,17 +3931,19 @@ def split_kernel_checks(dev) -> dict:
 def split_times(dev) -> dict:
     """At B = B_MAIN on related_tiles: every split variant and plane 2 at
     SPLIT_TIMED[0], K1 bytes and packed6 again at each larger size of
-    SPLIT_TIMED (the largest is the kernels line's), each with the plain
-    version's time (one a format and size: the plain version has no
-    interleave) and the bound, and held to the plain version's output
-    (tolerance 0, else AssertionError), K1's device time too (graph_ms);
-    the forced split against the one-warp path at T = 504 and 1023 (a
-    figure, the outputs equal).  Returns {name: numbers}."""
+    SPLIT_TIMED (the largest is the kernels line's), at interleave 1 on
+    both the 16-bit kernel (the gate's choice) and the int32 one (forced
+    on the same inputs), each with the plain version's time (one a format
+    and size, its output kept: the plain version has no interleave) and
+    the bound, and held to the plain version's output (tolerance 0, else
+    AssertionError), K1's device time too (graph_ms); the forced split
+    (int32) against the one-warp path at T = 504 and 1023 (a figure, the
+    outputs equal).  Returns {name: numbers}."""
     import numpy as np
     import torch
 
-    from darwin_tpu_torch.lab import time_ms
     from darwin_tpu_torch.lab.geom_sweep import max_abs_err
+    from darwin_tpu_torch.lab import time_ms
     from darwin_tpu_torch.ops import dp
     from darwin_tpu_torch.ops.plane2 import plane2, plane2_torch
 
@@ -3877,32 +3964,56 @@ def split_times(dev) -> dict:
         r = dict(ms=median_ms(call, 10), library_ms=None, plain_ms=plain_ms,
                  max_abs_err=max_abs_err(got, want), **dp_bound(*a, got))
         del got
+        # The operations bound alone (DP_OPS_CELL a cell), beside the
+        # bytes that bound these calls.
+        cells = int((a[2].clamp(0, T).long() * a[3].clamp(0, T).long())
+                    .sum())
+        r["ops_bound_ms"] = bound(0, DP_OPS_CELL * cells)["bound_ms"]
         graph = ""
         if name in SPLIT_DEVICE_TIMED:
             # Two launches a graph: its pool holds each one's output (up
             # to 8.6 GB at T = 2048 in packed6).
             r["device_ms"] = graph_ms(call, n=2)
+            torch.cuda.empty_cache()
             graph = f" (graph {r['device_ms']:.4f} ms)"
         log(f"  {name} at B={B_MAIN} T={T}: kernel {r['ms']:.4f} ms{graph}, "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), max_abs_err {r['max_abs_err']}")
+            f"({r['bound_by']}; operations {r['ops_bound_ms']:.4f}), "
+            f"max_abs_err {r['max_abs_err']}")
         if r["max_abs_err"]:
             raise AssertionError(f"{name} at B={B_MAIN} T={T} differs from "
                                  f"the plain version")
         res[name] = r
 
+    def words(out, fmt):
+        if fmt != "bytes":
+            out["dir_words"] = out.pop("dir")
+        return out
+
     for T in SPLIT_TIMED:
         a = [torch.from_numpy(x).to(dev)
              for x in related_tiles(rng, B_MAIN, T)]
-        for (fmt, il), name in SPLIT_VARIANTS.items():
-            if T == SPLIT_TIMED[0] or (il == 1 and fmt != "packed"):
-                timed(name, T, lambda fmt=fmt, il=il: dp.align_tiles(
-                    *a, dir_format=fmt, interleave=il, **kw),
-                    lambda fmt=fmt: dp.align_tiles_plain(
-                        *a, dir_format=fmt, **kw), fmt)
+        for fmt in dp.PACKERS:
+            if T != SPLIT_TIMED[0] and fmt == "packed":
+                continue
+            plain_call = functools.partial(dp.align_tiles_plain, *a,
+                                           dir_format=fmt, **kw)
+            timed(SPLIT16_VARIANTS[fmt], T, functools.partial(
+                dp.align_tiles, *a, dir_format=fmt, **kw), plain_call, fmt)
+            for il in dp.INTERLEAVES:
+                if T == SPLIT_TIMED[0] or il == 1:
+                    timed(SPLIT_VARIANTS[(fmt, il)], T,
+                          lambda fmt=fmt, il=il: words(dp.run_kernel(
+                              *a, fmt=fmt, interleave=il, what="timed",
+                              dp16=False, **kw), fmt), plain_call, fmt)
         if T == SPLIT_TIMED[0]:
             timed(PLANE2_SPLIT, T, lambda: plane2(*a, **kw),
                   lambda: plane2_torch(*a, **kw), "plane2")
+        for fmt in ("bytes", "packed6"):
+            r32, r16 = res[SPLIT_VARIANTS[(fmt, 1)]], res[SPLIT16_VARIANTS[fmt]]
+            log(f"  K1 split {fmt} at B={B_MAIN} T={T}, device ms: int32 "
+                f"{r32['device_ms']:.4f}, 16-bit {r16['device_ms']:.4f} "
+                f"({r32['device_ms'] / r16['device_ms']:.3f}x)")
         del a
         plain.clear()
     for T in (504, 1023):
@@ -3910,7 +4021,7 @@ def split_times(dev) -> dict:
              for x in related_tiles(rng, B_MAIN, T)]
         run = {strips: functools.partial(
             dp.run_kernel, *a, fmt="bytes", interleave=1, what="forced",
-            strips=strips, **kw) for strips in (1, 2)}
+            strips=strips, dp16=False, **kw) for strips in (1, 2)}
         ms = {strips: median_ms(f, 10) for strips, f in run.items()}
         err = max_abs_err(run[2](), run[1]())
         log(f"  forced split at B={B_MAIN} T={T}, bytes: one warp "
@@ -3924,18 +4035,22 @@ def split_times(dev) -> dict:
 
 def phase_split(dev, counters: dict) -> tuple:
     """Phase 13: split_kernel_checks; the split variants' lab launches
-    (geom_sweep over every format and interleave, and plane 2's emit
-    probe, at T = SPLIT_TIMED[0] with the counters zeroed); split_times;
+    (geom_sweep over every format and interleave, the 16-bit kernel at
+    interleave 1, then align_tiles at interleave 1 under OUTSIDE16, the
+    int32 kernel, against the plain version, and plane 2's emit probe,
+    at T = SPLIT_TIMED[0] with the counters zeroed); split_times;
     split_aligners; then the E.coli slice at SPLIT_ECOLI through the CLI
     (device engine,
     bytes), the device engine with the packed6 walker and, at
     SPLIT_HOST_TILES, the CLI's host engine, each counted, every merged
     record set equal to tests/data/ecoli_shape_t<T>/jax_cpu.darwin and
-    the DP launched on its split path.  Returns ({name: numbers} and
-    {name: lab launches} of the split variants, {kernel: launches} of
-    the E.coli runs, the DP's under its split variants' names)."""
+    the DP launched on its 16-bit split path.  Returns ({name: numbers}
+    and {name: lab launches} of the split variants, {kernel: launches}
+    of the E.coli runs, the DP's under its split variants' names)."""
+    import torch
+
     from darwin_tpu_torch.lab import geom_sweep, plane2_probe
-    from darwin_tpu_torch.ops.dp import align_tiles
+    from darwin_tpu_torch.ops.dp import align_tiles, align_tiles_plain
     from darwin_tpu_torch.ops.plane2 import plane2
 
     t0 = time.perf_counter()
@@ -3943,15 +4058,25 @@ def phase_split(dev, counters: dict) -> tuple:
     log(f"  kernel checks took {time.perf_counter() - t0:.1f} s")
     T = SPLIT_TIMED[0]
     align_tiles.split.variant_launches.clear()
+    align_tiles.split16.variant_launches.clear()
     plane2.split.launches = 0
     rows = geom_sweep.sweep([(64, T, fmt, il) for fmt, il in SPLIT_VARIANTS],
                             dev)
+    a = [torch.from_numpy(x).to(dev)
+         for x in geom_sweep.sweep_inputs(64, T)]
+    for fmt in SPLIT16_VARIANTS:
+        errs[SPLIT_VARIANTS[(fmt, 1)]] = max(
+            errs[SPLIT_VARIANTS[(fmt, 1)]], geom_sweep.max_abs_err(
+                align_tiles(*a, dir_format=fmt, **OUTSIDE16),
+                align_tiles_plain(*a, dir_format=fmt, **OUTSIDE16)))
     plane2_probe.probe_emit(T, dev, B=64, V=2)
-    if any(r[4]["max_abs_err"] for r in rows):
+    if any(r[4]["max_abs_err"] for r in rows) or any(errs.values()):
         raise AssertionError("the split geometry sweep differs from the "
                              "plain version")
     launches = {name: align_tiles.split.variant_launches[v]
                 for v, name in SPLIT_VARIANTS.items()}
+    launches.update((name, align_tiles.split16.variant_launches[(fmt, 1)])
+                    for fmt, name in SPLIT16_VARIANTS.items())
     launches[PLANE2_SPLIT] = plane2.split.launches
     log(f"  lab launches on the split path: {launches}")
     res = split_times(dev)
@@ -4033,12 +4158,41 @@ def split_ecoli(dev, counters: dict) -> collections.Counter:
                 idle = [k for k in SPLIT_ECOLI_RUNS[tag] if n.get(k, 0) <= 0]
                 if idle:
                     raise AssertionError(f"T={T} {tag}: {idle} not launched")
+                int32 = {k: n[k] for k in SPLIT_VARIANTS.values()
+                         if n.get(k, 0)}
+                if int32:
+                    raise AssertionError(f"T={T} {tag}: the int32 split "
+                                         f"kernel launched {int32}")
                 if ("fetch_tiles" in SPLIT_ECOLI_RUNS[tag]
                         and n["fetch_tiles"] != m["engine_iters"]):
                     raise AssertionError(f"T={T} {tag}: the fetch is not "
                                          f"once an iteration")
                 total.update(n)
     return total
+
+
+def sass_cells(report: str) -> None:
+    """Logs the SASS instructions a cell of the split DP's row body, the
+    int32 and the 16-bit kernel at C = 16 in bytes and packed6
+    (tools/torch_sass_cells.py over cuobjdump -sass of the library just
+    built), or that cuobjdump is missing."""
+    import shutil
+    import subprocess
+
+    from darwin_tpu_torch import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        log("  SASS a cell: cuobjdump is not on this host")
+        return
+    sass = subprocess.run([tool, "-sass", str(_build.LIB)], check=True,
+                          capture_output=True, text=True).stdout
+    for r in _tool("torch_sass_cells").count(
+            sass, _tool("torch_sass_cells").DEFAULT, report):
+        log(f"  SASS a cell, {r['kernel']}: {r['instructions']} "
+            f"instructions for {r['cells']} cells, {r['per_cell']:.2f} a "
+            f"cell ({r.get('registers')} registers, spill stores "
+            f"{r.get('spill_stores')})")
 
 
 def run_phases(dev, golden_pool) -> tuple:
@@ -4058,6 +4212,7 @@ def run_phases(dev, golden_pool) -> tuple:
         f"and {_build.LIB_CHECKED.name}")
     for line in _registers(report):
         log("  " + line)
+    sass_cells(report)
 
     log("[2/13] kernels against their plain versions (tolerance 0)")
     kres = phase_kernels(dev)

@@ -221,10 +221,12 @@ def main(argv: list[str] | None = None) -> int:
         "gcups_ref_geom_t320": gcups_ref,
     }))
     # The kernels' launches in this run (counted on a card only); the DP's
-    # split path (T past the one-warp path's) counts apart.
+    # split paths (T past the one-warp path's; int32 and 16-bit) count
+    # apart.
     print("launches: " + json.dumps(
         {"align_tiles": align_tiles.launches,
          "align_tiles_split": align_tiles.split.launches,
+         "align_tiles_split16": align_tiles.split16.launches,
          "traceback_packed6": traceback_packed6.launches}), file=sys.stderr)
     return 0
 

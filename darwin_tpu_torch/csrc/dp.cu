@@ -98,64 +98,23 @@
 // through shared memory (its key keeps the column in 16 bits).  Outputs
 // are the one-warp path's, bit for bit; ops/dp.py picks the path, S
 // and C.
+//
+// The 16-bit split path, two tiles a block in the 16-bit halves of the
+// registers, which ops/dp.py takes at interleave 1 in bytes, packed and
+// packed6 where the scores stay clear of a 16-bit sentinel, is
+// csrc/dp16.cu (its own source, so that nvcc builds it beside this one).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
 
 #include "checked.cuh"
+#include "dp_common.cuh"
 
 namespace {
 
-using dtt::at;
-
-constexpr int NEG_INF = 1 << 30;
-constexpr int GAP_OPEN_FLAG_I = 8;
-constexpr int GAP_OPEN_FLAG_D = 4;
-constexpr int MATCH_BIT = 16;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int kMaxWarps = 8;
-constexpr int kMaxSmem = 227 * 1024;
-// Zero bytes left of column 0 in a ring row: the word formats read
-// columns down to c - 3, and column 0 then starts 4-aligned.
-constexpr int kPadL = 4;
-
-enum Format : int { kBytes = 0, kPacked = 1, kPacked6 = 2, kPlane2 = 3 };
-
-// Rows of the ring above the row a word is emitted for.
-template <int FMT> struct Lag {
-  static constexpr int value =
-      FMT == kBytes ? 0 : FMT == kPacked ? 1 : FMT == kPacked6 ? 3 : 6;
-};
-
-__host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
-
-// Ring geometry for a group of LANES lanes that emits its rows together:
-// rows in flight (LANES, one a lane) plus the lag plus the row being
-// emitted, of LANES C + 8 bytes (kPadL, column 0, the group's LANES C
-// columns, and zero columns on the right), and after them one row that
-// stays zero; 16-byte aligned.
-template <int LANES, int C, int FMT> struct RingOf {
-  static constexpr int kRows = LANES + 1 + Lag<FMT>::value;
-  static constexpr int kRowBytes = LANES * C + 8;
-  static constexpr int kBytes = round16((kRows + 1) * kRowBytes);
-};
 // The one-warp path's ring: the whole warp is one group.
 template <int C, int FMT> using Ring = RingOf<32, C, FMT>;
-
-struct Args {
-  const uint8_t* ref;
-  const uint8_t* query;
-  const int* ref_len;
-  const int* query_len;
-  int B, T, match, mismatch, go, ge;
-  void* dir;   // uint8 bytes or int32 words [B, T, T+1]
-  int* dir2;   // plane 2 (kPlane2 only)
-  int* max_score;
-  int* max_i;
-  int* max_j;
-  int* pos_score;
-};
 
 // Row x of a ring at its column 0: DP row x for 1 <= x <= rl, else
 // the zero row (row 0 and the rows past rlen hold no direction byte).
@@ -187,18 +146,6 @@ __device__ __forceinline__ void copy_row(uint8_t* dst, const uint8_t* src,
   for (int x = h + 4 * nw + lane; x < n; x += 32) {
     at(dst, x) = x <= qv ? src[x] : 0;
   }
-}
-
-// The warp zero-fills n bytes at global p.
-__device__ __forceinline__ void zero_bytes(uint8_t* p, size_t n, int lane) {
-  const size_t h = min(static_cast<size_t>(
-                           (16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15),
-                       n);
-  if (static_cast<size_t>(lane) < h) at(p, lane) = 0;
-  const size_t n16 = (n - h) >> 4;
-  uint4* q = reinterpret_cast<uint4*>(p + h);
-  for (size_t x = lane; x < n16; x += 32) at(q, x) = make_uint4(0, 0, 0, 0);
-  for (size_t x = h + 16 * n16 + lane; x < n; x += 32) at(p, x) = 0;
 }
 
 // The warp writes columns c0 .. c0+n-1 of DP row r (1-based) of tile b
@@ -555,10 +502,6 @@ int by_strip(const Args& a, int warps, cudaStream_t s) {
 // before its own last, and the tile's last group up to T: every word's
 // columns c - 3 .. c + 1 then lie in the ring of the group that writes
 // it.  split_smem gives the budget (the file's head comment).
-constexpr int kGroup = 16;
-constexpr int kSync = 8;
-constexpr int kLag = 31 + kSync;
-constexpr int kBnd = 32;
 
 template <int C, int FMT> using GroupRing = RingOf<kGroup, C, FMT>;
 
@@ -886,7 +829,8 @@ int by_split(const Args& a, int strips, int width, cudaStream_t s) {
 // a warp; B % interleave == 0.  strips: 1 for the one-warp path, `warps`
 // warps (1..8) a block; 2..8 for the split path, one block of `strips`
 // warps a tile, each lane holding `width` columns (ops/dp.py picks both;
-// width is unused on the one-warp path).
+// width is unused on the one-warp path).  The 16-bit split path has its
+// own entry, dtt_align_tiles16 (csrc/dp16.cu).
 extern "C" int dtt_align_tiles(const uint8_t* ref, const uint8_t* query,
                                const int* ref_len, const int* query_len,
                                int B, int T, int match, int mismatch,

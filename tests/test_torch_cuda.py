@@ -164,46 +164,119 @@ def test_dp_kernel_edge_geometries_match_plain(cuda, T):
 def test_forced_split_equals_the_one_warp_path(cuda, T):
     """The split path forced (run_kernel's strips) over 2, 3, 4 and 8
     warps a tile, where their strips cover T, in every format and
-    interleave and plane 2, gives the one-warp path's outputs."""
+    interleave and plane 2 on the int32 split kernel, and in every format
+    at interleave 1 on the 16-bit one, gives the one-warp path's
+    outputs."""
     ref, query, rlen, qlen = _edge_tiles(T + 7, 36, T, cuda)
     kw = dict(match=2, mismatch=-3, gap_open=-4, gap_extend=-2)
     runs = 0
     for fmt in (*dp.PACKERS, "plane2"):
         want = dp.run_kernel(ref, query, rlen, qlen, fmt=fmt, interleave=1,
                              what="test", strips=1, **kw)
-        for il in (1,) if fmt == "plane2" else dp.INTERLEAVES:
+        kinds = [(il, False) for il in ((1,) if fmt == "plane2"
+                                        else dp.INTERLEAVES)]
+        kinds += [] if fmt == "plane2" else [(1, True)]
+        for il, dp16 in kinds:
+            widths = dp.SPLIT16_WIDTHS if dp16 else dp.SPLIT_WIDTHS[il]
             for strips in (2, 3, 4, 8):
-                if T > 32 * dp.SPLIT_WIDTHS[il][-1] * strips:
+                if T > 32 * widths[-1] * strips:
                     continue
                 got = dp.run_kernel(ref, query, rlen, qlen, fmt=fmt,
                                     interleave=il, what="test",
-                                    strips=strips, **kw)
+                                    strips=strips, dp16=dp16, **kw)
                 runs += 1
                 for key in want:
                     assert torch.equal(got[key], want[key]), (fmt, il,
-                                                              strips, key)
-    assert runs >= 28
+                                                              strips, dp16,
+                                                              key)
+    assert runs >= 40
 
 
 def test_split_path_counts_its_launches(cuda):
     """Past the one-warp limit align_tiles and plane2 launch the split
-    path and count it on their .split, not on the one-warp kernel's
-    counters; at T = 1023 the reverse."""
+    path and count it apart from the one-warp kernel's counters:
+    align_tiles on align_tiles.split16 (the 16-bit kernel) where the
+    gate passes the scoring, on align_tiles.split (the int32 kernel)
+    where it does not, plane2 on plane2.split; at T = 1023 neither."""
     at = dp.align_tiles
+    outside = dict(match=40, mismatch=-30, gap_open=-64, gap_extend=-20)
     for T, split in ((1023, 0), (1024, 1)):
         ref, query, rlen, qlen = _edge_tiles(T, 8, T, cuda)
         kw = dict(match=1, mismatch=-1, gap_open=-1, gap_extend=-1)
-        n = (at.launches, at.variant_launches[("packed6", 1)],
-             at.split.launches, at.split.variant_launches[("packed6", 1)])
-        dp.align_tiles(ref, query, rlen, qlen, dir_format="packed6", **kw)
-        assert (at.launches, at.variant_launches[("packed6", 1)],
-                at.split.launches,
-                at.split.variant_launches[("packed6", 1)]) == (
-            n[0] + 1 - split, n[1] + 1 - split, n[2] + split, n[3] + split)
+        for scoring, on16 in ((kw, 1), (outside, 0)):
+            n = (at.launches, at.variant_launches[("packed6", 1)],
+                 at.split.launches,
+                 at.split.variant_launches[("packed6", 1)],
+                 at.split16.launches,
+                 at.split16.variant_launches[("packed6", 1)])
+            dp.align_tiles(ref, query, rlen, qlen, dir_format="packed6",
+                           **scoring)
+            s16, s32 = split * on16, split * (1 - on16)
+            assert (at.launches, at.variant_launches[("packed6", 1)],
+                    at.split.launches,
+                    at.split.variant_launches[("packed6", 1)],
+                    at.split16.launches,
+                    at.split16.variant_launches[("packed6", 1)]) == (
+                n[0] + 1 - split, n[1] + 1 - split, n[2] + s32,
+                n[3] + s32, n[4] + s16, n[5] + s16)
         n = (plane2.plane2.launches, plane2.plane2.split.launches)
         plane2.plane2(ref, query, rlen, qlen, **kw)
         assert (plane2.plane2.launches, plane2.plane2.split.launches) == (
             n[0] + 1 - split, n[1] + split)
+
+
+@pytest.mark.parametrize("T", [1024, 1025, 1536, 2047, dp.MAX_TILE])
+def test_dp16_kernel_matches_plain(cuda, T):
+    """The 16-bit split kernel (the gate's choice at the default scoring
+    and at (2, -3, -4, -2)) bit-exact against the plain version on edge
+    tiles in bytes, packed and packed6, on an odd batch (35: the last
+    block's second tile idles) and an even one, and the int32 split
+    kernel, forced on the same inputs, equal to both."""
+    ref, query, rlen, qlen = _edge_tiles(T + 1, 36, T, cuda)
+    for sc in ((1, -1, -1, -1), (2, -3, -4, -2)):
+        kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"), sc))
+        assert dp.fits_int16(T, **kw)
+        plain = align_tiles_torch(ref, query, rlen, qlen, **kw)
+        for fmt, packer in dp.PACKERS.items():
+            want = dict(plain)
+            key = "dir" if packer is None else "dir_words"
+            want[key] = want.pop("dir") if packer is None else packer(
+                want.pop("dir"))
+            for B in (35, 36):
+                n16 = dp.align_tiles.split16.launches
+                got = dp.align_tiles(ref[:B], query[:B], rlen[:B], qlen[:B],
+                                     dir_format=fmt, **kw)
+                assert dp.align_tiles.split16.launches == n16 + 1
+                for k in want:
+                    assert torch.equal(got[k], want[k][:B]), (sc, fmt, B, k)
+            got = dp.run_kernel(ref, query, rlen, qlen, fmt=fmt,
+                                interleave=1, what="test", dp16=False, **kw)
+            got[key] = got.pop("dir")
+            for k in want:
+                assert torch.equal(got[k], want[k]), (sc, fmt, "int32", k)
+
+
+@pytest.mark.parametrize("T", [1024, 2048])
+def test_scoring_outside_the_gate_runs_the_int32_split_kernel(cuda, T):
+    """A scoring whose bound passes the 16-bit sentinel (max|param| 64)
+    runs the int32 split kernel, bit-exact against the plain version in
+    every format; forcing the 16-bit kernel on it raises."""
+    ref, query, rlen, qlen = _edge_tiles(T + 2, 36, T, cuda)
+    kw = dict(match=40, mismatch=-30, gap_open=-64, gap_extend=-20)
+    assert not dp.fits_int16(T, **kw)
+    plain = align_tiles_torch(ref, query, rlen, qlen, **kw)
+    for fmt, packer in dp.PACKERS.items():
+        want = dict(plain)
+        if packer is not None:
+            want["dir_words"] = packer(want.pop("dir"))
+        n32 = dp.align_tiles.split.launches
+        got = dp.align_tiles(ref, query, rlen, qlen, dir_format=fmt, **kw)
+        assert dp.align_tiles.split.launches == n32 + 1
+        for k in want:
+            assert torch.equal(got[k], want[k]), (fmt, k)
+        with pytest.raises(ValueError, match="16-bit"):
+            dp.run_kernel(ref, query, rlen, qlen, fmt=fmt, interleave=1,
+                          what="test", dp16=True, **kw)
 
 
 @pytest.mark.parametrize("warps", [1, 2, 3, 8])

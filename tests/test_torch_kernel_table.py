@@ -26,6 +26,12 @@ def test_replaces_points_at_the_function(name):
 def test_every_dp_variant_and_main_kernel_is_listed():
     names = set(chip_smoke.KERNELS)
     assert set(chip_smoke.DP_VARIANTS.values()) <= names
+    assert set(chip_smoke.SPLIT_VARIANTS.values()) <= names
+    assert set(chip_smoke.SPLIT16_VARIANTS.values()) <= names
+    for name in chip_smoke.SPLIT16_VARIANTS.values():
+        assert chip_smoke.KERNELS[name][1] == "darwin_tpu/ops/pallas_dp.py:523"
+    for kernels in chip_smoke.SPLIT_ECOLI_RUNS.values():
+        assert set(kernels) <= names
     assert {"traceback", "traceback_packed", "traceback_packed6",
             "fetch_tiles", "local_score_batch", "plane2", "scanshift_shfl",
             "scanshift_smem", "dsoft_device", "dsoft_shard_scan",

@@ -23,8 +23,9 @@ a strip of C = ceil(T/32) columns in registers, so a tile's rows cost
 
 Past T = 1023 (the one-warp path's C = 32) a tile runs over S warps
 of one block, each a strip of 32 C columns, pipelined (the split path:
-ops/dp.py strips_for): T = 1024 -> S = 2, 1536 -> S = 3, 2048 -> S = 4,
-at C = 16; T runs up to 2048, the reference's limit.  Give such sizes a
+ops/dp.py strips_for), at the default scoring two tiles a block in
+16-bit halves: T = 1024 -> S = 2 at C = 16, 1536 -> S = 2 at C = 24,
+2048 -> S = 4 at C = 16; T runs up to 2048, the reference's limit.  Give such sizes a
 smaller -B: the packed6 words of B = 2048 tiles at T = 2048 take 34 GB.
 
 (The TPU tool's argument, a lane axis of roundup(T+1, 128), does not
