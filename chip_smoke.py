@@ -185,31 +185,39 @@ Phases; any failure ends the run with a nonzero exit code:
 13. the split DP (phase_split), one tile over several warps, which takes
    the tile sizes past the one-warp path's (T > 1023 at interleave 1,
    > 384 at 2 and 4) up to the reference's 2048, on two kernels: the
-   16-bit one (two tiles a block in 16-bit halves; ops/dp.py's gate
-   picks it at interleave 1 where the scores stay clear of the 16-bit
-   sentinel, as at the default scoring) and the int32 one (interleaved,
-   plane 2, a scoring outside the gate).  Both against the plain
-   version at tolerance 0 at SPLIT_TILES (36 edge tiles, three scorings
-   and OUTSIDE16, every format and interleave and plane 2, the 16-bit
-   kernel also on 35 tiles, and at 1024 and 2048 each walker at ET = T
-   - 120 on its output), forced over 2, 3, 4 and 8 warps a tile at T =
-   320 and 1023 against the one-warp path; the lab's split variants
-   launched (geom_sweep, align_tiles under OUTSIDE16, plane 2's emit
-   probe) with the counters zeroed; kernel and plain times and bounds
-   at B = 512, T = 1024 (and K1 bytes and packed6 at 2048 on both
-   kernels, also as device time), each output held to the plain
-   version's at tolerance 0; ShardedTileAligner over 4 entries of
-   cuda:0 against TorchTileAligner at T = 1024 and 2048; then the
-   E.coli slice at T = 1024 and 2048 through the CLI (device engine,
-   bytes), the device engine with the packed6 walker and, at 1024, the
-   CLI's host engine, each with the counters zeroed, every merged
-   record set equal to tests/data/ecoli_shape_t<T>/jax_cpu.darwin
-   (darwin_tpu's own CPU output at that tile size) and the DP launched
-   on its 16-bit split path only.  Each split kernel's launches count
+   16-bit one (csrc/dp16.cu: a pair of tiles in the 16-bit halves of
+   its registers, at every interleave; ops/dp.py's gate picks it
+   where the scores stay clear of the 16-bit sentinel, as at the default
+   scoring, and the card did not measure it slower) and the int32 one (a
+   scoring outside the gate, and at interleave 1 packed up to T = 1536,
+   packed6 and plane 2 at every T).  Every format and interleave
+   and plane 2 against the plain version at tolerance 0 at SPLIT_TILES
+   (and SPLIT_IL_TILES at interleave 2 and 4; 36 edge tiles, three
+   scorings and OUTSIDE16): the gate's launch, counted on the kernel its
+   plan names, and under the first scoring the int32 kernel and the
+   16-bit one forced on the same inputs; at
+   interleave 1 the gate's launch
+   also on 35 tiles and, at 1024 and 2048, each walker at ET = T - 120
+   on its output; both kernels forced over 1-8 warps a tile at T = 320
+   and 1023 against the one-warp path; the lab's split variants
+   launched (geom_sweep, align_tiles and plane2 under OUTSIDE16, plane
+   2's emit probe) with the counters zeroed; at B = 512, T = 1024 and
+   2048, every variant as the gate launches it and forced on the other
+   kernel, kernel and device times (CUDA graph), plain times and
+   bounds, each output held to the plain version's at tolerance 0;
+   ShardedTileAligner over 4 entries of cuda:0 against TorchTileAligner
+   at T = 1024 and 2048; then the E.coli slice at T = 1024 and 2048
+   through the CLI (device engine, bytes), the device engine with the
+   packed6 walker and, at 1024, the CLI's host engine, each with the
+   counters zeroed, every merged record set equal to
+   tests/data/ecoli_shape_t<T>/jax_cpu.darwin (darwin_tpu's own CPU
+   output at that tile size) and the DP launched on the kernel ops/dp.py's
+   plan picks there and no other.  Each split kernel's launches count
    apart from the one-warp kernel's, under its variants' names
-   (align_tiles.split and align_tiles.split16 in ops/dp.py).  Phase 1
-   also logs the SASS instructions a cell of both split kernels
-   (tools/torch_sass_cells.py).
+   (align_tiles.split and align_tiles.split16 in ops/dp.py, plane2.split
+   and plane2.split16 in ops/plane2.py, each on run_kernel's report of
+   the kernel it launched).  Phase 1 also logs the SASS instructions a
+   cell of both split kernels (tools/torch_sass_cells.py).
 
 The last three lines are a JSON summary of the kernels, nvidia-smi's
 name and power limit, and {"ok": true, "device": {...}}.  Without a
@@ -299,9 +307,11 @@ DP_VARIANTS = {(fmt, il): _dp_variant(fmt, il)
 SPLIT_VARIANTS = {(fmt, il): _dp_variant(fmt, il, split="split")
                   for fmt in ("bytes", "packed", "packed6")
                   for il in (1, 2, 4)}
-SPLIT16_VARIANTS = {fmt: _dp_variant(fmt, 1, split="split16")
-                    for fmt in ("bytes", "packed", "packed6")}
+SPLIT16_VARIANTS = {(fmt, il): _dp_variant(fmt, il, split="split16")
+                    for fmt in ("bytes", "packed", "packed6")
+                    for il in (1, 2, 4)}
 PLANE2_SPLIT = "plane2[split]"
+PLANE2_SPLIT16 = "plane2[split16]"
 # The default scoring (the reference's params.cfg), inside the 16-bit
 # gate at every T, and one outside it at every split T (ops/dp.py
 # fits_int16: (T + 2) x 64 > 20000 from T = 311), which the int32 split
@@ -310,17 +320,24 @@ DEFAULT_SCORING = dict(match=1, mismatch=-1, gap_open=-1, gap_extend=-1)
 OUTSIDE16 = dict(match=40, mismatch=-30, gap_open=-64, gap_extend=-20)
 
 
+def dp_name(kernel: str, fmt: str, il: int) -> str:
+    """The kernels line's name of one DP launch: ops/dp.py's kernel
+    (run_kernel's report, plan's choice) in fmt at interleave il."""
+    from darwin_tpu_torch.ops import dp
+
+    return {dp.ONE_WARP: DP_VARIANTS, dp.SPLIT: SPLIT_VARIANTS,
+            dp.SPLIT16: SPLIT16_VARIANTS}[kernel][(fmt, il)]
+
+
 def dp_counter(fmt: str, T: int) -> str:
     """The name _counted gives the DP's launches in fmt at interleave 1
-    at tile size T under the default scoring: "align_tiles" (the
-    one-warp kernel's counter, every format) or the 16-bit split
-    variant's name."""
-    from darwin_tpu_torch.ops.dp import align_tiles, kernel_counter
+    at tile size T under the default scoring, by the kernel ops/dp.py's
+    plan picks there: "align_tiles" (the one-warp kernel's counter,
+    every format) or the split variant's name."""
+    from darwin_tpu_torch.ops.dp import ONE_WARP, plan
 
-    counter = kernel_counter(T, fmt, 1, **DEFAULT_SCORING)
-    return ("align_tiles" if counter is align_tiles
-            else SPLIT16_VARIANTS[fmt] if counter is align_tiles.split16
-            else SPLIT_VARIANTS[(fmt, 1)])
+    kernel = plan(T, fmt, 1, **DEFAULT_SCORING).kernel
+    return "align_tiles" if kernel == ONE_WARP else dp_name(kernel, fmt, 1)
 
 
 # Every kernel of the kernels line: (its source, the TPU kernel or JAX
@@ -354,10 +371,12 @@ KERNELS = {
     "plane2": (DP_SRC, "tools/plane2_probe.py:209", "pallas_call"),
     # The split path's instantiations (phase 13): the 16-bit ones, the
     # main path's at tile sizes past 1023 under a scoring inside the gate
-    # (bytes and packed6 first), then the int32 ones (a scoring outside
-    # it, the interleaved split), then the lab's.
-    **{name: (DP16_SRC, "darwin_tpu/ops/pallas_dp.py:523", "pallas_call")
-       for name in SPLIT16_VARIANTS.values()},
+    # (interleave 1 first), then the int32 ones (a scoring outside it),
+    # then the lab's.
+    **{name: (DP16_SRC, "darwin_tpu/ops/pallas_dp.py:"
+              + ("523" if il == 1 else "493"), "pallas_call")
+       for (fmt, il), name in SPLIT16_VARIANTS.items()},
+    PLANE2_SPLIT16: (DP16_SRC, "tools/plane2_probe.py:209", "pallas_call"),
     **{name: (DP_SRC, "darwin_tpu/ops/pallas_dp.py:"
               + ("523" if il == 1 else "493"), "pallas_call")
        for (fmt, il), name in SPLIT_VARIANTS.items()},
@@ -1684,7 +1703,7 @@ def _counted(counters: dict, run) -> tuple:
     launches = {name: c.launches for name, c in counters.items()}
     launches.update((SPLIT_VARIANTS[v], n) for v, n in
                     align_tiles.split.variant_launches.items())
-    launches.update((SPLIT16_VARIANTS[fmt], n) for (fmt, _), n in
+    launches.update((SPLIT16_VARIANTS[v], n) for v, n in
                     align_tiles.split16.variant_launches.items())
     return out, launches
 
@@ -2774,8 +2793,11 @@ def checked_digests(dev, small: bool = False) -> dict:
     shard_count on SHARD_COUNT_CASES; and the split DP (phase 13's
     path) at SPLIT_CHECKED on edge_tiles, the int32 kernel in every
     format and interleave and plane 2, the 16-bit kernel in every format
-    (and on an odd batch), each walker at ET = T - 120 on its output,
-    and both kernels forced at T = 320.
+    and interleave and plane 2 (at interleave 1 also on an odd batch, and
+    at SPLIT_CHECKED's second and fourth sizes also interleaved and
+    forced), each walker at ET = T - 120 on its output, both kernels
+    forced at T = 320, and the 16-bit kernel at interleave 2 and 4 at
+    SPLIT_IL_TILES' first two sizes.
     small: B = 36, the tile size 64 and
     one scoring, one large-ET walk, the scans at C = 33 and 1024 beside
     the probe's shape, the D-SOFT cases under the two-level index only,
@@ -2853,7 +2875,7 @@ def checked_digests(dev, small: bool = False) -> dict:
                 run(f"split int32 align_tiles[{fmt},il={il}] T={T}",
                     lambda: run_kernel(ref, query, rlen, qlen, fmt=fmt,
                                        interleave=il, what="checked",
-                                       dp16=False, **kw))
+                                       dp16=False, **kw)[0])
             run(f"split16 align_tiles[{fmt}] T={T} B={SPLIT_B - 1}",
                 lambda: align_tiles(ref[1:], query[1:], rlen[1:], qlen[1:],
                                     dir_format=fmt, **kw))
@@ -2865,6 +2887,20 @@ def checked_digests(dev, small: bool = False) -> dict:
                 lambda: walk(*args, early_terminate=T - 120))
         run(f"split plane2 T={T}",
             lambda: plane2(ref, query, rlen, qlen, **kw))
+        # The 16-bit kernel at interleave 2 and 4, and both kernels forced
+        # in each format at interleave 1, on a partial and a full last
+        # strip.
+        for fmt in (*WALK_FNS, "plane2") if T in SPLIT_CHECKED[1::2] else ():
+            for il in (1,) if fmt == "plane2" else (4, 2):
+                run(f"split16 {fmt} il={il} T={T}",
+                    lambda: run_kernel(ref, query, rlen, qlen, fmt=fmt,
+                                       interleave=il, what="checked",
+                                       **kw)[0])
+            for dp16 in _split_kinds(T, fmt, 1, kw):
+                run(f"split {fmt} dp16={dp16} T={T}",
+                    lambda: run_kernel(ref, query, rlen, qlen, fmt=fmt,
+                                       interleave=1, what="checked",
+                                       dp16=dp16, **kw)[0])
         for strips in (2, 8):
             for fmt in ("bytes", "packed6"):
                 for dp16 in (False, True):
@@ -2875,7 +2911,21 @@ def checked_digests(dev, small: bool = False) -> dict:
                                            rlen.clamp(max=320),
                                            qlen.clamp(max=320), fmt=fmt,
                                            interleave=1, what="checked",
-                                           strips=strips, dp16=dp16, **kw))
+                                           strips=strips, dp16=dp16,
+                                           **kw)[0])
+
+    # The interleaved 16-bit kernel's own sizes: one warp a pair (385 and
+    # 512 at interleave 2 and 4).
+    for T in () if small else SPLIT_IL_TILES[:2]:
+        ref, query, rlen, qlen = (torch.from_numpy(x).to(dev) for x in
+                                  edge_tiles(np.random.default_rng(T),
+                                             SPLIT_B, T))
+        for fmt in WALK_FNS:
+            for il in (2, 4):
+                run(f"split16 {fmt} il={il} T={T}",
+                    lambda: run_kernel(ref, query, rlen, qlen, fmt=fmt,
+                                       interleave=il, what="checked",
+                                       **kw)[0])
 
     frng = np.random.default_rng(2)
     gbank, qbank = fetch_banks(frng, dev)
@@ -3718,7 +3768,7 @@ def phase_tools(dev, counters: dict, ecoli_want: str) -> dict:
         raise AssertionError(f"geom A/B dataset sha256 {sha} != {want_sha}")
     res, launches = counted("geom A/B", lambda: ab.run_ab(
         args, dev, refs, reads, log=lambda s: log("  geom A/B: " + s)),
-        ("align_tiles", SPLIT16_VARIANTS["bytes"], "traceback",
+        ("align_tiles", SPLIT16_VARIANTS[("bytes", 1)], "traceback",
          "fetch_tiles"))
     if res[320]["records"] != ecoli_want.splitlines():
         raise AssertionError("geom A/B: T = 320's records differ from "
@@ -3758,30 +3808,34 @@ def phase_tools(dev, counters: dict, ecoli_want: str) -> dict:
 # the E.coli slice's sizes (tests/data/ecoli_shape_t<T>); the sizes K1
 # is timed at, B = B_MAIN.
 SPLIT_TILES = (1024, 1025, 1536, 2047, 2048)
+# The interleaved split path's own sizes below 1024 (T > 384 at
+# interleave 2 and 4): one warp a pair up to 512, then two warps a tile.
+SPLIT_IL_TILES = (385, 512, 1023)
 SPLIT_B = 36
 SPLIT_FORCED = (320, 1023)
-SPLIT_STRIPS = (2, 3, 4, 8)
+SPLIT_STRIPS = (1, 2, 3, 4, 8)
 SPLIT_ECOLI = (1024, 2048)
 SPLIT_TIMED = (1024, 2048)
-# K1 split in the main path's two formats on both kernels, also timed
-# as device time.
-SPLIT_DEVICE_TIMED = (SPLIT16_VARIANTS["bytes"], SPLIT16_VARIANTS["packed6"],
-                      SPLIT_VARIANTS[("bytes", 1)],
-                      SPLIT_VARIANTS[("packed6", 1)])
 # Phase 7's sizes: every split instantiation (C = 16, 12 and 8 at
 # interleave 1, 8 interleaved) on full and partial last strips.
 SPLIT_CHECKED = (1024, 1025, 2047, 2048)
-# The E.coli runs at each SPLIT_ECOLI size and the kernels each must
-# launch (the DP on its 16-bit split path in that run's format: the
-# default scoring is inside the gate; the int32 split kernel must not
-# launch).
+# The E.coli runs at each SPLIT_ECOLI size: the DP's format, then the
+# other kernels each must launch.  The DP must launch on the kernel that
+# ops/dp.py's plan picks there (split_ecoli_kernels; the default scoring
+# is inside the 16-bit gate) and on no other split kernel.
 SPLIT_ECOLI_RUNS = {
-    "cli bytes": (SPLIT16_VARIANTS["bytes"], "fetch_tiles", "traceback"),
-    "packed6": (SPLIT16_VARIANTS["packed6"], "fetch_tiles",
-                "traceback_packed6"),
-    "cli host": (SPLIT16_VARIANTS["packed6"], "traceback_packed6"),
+    "cli bytes": ("bytes", "fetch_tiles", "traceback"),
+    "packed6": ("packed6", "fetch_tiles", "traceback_packed6"),
+    "cli host": ("packed6", "traceback_packed6"),
 }
 SPLIT_HOST_TILES = (1024,)  # the host engine's sizes (its DP is packed6)
+
+
+def split_ecoli_kernels(tag: str, T: int) -> tuple:
+    """The kernels the E.coli run tag must launch at tile size T, the DP
+    under the name of the kernel ops/dp.py's plan picks."""
+    fmt, *rest = SPLIT_ECOLI_RUNS[tag]
+    return (dp_counter(fmt, T), *rest)
 
 
 def tile_params_cfg(T: int, path: Path) -> Path:
@@ -3796,32 +3850,66 @@ def tile_params_cfg(T: int, path: Path) -> Path:
     return path
 
 
+def _split_kinds(T: int, fmt: str, il: int, kw: dict) -> list:
+    """dp16 of every split kernel that takes fmt at interleave il at T
+    under kw: False the int32 kernel, True the 16-bit one."""
+    from darwin_tpu_torch.ops import dp
+
+    kinds = [False] if fmt != "plane2" or il == 1 else []
+    return kinds + [True] * dp.runs_int16(T, fmt, il, **kw)
+
+
 def split_kernel_checks(dev) -> dict:
-    """The split path against the plain version at SPLIT_TILES, all at
-    tolerance 0: under three scorings every format at interleave 1 on
-    the 16-bit kernel (the gate's choice) and on the int32 one (forced),
-    at 2 and 4 on the int32 kernel, and plane 2 (int32); the 16-bit
-    kernel also on an odd batch (its last block's second tile idle); at
-    the E.coli runs' sizes each format's walker at ET = T - 120 on the
-    16-bit DP's output under the first scoring; a scoring outside the
-    16-bit gate (OUTSIDE16) through align_tiles, which must launch the
-    int32 kernel; then both kernels forced at SPLIT_FORCED against the
-    one-warp path.  Returns {name: max_abs_err}."""
+    """The split path against the plain version, all at tolerance 0: at
+    SPLIT_TILES (and SPLIT_IL_TILES at interleave 2 and 4), under three
+    scorings, every format and interleave and plane 2 as the gate
+    launches it (align_tiles and plane2, each counted on the kernel its
+    plan names: the 16-bit kernel, or the int32 one where the card
+    measured it faster), and under the first scoring the int32 kernel
+    and the 16-bit one forced on the same inputs; at
+    interleave 1 the gate's
+    launch also on an odd batch (the last block's second tile idle) and,
+    at the E.coli runs' sizes, each format's walker at ET = T - 120 on
+    its output under the first scoring; a scoring outside the 16-bit gate
+    (OUTSIDE16) through align_tiles and plane2, which must launch the
+    int32 kernel; then both kernels forced at SPLIT_FORCED over
+    SPLIT_STRIPS warps a tile against the one-warp path.  Every launch's
+    error goes to its kernel's name (dp_name).  Returns {name:
+    max_abs_err}."""
     import numpy as np
     import torch
 
     from darwin_tpu_torch.lab.geom_sweep import max_abs_err
     from darwin_tpu_torch.ops import dp
+    from darwin_tpu_torch.ops import plane2 as p2
     from darwin_tpu_torch.ops.pack import plane2_words
-    from darwin_tpu_torch.ops.plane2 import plane2
     from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
 
-    errs = dict.fromkeys([*SPLIT16_VARIANTS.values(),
+    errs = dict.fromkeys([*SPLIT16_VARIANTS.values(), PLANE2_SPLIT16,
                           *SPLIT_VARIANTS.values(), PLANE2_SPLIT], 0)
+    plane2_names = {dp.SPLIT: PLANE2_SPLIT, dp.SPLIT16: PLANE2_SPLIT16}
     rng = np.random.default_rng(14)
     scorings = [dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
                          sc)) for sc in SCORINGS] + [OUTSIDE16]
-    for T in SPLIT_TILES:
+
+    def note(name, got, want):
+        errs[name] = max(errs[name], max_abs_err(got, want))
+
+    def gate(fmt, il, kw, run):
+        """run() (the gate's launch of fmt at il), held to the counter
+        of the kernel plan names; returns (its output, that kernel)."""
+        kernel = dp.plan(T, fmt, il, **kw).kernel
+        want = dp.SPLIT16 if dp.takes_int16(T, fmt, il, 2, **kw) else dp.SPLIT
+        counter = (p2.COUNTERS if fmt == "plane2" else dp.COUNTERS)[kernel]
+        n = counter.launches
+        got = run()
+        if kernel != want or counter.launches != n + 1:
+            raise AssertionError(f"T={T} {fmt} il={il} {kw}: the gate's "
+                                 f"launch is not counted on {want}")
+        return got, kernel
+
+    for T in sorted(SPLIT_TILES + SPLIT_IL_TILES):
+        ils = dp.INTERLEAVES if T > dp.ONE_WARP_TILE[1] else (2, 4)
         ref, query, rlen, qlen = (torch.from_numpy(x).to(dev) for x in
                                   edge_tiles(rng, SPLIT_B, T))
         first = torch.from_numpy(rng.random(SPLIT_B) < 0.5).to(dev)
@@ -3832,62 +3920,60 @@ def split_kernel_checks(dev) -> dict:
             for fmt, packer in dp.PACKERS.items():
                 key = "dir" if packer is None else "dir_words"
                 w = {key: d if packer is None else packer(d), **want}
-                if kw is OUTSIDE16:
-                    n32 = dp.align_tiles.split.launches
-                    got = dp.align_tiles(ref, query, rlen, qlen,
-                                         dir_format=fmt, **kw)
-                    if dp.align_tiles.split.launches != n32 + 1:
-                        raise AssertionError(f"T={T} {fmt}: a scoring "
-                                             f"outside the gate did not "
-                                             f"launch the int32 kernel")
-                    name = SPLIT_VARIANTS[(fmt, 1)]
-                    errs[name] = max(errs[name], max_abs_err(got, w))
-                    continue
-                n16 = dp.align_tiles.split16.launches
-                got = dp.align_tiles(ref, query, rlen, qlen,
-                                     dir_format=fmt, **kw)
-                if dp.align_tiles.split16.launches != n16 + 1:
-                    raise AssertionError(f"T={T} {fmt}: the 16-bit kernel "
-                                         f"did not launch")
-                name = SPLIT16_VARIANTS[fmt]
-                errs[name] = max(errs[name], max_abs_err(got, w))
-                if n == 0:
-                    odd = dp.align_tiles(ref[:-1], query[:-1], rlen[:-1],
-                                         qlen[:-1], dir_format=fmt, **kw)
-                    errs[name] = max(errs[name], max_abs_err(
-                        odd, {k: v[:-1] for k, v in w.items()}))
-                    del odd
-                if n == 0 and T in SPLIT_ECOLI:
-                    kernel, plain = _walker_pairs(
-                        fmt, T - 120, (got[key], rlen, qlen, first,
-                                       got["max_i"], got["max_j"]))
-                    e = max_abs_err(dict(enumerate(kernel())),
-                                    dict(enumerate(plain())))
-                    errs[name] = max(errs[name], e)
-                del got
-                for il in dp.INTERLEAVES:
-                    got = dp.run_kernel(ref, query, rlen, qlen, fmt=fmt,
-                                        interleave=il, what="split checks",
-                                        dp16=False, **kw)
-                    if packer is not None:
-                        got["dir_words"] = got.pop("dir")
-                    name = SPLIT_VARIANTS[(fmt, il)]
-                    errs[name] = max(errs[name], max_abs_err(got, w))
+                for il in ils:
+                    got, kernel = gate(fmt, il, kw, lambda: dp.align_tiles(
+                        ref, query, rlen, qlen, dir_format=fmt,
+                        interleave=il, **kw))
+                    name = dp_name(kernel, fmt, il)
+                    note(name, got, w)
+                    if n == 0 and il == 1:
+                        odd = dp.align_tiles(ref[:-1], query[:-1], rlen[:-1],
+                                             qlen[:-1], dir_format=fmt, **kw)
+                        note(name, odd, {k: v[:-1] for k, v in w.items()})
+                        del odd
+                    if n == 0 and il == 1 and T in SPLIT_ECOLI:
+                        kernel, plain = _walker_pairs(
+                            fmt, T - 120, (got[key], rlen, qlen, first,
+                                           got["max_i"], got["max_j"]))
+                        note(name, dict(enumerate(kernel())),
+                             dict(enumerate(plain())))
                     del got
+                    if n:
+                        continue
+                    for dp16 in _split_kinds(T, fmt, il, kw):
+                        got = dp.run_kernel(ref, query, rlen, qlen, fmt=fmt,
+                                            interleave=il, what="split checks",
+                                            dp16=dp16, **kw)[0]
+                        if packer is not None:
+                            got["dir_words"] = got.pop("dir")
+                        note(dp_name(dp.SPLIT16 if dp16 else dp.SPLIT, fmt,
+                                     il), got, w)
+                        del got
                 del w
-            if kw is not OUTSIDE16:
-                w6 = dp.PACKERS["packed6"](d)
-                got = plane2(ref, query, rlen, qlen, **kw)
-                errs[PLANE2_SPLIT] = max(errs[PLANE2_SPLIT], max_abs_err(
-                    got, {"dir_words": w6, "dir2_words": plane2_words(d),
-                          **want}))
-                del got, w6
+            if T > dp.ONE_WARP_TILE[1]:
+                w = {"dir": dp.PACKERS["packed6"](d), "dir2": plane2_words(d),
+                     **want}
+                got, kernel = gate("plane2", 1, kw, lambda: p2.plane2(
+                    ref, query, rlen, qlen, **kw))
+                note(plane2_names[kernel], {"dir": got.pop("dir_words"),
+                                            "dir2": got.pop("dir2_words"),
+                                            **got}, w)
+                del got
+                if n == 0:
+                    for dp16 in _split_kinds(T, "plane2", 1, kw):
+                        note(plane2_names[dp.SPLIT16 if dp16 else dp.SPLIT],
+                             dp.run_kernel(ref, query, rlen, qlen,
+                                           fmt="plane2", interleave=1,
+                                           what="split checks", dp16=dp16,
+                                           **kw)[0], w)
+                del w
             del d
         walks = f", the walkers at ET={T - 120}" if T in SPLIT_ECOLI else ""
-        log(f"  T={T} (strips {dp.strips_for(T, 1)} at interleave 1, "
-            f"{dp.strips_for(T, 2)} at 2 and 4): the 16-bit kernel in every "
-            f"format (and on B={SPLIT_B - 1}), the int32 kernel in every "
-            f"format and interleave, plane 2, under {len(SCORINGS)} "
+        first_kernel = dp.plan(T, "bytes", ils[0], **DEFAULT_SCORING).kernel
+        log(f"  T={T} (interleave {ils}, {first_kernel} at the default "
+            f"scoring): the gate's launch, the int32 kernel "
+            f"and the 16-bit one in every format (and on "
+            f"B={SPLIT_B - 1}) and plane 2, under {len(SCORINGS)} "
             f"scorings{walks}, and the int32 kernel under {OUTSIDE16}: "
             f"errors {set(errs.values())} "
             f"({time.perf_counter() - t0:.1f} s)")
@@ -3901,44 +3987,48 @@ def split_kernel_checks(dev) -> dict:
         n = 0
         for fmt in (*dp.PACKERS, "plane2"):
             one = dp.run_kernel(*args, fmt=fmt, interleave=1, what="forced",
-                                strips=1, **kw)
-            kinds = [(il, False) for il in ((1,) if fmt == "plane2"
-                                            else dp.INTERLEAVES)]
-            if fmt != "plane2":
-                kinds.append((1, True))
-            for il, dp16 in kinds:
-                name = (PLANE2_SPLIT if fmt == "plane2"
-                        else SPLIT16_VARIANTS[fmt] if dp16
-                        else SPLIT_VARIANTS[(fmt, il)])
-                for strips in SPLIT_STRIPS:
-                    try:
-                        dp.check_strips(T, il, strips, "forced", dp16)
-                    except ValueError:
-                        continue
-                    got = dp.run_kernel(*args, fmt=fmt, interleave=il,
-                                        what="forced", strips=strips,
+                                strips=1, **kw)[0]
+            for il in dp.INTERLEAVES:
+                for dp16 in _split_kinds(T, fmt, il, kw):
+                    name = (plane2_names[dp.SPLIT16 if dp16 else dp.SPLIT]
+                            if fmt == "plane2" else
+                            dp_name(dp.SPLIT16 if dp16 else dp.SPLIT, fmt,
+                                    il))
+                    for strips in SPLIT_STRIPS:
+                        try:
+                            p = dp.plan(T, fmt, il, strips=strips,
                                         dp16=dp16, **kw)
-                    errs[name] = max(errs[name], max_abs_err(got, one))
-                    n += 1
+                        except ValueError:
+                            continue
+                        if p.kernel == dp.ONE_WARP:
+                            continue
+                        got = dp.run_kernel(*args, fmt=fmt, interleave=il,
+                                            what="forced", strips=strips,
+                                            dp16=dp16, **kw)[0]
+                        note(name, got, one)
+                        n += 1
         log(f"  T={T} forced over {SPLIT_STRIPS} warps a tile where they "
-            f"fit, both split kernels ({n} runs): equal to the one-warp "
-            f"path: {not any(errs.values())}")
+            f"fit, both split kernels, every interleave ({n} runs): equal to "
+            f"the one-warp path: {not any(errs.values())}")
         if any(errs.values()):
             raise AssertionError(f"forced split differs at T={T}: {errs}")
     return errs
 
 
 def split_times(dev) -> dict:
-    """At B = B_MAIN on related_tiles: every split variant and plane 2 at
-    SPLIT_TIMED[0], K1 bytes and packed6 again at each larger size of
-    SPLIT_TIMED (the largest is the kernels line's), at interleave 1 on
-    both the 16-bit kernel (the gate's choice) and the int32 one (forced
-    on the same inputs), each with the plain version's time (one a format
-    and size, its output kept: the plain version has no interleave) and
-    the bound, and held to the plain version's output (tolerance 0, else
-    AssertionError), K1's device time too (graph_ms); the forced split
-    (int32) against the one-warp path at T = 504 and 1023 (a figure, the
-    outputs equal).  Returns {name: numbers}."""
+    """At B = B_MAIN on related_tiles, at each size of SPLIT_TIMED: every
+    split variant (each format and interleave, and plane 2) as the gate
+    launches it (align_tiles, plane2: the 16-bit kernel at the default
+    scoring, or the int32 one where the card measured that faster) and,
+    on the same inputs, forced on the other split kernel (the int32 one,
+    or the 16-bit one with the gate's emitter), each with its kernel time
+    (events), device time (graph_ms), the plain version's time (one a
+    format and size, its output kept: the plain version has no
+    interleave) and the bound, and held to the plain version's output
+    (tolerance 0, else AssertionError); then the forced split (int32)
+    against the one-warp path at T = 504 and 1023 (a figure, the outputs
+    equal).  Returns {name: numbers}, the larger size's for each name,
+    with the smaller size's device time as device_ms_<T>."""
     import numpy as np
     import torch
 
@@ -3961,7 +4051,7 @@ def split_times(dev) -> dict:
             plain[(T, fmt)] = time_ms(plain_call, dev, 1)
         plain_ms, want = plain[(T, fmt)]
         got = call()
-        r = dict(ms=median_ms(call, 10), library_ms=None, plain_ms=plain_ms,
+        r = dict(ms=median_ms(call, 5), library_ms=None, plain_ms=plain_ms,
                  max_abs_err=max_abs_err(got, want), **dp_bound(*a, got))
         del got
         # The operations bound alone (DP_OPS_CELL a cell), beside the
@@ -3969,59 +4059,79 @@ def split_times(dev) -> dict:
         cells = int((a[2].clamp(0, T).long() * a[3].clamp(0, T).long())
                     .sum())
         r["ops_bound_ms"] = bound(0, DP_OPS_CELL * cells)["bound_ms"]
-        graph = ""
-        if name in SPLIT_DEVICE_TIMED:
-            # Two launches a graph: its pool holds each one's output (up
-            # to 8.6 GB at T = 2048 in packed6).
-            r["device_ms"] = graph_ms(call, n=2)
-            torch.cuda.empty_cache()
-            graph = f" (graph {r['device_ms']:.4f} ms)"
-        log(f"  {name} at B={B_MAIN} T={T}: kernel {r['ms']:.4f} ms{graph}, "
-            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}; operations {r['ops_bound_ms']:.4f}), "
-            f"max_abs_err {r['max_abs_err']}")
+        # Two launches a graph (one for plane 2 at T = 2048): its pool
+        # holds each one's output (up to 17.2 GB).
+        r["device_ms"] = graph_ms(call, n=1 if fmt == "plane2"
+                                  and T == SPLIT_TIMED[-1] else 2)
+        torch.cuda.empty_cache()
+        log(f"  {name} at B={B_MAIN} T={T}: kernel {r['ms']:.4f} ms (graph "
+            f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; operations "
+            f"{r['ops_bound_ms']:.4f}), max_abs_err {r['max_abs_err']}")
         if r["max_abs_err"]:
             raise AssertionError(f"{name} at B={B_MAIN} T={T} differs from "
                                  f"the plain version")
+        if name in res:
+            r[f"device_ms_{SPLIT_TIMED[0]}"] = res[name]["device_ms"]
+            r[f"bound_ms_{SPLIT_TIMED[0]}"] = res[name]["bound_ms"]
         res[name] = r
 
     def words(out, fmt):
-        if fmt != "bytes":
+        if fmt == "plane2":
+            out["dir_words"] = out.pop("dir")
+            out["dir2_words"] = out.pop("dir2")
+        elif fmt != "bytes":
             out["dir_words"] = out.pop("dir")
         return out
 
     for T in SPLIT_TIMED:
         a = [torch.from_numpy(x).to(dev)
              for x in related_tiles(rng, B_MAIN, T)]
-        for fmt in dp.PACKERS:
-            if T != SPLIT_TIMED[0] and fmt == "packed":
+        for fmt in (*dp.PACKERS, "plane2"):
+            if fmt == "plane2":
+                plain_call = functools.partial(plane2_torch, *a, **kw)
+                names = {dp.SPLIT: PLANE2_SPLIT, dp.SPLIT16: PLANE2_SPLIT16}
+                gate = dp.plan(T, fmt, 1, **kw)
+                timed(names[gate.kernel], T, lambda: plane2(*a, **kw),
+                      plain_call, fmt)
+                other = dp.SPLIT if gate.kernel == dp.SPLIT16 else dp.SPLIT16
+                timed(names[other], T, lambda: words(dp.run_kernel(
+                    *a, fmt=fmt, interleave=1, what="timed",
+                    dp16=other == dp.SPLIT16, **kw)[0], fmt), plain_call,
+                    fmt)
+                log(f"  plane2 at B={B_MAIN} T={T}, device ms: int32 "
+                    f"{res[PLANE2_SPLIT]['device_ms']:.4f}, 16-bit "
+                    f"{res[PLANE2_SPLIT16]['device_ms']:.4f}")
                 continue
             plain_call = functools.partial(dp.align_tiles_plain, *a,
                                            dir_format=fmt, **kw)
-            timed(SPLIT16_VARIANTS[fmt], T, functools.partial(
-                dp.align_tiles, *a, dir_format=fmt, **kw), plain_call, fmt)
             for il in dp.INTERLEAVES:
-                if T == SPLIT_TIMED[0] or il == 1:
-                    timed(SPLIT_VARIANTS[(fmt, il)], T,
-                          lambda fmt=fmt, il=il: words(dp.run_kernel(
-                              *a, fmt=fmt, interleave=il, what="timed",
-                              dp16=False, **kw), fmt), plain_call, fmt)
-        if T == SPLIT_TIMED[0]:
-            timed(PLANE2_SPLIT, T, lambda: plane2(*a, **kw),
-                  lambda: plane2_torch(*a, **kw), "plane2")
-        for fmt in ("bytes", "packed6"):
-            r32, r16 = res[SPLIT_VARIANTS[(fmt, 1)]], res[SPLIT16_VARIANTS[fmt]]
-            log(f"  K1 split {fmt} at B={B_MAIN} T={T}, device ms: int32 "
-                f"{r32['device_ms']:.4f}, 16-bit {r16['device_ms']:.4f} "
-                f"({r32['device_ms'] / r16['device_ms']:.3f}x)")
+                gate = dp.plan(T, fmt, il, **kw)
+                timed(dp_name(gate.kernel, fmt, il), T, functools.partial(
+                    dp.align_tiles, *a, dir_format=fmt, interleave=il, **kw),
+                    plain_call, fmt)
+                other = dp.SPLIT if gate.kernel == dp.SPLIT16 else dp.SPLIT16
+                timed(dp_name(other, fmt, il), T,
+                      lambda fmt=fmt, il=il, o=other: words(dp.run_kernel(
+                          *a, fmt=fmt, interleave=il, what="timed",
+                          dp16=o == dp.SPLIT16, **kw)[0], fmt), plain_call,
+                      fmt)
+                r32 = res[SPLIT_VARIANTS[(fmt, il)]]
+                r16 = res[SPLIT16_VARIANTS[(fmt, il)]]
+                log(f"  {fmt} il={il} at B={B_MAIN} T={T}, device ms: int32 "
+                    f"{r32['device_ms']:.4f}, 16-bit {r16['device_ms']:.4f} "
+                    f"({r32['device_ms'] / r16['device_ms']:.3f}x; the gate "
+                    f"takes {gate.kernel})")
         del a
         plain.clear()
     for T in (504, 1023):
         a = [torch.from_numpy(x).to(dev)
              for x in related_tiles(rng, B_MAIN, T)]
         run = {strips: functools.partial(
-            dp.run_kernel, *a, fmt="bytes", interleave=1, what="forced",
-            strips=strips, dp16=False, **kw) for strips in (1, 2)}
+            lambda **k: dp.run_kernel(**k)[0], ref=a[0], query=a[1],
+            ref_len=a[2], query_len=a[3], fmt="bytes", interleave=1,
+            what="forced", strips=strips, dp16=False, **kw)
+            for strips in (1, 2)}
         ms = {strips: median_ms(f, 10) for strips, f in run.items()}
         err = max_abs_err(run[2](), run[1]())
         log(f"  forced split at B={B_MAIN} T={T}, bytes: one warp "
@@ -4035,23 +4145,28 @@ def split_times(dev) -> dict:
 
 def phase_split(dev, counters: dict) -> tuple:
     """Phase 13: split_kernel_checks; the split variants' lab launches
-    (geom_sweep over every format and interleave, the 16-bit kernel at
-    interleave 1, then align_tiles at interleave 1 under OUTSIDE16, the
-    int32 kernel, against the plain version, and plane 2's emit probe,
-    at T = SPLIT_TIMED[0] with the counters zeroed); split_times;
-    split_aligners; then the E.coli slice at SPLIT_ECOLI through the CLI
-    (device engine,
-    bytes), the device engine with the packed6 walker and, at
-    SPLIT_HOST_TILES, the CLI's host engine, each counted, every merged
-    record set equal to tests/data/ecoli_shape_t<T>/jax_cpu.darwin and
-    the DP launched on its 16-bit split path.  Returns ({name: numbers}
-    and {name: lab launches} of the split variants, {kernel: launches}
-    of the E.coli runs, the DP's under its split variants' names)."""
+    with the counters zeroed (geom_sweep over every format and interleave
+    at the default scoring, at T = SPLIT_TIMED[0] and, for packed at
+    interleave 1, SPLIT_TIMED[-1]: the kernel the gate takes there; align_tiles under OUTSIDE16 over every format and interleave
+    at SPLIT_TIMED[0], the int32 kernel, against the plain version; plane
+    2's emit probe at both sizes, and plane2 under OUTSIDE16 against its
+    plain version; each 16-bit variant the gate launched nowhere there,
+    forced by lab/split_sweep.py at T = SPLIT_TIMED[0] on 64 tiles, held
+    to the int32 kernel's output);
+    split_times; split_aligners; then the E.coli slice at SPLIT_ECOLI
+    through the CLI (device engine, bytes), the device engine with the
+    packed6 walker and, at SPLIT_HOST_TILES, the CLI's host engine, each
+    counted, every merged record set equal to
+    tests/data/ecoli_shape_t<T>/jax_cpu.darwin and the DP launched on the
+    kernel ops/dp.py's plan picks there.  Returns ({name: numbers} and
+    {name: lab launches} of the split variants, {kernel: launches} of the
+    E.coli runs, the DP's under its split variants' names)."""
     import torch
 
-    from darwin_tpu_torch.lab import geom_sweep, plane2_probe
+    from darwin_tpu_torch.lab import geom_sweep, plane2_probe, split_sweep
+    from darwin_tpu_torch.ops import dp
     from darwin_tpu_torch.ops.dp import align_tiles, align_tiles_plain
-    from darwin_tpu_torch.ops.plane2 import plane2
+    from darwin_tpu_torch.ops.plane2 import plane2, plane2_torch
 
     t0 = time.perf_counter()
     errs = split_kernel_checks(dev)
@@ -4059,25 +4174,41 @@ def phase_split(dev, counters: dict) -> tuple:
     T = SPLIT_TIMED[0]
     align_tiles.split.variant_launches.clear()
     align_tiles.split16.variant_launches.clear()
-    plane2.split.launches = 0
-    rows = geom_sweep.sweep([(64, T, fmt, il) for fmt, il in SPLIT_VARIANTS],
-                            dev)
+    plane2.split.launches = plane2.split16.launches = 0
+    # Every variant as the gate launches it: at T = 1024, and at 2048
+    # packed at interleave 1 (the int32 kernel's up to 1536).
+    rows = geom_sweep.sweep(
+        [(64, T, fmt, il) for fmt, il in SPLIT_VARIANTS]
+        + [(64, SPLIT_TIMED[-1], "packed", 1)], dev)
     a = [torch.from_numpy(x).to(dev)
          for x in geom_sweep.sweep_inputs(64, T)]
-    for fmt in SPLIT16_VARIANTS:
-        errs[SPLIT_VARIANTS[(fmt, 1)]] = max(
-            errs[SPLIT_VARIANTS[(fmt, 1)]], geom_sweep.max_abs_err(
-                align_tiles(*a, dir_format=fmt, **OUTSIDE16),
+    for fmt, il in SPLIT_VARIANTS:
+        errs[SPLIT_VARIANTS[(fmt, il)]] = max(
+            errs[SPLIT_VARIANTS[(fmt, il)]], geom_sweep.max_abs_err(
+                align_tiles(*a, dir_format=fmt, interleave=il, **OUTSIDE16),
                 align_tiles_plain(*a, dir_format=fmt, **OUTSIDE16)))
-    plane2_probe.probe_emit(T, dev, B=64, V=2)
-    if any(r[4]["max_abs_err"] for r in rows) or any(errs.values()):
+    for t_emit in SPLIT_TIMED:
+        plane2_probe.probe_emit(t_emit, dev, B=64, V=2)
+    errs[PLANE2_SPLIT] = max(errs[PLANE2_SPLIT], geom_sweep.max_abs_err(
+        plane2(*a, **OUTSIDE16), plane2_torch(*a, **OUTSIDE16)))
+    # The 16-bit variants the gate launched nowhere above (SPLIT16_SLOWER
+    # keeps them on the int32 kernel): the lab's sweep forces them at T.
+    idle = [v for v in SPLIT16_VARIANTS
+            if not align_tiles.split16.variant_launches[v]]
+    idle += [("plane2", 1)] * (not plane2.split16.launches)
+    forced = [r for fmt, il in idle for r in split_sweep.sweep_one(
+        64, T, fmt, il, (dp.strips_for(T, il, True, fmt),), dev, 1)]
+    log(f"  forced on the 16-bit kernel by the sweep: {idle}")
+    if (any(r[4]["max_abs_err"] for r in rows) or any(errs.values())
+            or any(r[5] for r in forced)):
         raise AssertionError("the split geometry sweep differs from the "
                              "plain version")
     launches = {name: align_tiles.split.variant_launches[v]
                 for v, name in SPLIT_VARIANTS.items()}
-    launches.update((name, align_tiles.split16.variant_launches[(fmt, 1)])
-                    for fmt, name in SPLIT16_VARIANTS.items())
+    launches.update((name, align_tiles.split16.variant_launches[v])
+                    for v, name in SPLIT16_VARIANTS.items())
     launches[PLANE2_SPLIT] = plane2.split.launches
+    launches[PLANE2_SPLIT16] = plane2.split16.launches
     log(f"  lab launches on the split path: {launches}")
     res = split_times(dev)
     for name, e in errs.items():
@@ -4155,15 +4286,17 @@ def split_ecoli(dev, counters: dict) -> collections.Counter:
                         f"T={T} {tag}: records differ from ecoli_shape_t{T}: "
                         f"missing {sorted(w - g)[:3]} extra "
                         f"{sorted(g - w)[:3]}")
-                idle = [k for k in SPLIT_ECOLI_RUNS[tag] if n.get(k, 0) <= 0]
+                kernels = split_ecoli_kernels(tag, T)
+                idle = [k for k in kernels if n.get(k, 0) <= 0]
                 if idle:
                     raise AssertionError(f"T={T} {tag}: {idle} not launched")
-                int32 = {k: n[k] for k in SPLIT_VARIANTS.values()
-                         if n.get(k, 0)}
-                if int32:
-                    raise AssertionError(f"T={T} {tag}: the int32 split "
-                                         f"kernel launched {int32}")
-                if ("fetch_tiles" in SPLIT_ECOLI_RUNS[tag]
+                other = {k: n[k] for k in (*SPLIT_VARIANTS.values(),
+                                           *SPLIT16_VARIANTS.values())
+                         if n.get(k, 0) and k != kernels[0]}
+                if other:
+                    raise AssertionError(f"T={T} {tag}: the DP launched "
+                                         f"{other} beside {kernels[0]}")
+                if ("fetch_tiles" in kernels
                         and n["fetch_tiles"] != m["engine_iters"]):
                     raise AssertionError(f"T={T} {tag}: the fetch is not "
                                          f"once an iteration")

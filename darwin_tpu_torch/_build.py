@@ -45,10 +45,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "dtt_align_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    # ref, query, ref_len, query_len, B, T, scoring, fmt, strips, width,
-    # dir, the four stats.
-    "dtt_align_tiles16": [_P, _P, _P, _P, *[_I] * 9, _P, _P, _P, _P, _P,
-                          _P],
+    # ref, query, ref_len, query_len, B, T, scoring, fmt, interleave,
+    # strips, width, dir, dir2, the four stats.
+    "dtt_align_tiles16": [_P, _P, _P, _P, *[_I] * 10, *[_P] * 7],
     "dtt_traceback": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _P, _P, _P, _P],
     # nsets, then two sets of (bank, n, n_read, start, len, pad, out).

@@ -1,14 +1,20 @@
 // GACT tile DP for Hopper (sm_90a), the 16-bit split path: tiles of T =
-// 1024 .. 2048 (and any T its strips cover) over one block of S warps,
+// 385 .. 2048 (and any T its strips cover) over one block of S warps,
 // two tiles a block, tile 2p in the low and 2p + 1 in the high 16-bit
-// half of every state register, in bytes, packed and packed6 at
-// interleave 1.
+// half of every state register, in bytes, packed, packed6 and plane 2.
 //
 // Replaces, like csrc/dp.cu's split path, darwin_tpu/ops/pallas_dp.py::
-// align_tiles_pallas's interleave=1 pallas_call (line 523); contract
-// darwin_tpu/ops/reference_dp.py::align_tiles_jax (its port
-// darwin_tpu_torch/ops/reference_dp.py), the word formats through
-// darwin_tpu_torch/ops/pack.py.  darwin_tpu keeps its state in int32
+// align_tiles_pallas's interleave=1 pallas_call (line 523) and its
+// interleave>1 stream pallas_call (line 493, _make_stream_kernel: IL
+// independent batch streams a grid step, bit-identical for every IL),
+// and tools/plane2_probe.py's kernel (the pallas_call at line 209,
+// kernel2); contract darwin_tpu/ops/reference_dp.py::align_tiles_jax
+// (its port darwin_tpu_torch/ops/reference_dp.py), the word formats
+// through darwin_tpu_torch/ops/pack.py.  The TPU's streams hide a row's
+// latency; here every interleave runs this one kernel, since a pair of
+// tiles a lane already interleaves two tiles' cells (the outputs are per
+// tile, so any pairing is right; two pairs a lane ran slower, PERF.md
+// section 6).  darwin_tpu keeps its state in int32
 // only because the v5e VPU rejects 16-bit comparisons
 // (pallas_dp.py _score_dtype); its bound on the scores and its 16-bit
 // sentinel NEG16 are the gate ops/dp.py applies before it launches this
@@ -221,8 +227,8 @@ __device__ __forceinline__ const uint8_t* ring_row16(const uint8_t* ring,
 
 // The packed / packed6 word of column c from ring rows p[0] (row r) ..
 // p[3] (row r - 3), each at its column 0.
-template <int FMT>
-__device__ __forceinline__ int ring_word(const uint8_t* const (&p)[4],
+template <int FMT, int N>
+__device__ __forceinline__ int ring_word(const uint8_t* const (&p)[N],
                                          int c) {
   if constexpr (FMT == kPacked) {
     return p[0][c] | p[0][c + 1] << 8 | p[1][c] << 16 | p[1][c + 1] << 24;
@@ -232,14 +238,74 @@ __device__ __forceinline__ int ring_word(const uint8_t* const (&p)[4],
   }
 }
 
+// Bytes o .. o + 3 of a 4-aligned ring row q (v0) and o + 1 .. o + 4
+// (v1), from two 32-bit loads.
+__device__ __forceinline__ void bytes4(const uint8_t* q, int o, unsigned& v0,
+                                       unsigned& v1) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(q) + (o >> 2);
+  const uint32_t lo = w[0], hi = w[1];
+  v0 = __funnelshift_r(lo, hi, 8 * (o & 3));
+  v1 = __funnelshift_rc(lo, hi, 8 * (o & 3) + 8);
+}
+
+// The packed words of columns c .. c + 3 from byte vectors of their
+// fields: v[0] row r's columns c .. c + 3, v[1] its c + 1 .. c + 4, v[2]
+// and v[3] the same of row r - 1.
+__device__ __forceinline__ void packed4(const unsigned (&v)[4],
+                                       unsigned (&w)[4]) {
+  const unsigned x01 = __byte_perm(v[0], v[1], 0x5140);
+  const unsigned y01 = __byte_perm(v[2], v[3], 0x5140);
+  const unsigned x23 = __byte_perm(v[0], v[1], 0x7362);
+  const unsigned y23 = __byte_perm(v[2], v[3], 0x7362);
+  w[0] = __byte_perm(x01, y01, 0x5410);
+  w[1] = __byte_perm(x01, y01, 0x7632);
+  w[2] = __byte_perm(x23, y23, 0x5410);
+  w[3] = __byte_perm(x23, y23, 0x7632);
+}
+
+// The warp writes the packed words of columns 0 .. n-1 (n <= GC + 1) from
+// ring rows p[0] (row r) and p[1] (row r - 1), each at its column 0, four
+// words a lane at the columns whose output starts 16-byte aligned: each
+// row's bytes c .. c + 4 from two funnel-shifted 32-bit loads, the words
+// assembled by byte permutes and stored as one 16-byte vector (the up to
+// three columns before them, and the tail, a word a lane).
+template <int GC>
+__device__ __forceinline__ void packed_row16(int* words,
+                                             const uint8_t* const (&p)[2],
+                                             int n, int lane) {
+  const int nh = min(static_cast<int>(
+                         (4 - (reinterpret_cast<uintptr_t>(words) >> 2)) & 3),
+                     n);
+  const int n4 = (n - nh) >> 2;
+  if (lane < nh) at(words, lane) = ring_word<kPacked>(p, lane);
+  const int xt = nh + 4 * n4 + lane;
+  if (xt < n) at(words, xt) = ring_word<kPacked>(p, xt);
+#pragma unroll
+  for (int j = 0; j < ((GC + 4) / 4 + 31) / 32; ++j) {
+    const int x = lane + 32 * j;
+    if (x < n4) {
+      const int c = nh + 4 * x;
+      unsigned v[4], w[4];
+      bytes4(p[0] - kOff16, kOff16 + c, v[0], v[1]);
+      bytes4(p[1] - kOff16, kOff16 + c, v[2], v[3]);
+      packed4(v, w);
+      at(reinterpret_cast<int4*>(words + c), 0) = make_int4(
+          static_cast<int>(w[0]), static_cast<int>(w[1]),
+          static_cast<int>(w[2]), static_cast<int>(w[3]));
+    }
+  }
+}
+
 // The warp writes row r of a group (its column 0 is c0; columns 0 ..
 // n-1, n <= GC + 1) for both tiles of the block, tile t from ring rt,
 // where r <= last[t]: emit_row for a ring whose column 0 lies at byte
 // kOff16.  Bytes go as 32-bit words funnel-shifted out of the ring's
 // words, both tiles in one pass of fixed trip count (predicated); a
-// word format a tile at a time, a word a lane from the ring's bytes (a
-// fixed-trip pass over both tiles, and 32-bit loads with byte permutes,
-// both measured slower on the card).
+// word format a tile at a time: packed by packed_row16, packed6 and
+// plane 2 a word a lane from the ring's bytes, plane 2's second word
+// (rows r - 4 .. r - 6) beside the first (a fixed-trip pass over both
+// tiles, 32-bit loads with byte permutes, and words assembled in the DP
+// lanes' registers, all measured slower on the card).
 template <class R, int FMT, int GC>
 __device__ __forceinline__ void emit_rows16(const Args& a, int b0, int r,
                                             bool ok, const uint8_t* ring0,
@@ -259,18 +325,29 @@ __device__ __forceinline__ void emit_rows16(const Args& a, int b0, int r,
     copy_row_at<kOff16, GC + 1>(e1, d + tile, ring_row16<R>(ring1, r, rl[1]),
                                 n, qv[1] - c0, lane);
   } else {
+    constexpr int N = Lag<FMT>::value + 1;
     const uint8_t* const rings[2] = {ring0, ring1};
     const bool on[2] = {e0, e1};
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
-      const uint8_t* p[4];
+      const uint8_t* p[N];  // ring rows r .. r - lag, at their column 0
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
+      for (int k = 0; k < N; ++k) {
         p[k] = ring_row16<R>(rings[t], r - k, rl[t]) + kOff16;
       }
       int* words = static_cast<int*>(a.dir) + off + t * tile;
       if (!on[t]) continue;
-      for (int c = lane; c < n; c += 32) at(words, c) = ring_word<FMT>(p, c);
+      if constexpr (FMT == kPacked) {
+        packed_row16<GC>(words, p, n, lane);
+      } else {
+        for (int c = lane; c < n; c += 32) {
+          at(words, c) = ring_word<FMT>(p, c);
+          if constexpr (FMT == kPlane2) {
+            at(a.dir2 + off + t * tile, c) =
+                p[4][c - 2] | p[5][c - 2] << 5 | p[6][c - 3] << 10;
+          }
+        }
+      }
     }
   }
 }
@@ -534,6 +611,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
     const size_t n = static_cast<size_t>(T - last[t]) * TJ * esize;
     const size_t lo = n * warp / S, hi = n * (warp + 1) / S;
     zero_bytes(static_cast<uint8_t*>(a.dir) + from + lo, hi - lo, lane);
+    if constexpr (FMT == kPlane2) {
+      zero_bytes(reinterpret_cast<uint8_t*>(a.dir2) + from + lo, hi - lo,
+                 lane);
+    }
   }
 
   // Row-major-last max cell over the lanes, then over the warps.
@@ -575,6 +656,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 
 template <int C, int FMT>
 int launch_split16(const Args& a, int strips, cudaStream_t stream) {
+  if (strips < 1 || strips > kMaxWarps || 32 * C * strips < a.T) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t smem = split16_smem<C, FMT>(strips, a.T);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
@@ -588,43 +672,49 @@ int launch_split16(const Args& a, int strips, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The 16-bit split path at the strip width ops/dp.py picks: C = 16 or
-// 24 (the widths its warps a tile take up to T = 2048; C = 8 and 12 ran
-// slower there, C = 32 needs 255 registers and spills).
+// The 16-bit split path at the strip width ops/dp.py picks: C = 16 in
+// every format, and 24 in bytes (the widths its warps a tile take up to
+// T = 2048; C = 8 and 12 ran slower there, C = 32 needs 255 registers
+// and spills).
 template <int FMT>
-int by_split16(const Args& a, int strips, int width, cudaStream_t s) {
-  if (strips < 2 || strips > kMaxWarps || 32 * width * strips < a.T) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+int by_width16(const Args& a, int strips, int width, cudaStream_t s) {
   if (width == 16) return launch_split16<16, FMT>(a, strips, s);
-  if (width == 24) return launch_split16<24, FMT>(a, strips, s);
+  if constexpr (FMT == kBytes) {
+    if (width == 24) return launch_split16<24, FMT>(a, strips, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// The 16-bit split path (ops/dp.py's gate): dtt_align_tiles's arguments
-// at interleave 1 with no plane 2; fmt 0 bytes (dir uint8), 1 packed, 2
-// packed6 (dir int32); strips 2..8 warps a tile, each lane holding width
-// columns (16 or 24; ops/dp.py picks both).
+// The 16-bit split path (ops/dp.py's gate): dtt_align_tiles's arguments;
+// fmt 0 bytes (dir uint8), 1 packed, 2 packed6 (dir int32), 3 plane 2
+// (dir and dir2 int32); interleave 1, 2 or 4 (B divides by it; the
+// kernel is the same); strips 1..8 warps a block, each lane holding
+// width columns (ops/dp.py picks both).
 extern "C" int dtt_align_tiles16(const uint8_t* ref, const uint8_t* query,
                                  const int* ref_len, const int* query_len,
                                  int B, int T, int match, int mismatch,
                                  int gap_open, int gap_extend, int fmt,
-                                 int strips, int width, void* dir,
-                                 int* max_score, int* max_i, int* max_j,
-                                 int* pos_score, void* stream) {
-  if (B <= 0 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                 int interleave, int strips, int width,
+                                 void* dir, int* dir2, int* max_score,
+                                 int* max_i, int* max_j, int* pos_score,
+                                 void* stream) {
+  if (B <= 0 || T < 1 || (interleave != 1 && interleave != 2 &&
+                          interleave != 4) || B % interleave != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Args a{ref,      query,    ref_len,  query_len, B,
                T,        match,    mismatch, gap_open,  gap_extend,
-               dir,      nullptr,  max_score, max_i,    max_j,
+               dir,      dir2,     max_score, max_i,    max_j,
                pos_score};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   DTT_UPLOAD_EXTENTS(s);
   switch (fmt) {
-    case kBytes: return by_split16<kBytes>(a, strips, width, s);
-    case kPacked: return by_split16<kPacked>(a, strips, width, s);
-    case kPacked6: return by_split16<kPacked6>(a, strips, width, s);
+    case kBytes: return by_width16<kBytes>(a, strips, width, s);
+    case kPacked: return by_width16<kPacked>(a, strips, width, s);
+    case kPacked6: return by_width16<kPacked6>(a, strips, width, s);
+    case kPlane2: return by_width16<kPlane2>(a, strips, width, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -103,7 +103,7 @@ def run_one(B: int, T: int, fmt: str, il: int, device: torch.device,
             by_warps[w], out = time_ms(
                 lambda w=w: run_kernel(ref, query, rlen, qlen, fmt=fmt,
                                        interleave=il, what="geom_sweep",
-                                       warps=w, **SCORING), device, reps)
+                                       warps=w, **SCORING)[0], device, reps)
             if fmt != "bytes":
                 out["dir_words"] = out.pop("dir")
             err = max(err, max_abs_err(out, want))

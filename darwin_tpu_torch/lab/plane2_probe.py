@@ -5,8 +5,10 @@ The port of tools/plane2_probe.py.  Two measurements:
   emit   : the packed6 DP kernel (ops/dp.py) against the plane-2
            kernel (ops/plane2.py), which also writes the second int32
            plane of deeper diagonal cells; V chained steps at B = 2048,
-           rlen = qlen = T.  Sink: the tool's (the [::64, ::64] samples
-           of both planes plus the max scores, int32 wraparound).
+           rlen = qlen = T, at any T up to 2048 (past 1023 the split
+           kernels: each line names the kernel ops/dp.py's plan picks).
+           Sink: the tool's (the [::64, ::64] samples of both planes plus
+           the max scores, int32 wraparound).
   gather : the walker's dependent gather widened three ways: one plane
            [B, 1], both planes interleaved [B, 2], two separate [B, 1]
            gathers, each a chain of 45 steps (the packed6 walker's
@@ -33,7 +35,7 @@ import torch
 from darwin_tpu_torch.lab import (SCORING, add_device_arg, clock,
                                   related_batches, resolve_device, sum32,
                                   time_ms)
-from darwin_tpu_torch.ops.dp import align_tiles
+from darwin_tpu_torch.ops.dp import align_tiles, plan
 from darwin_tpu_torch.ops.plane2 import plane2
 
 ITERS = 45  # packed6 walker rounds at the bench shape (the tool's)
@@ -77,7 +79,9 @@ def probe_emit(T: int, device: torch.device, B: int, V: int,
             refs[v], queries[v], lens, lens, **SCORING)),
     }
     res = {}
-    for name, step in steps.items():
+    for (name, step), fmt in zip(steps.items(), ("packed6", "plane2")):
+        kernel = ("plain" if device.type == "cpu"
+                  else plan(T, fmt, 1, **SCORING).kernel)
         def chain(step=step):
             acc = torch.zeros((), dtype=torch.int64, device=device)
             for v in range(V):
@@ -86,7 +90,7 @@ def probe_emit(T: int, device: torch.device, B: int, V: int,
         ms, sink = time_ms(chain, device, reps)
         res[name] = (ms / V, sum32(sink))
         print(f"emit {name}: T={T} {ms / V:.4f} ms/step "
-              f"({B * T * T * V / ms / 1e6:.2f} GCUPS) sink "
+              f"({B * T * T * V / ms / 1e6:.2f} GCUPS, {kernel}) sink "
               f"{res[name][1]} ({clock(device)})", flush=True)
     return res
 

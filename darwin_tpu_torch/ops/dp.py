@@ -17,12 +17,16 @@ padding is not carried over: every direction output is [B, T, T+1].
   one-warp path); past it one block of S warps holds a tile, each warp
   a strip of its columns, pipelined (the split path; strips_for picks
   S, and run_kernel's ``strips`` forces it for the lab and the tests).
-* The split path at interleave 1 in the three formats runs two tiles a
-  block in 16-bit halves (the 16-bit split path) where fits_int16 holds
-  for T and the scoring: darwin_tpu's bound on the scores stays clear
-  of its 16-bit sentinel NEG16.  Else it runs the int32 split kernel.
-  The choice is the gate's alone; run_kernel's ``dp16`` forces it for
-  the lab and the tests.
+* The split path runs the 16-bit split kernel (csrc/dp16.cu: a pair
+  of tiles in the 16-bit halves of its registers, at every interleave)
+  in every format, plane 2 included, where fits_int16 holds for T and
+  the scoring (darwin_tpu's bound on the scores stays clear of its
+  16-bit sentinel NEG16) and the card did not measure it slower
+  (SPLIT16_SLOWER); else the int32 split kernel.
+  plan() makes the choice, run_kernel launches it and returns which
+  kernel it launched, and the launch counters (COUNTERS) count on that;
+  run_kernel's ``strips``, ``dp16`` and ``width`` force it for the lab
+  and the tests.
 * align_tiles_pallas's ``block_b`` is not ported: it is a Mosaic block
   shape.
 
@@ -60,17 +64,38 @@ SPLIT_WIDTHS = {1: (8, 12, 16), 2: (8,), 4: (8,)}
 # darwin_tpu's int16 -inf sentinel (darwin_tpu/ops/pallas_dp.py:56,
 # NEG16; csrc/dp16.cu kNeg16).
 NEG16 = -20000
-# The 16-bit split path (csrc/dp16.cu by_split16): its formats, at
-# interleave 1, the strip widths it instantiates, and its warps a tile by
-# tile size, (largest T, S): C = 16 and 24 over two warps up to 1536, C =
-# 16 over four up to 2048, the fastest of the card's sweep
-# (lab/split_sweep.py; PERF.md section 6).
-SPLIT16_FORMATS = ("bytes", "packed", "packed6")
-SPLIT16_WIDTHS = (16, 24)
-SPLIT16_STRIPS = ((1536, 2), (MAX_TILE, 4))
+# The kernels run_kernel launches: the one-warp kernel (csrc/dp.cu), the
+# int32 split kernel (csrc/dp.cu) and the 16-bit split kernel
+# (csrc/dp16.cu), each counted on its own counter (COUNTERS).
+ONE_WARP, SPLIT, SPLIT16 = "one_warp", "split", "split16"
+# The 16-bit split path: its formats, at every interleave (plane 2 at 1
+# only, as on the int32 kernel).
+SPLIT16_FORMATS = ("bytes", "packed", "packed6", "plane2")
+# Its warps a tile by tile size, (largest T, S), at every interleave (the
+# fastest of the sweep; where no width of the format covers T at that S,
+# the least S that one does).
+SPLIT16_STRIPS = ((512, 1), (1536, 2), (MAX_TILE, 4))
+# Shapes where the card's sweep (lab/split_sweep.py at T = 1024, 1536,
+# 2048, B = 512 and 2048, full tiles and lengths drawn in 1..T; PERF.md
+# section 6) found the int32 split kernel faster, or the two within a
+# few percent either way, {(format, interleave): ((least T, largest T),
+# ...)}: at interleave 1, packed up to T = 1536, packed6 and plane 2 at
+# every T (the int32 kernel holds one tile a block, so twice the blocks
+# share an SM).  The gate keeps them there.
+SPLIT16_SLOWER = {("packed", 1): ((1024, 1536),),
+                  ("packed6", 1): ((1024, MAX_TILE),),
+                  ("plane2", 1): ((1024, MAX_TILE),)}
 # Warps a thread block (lab/geom_sweep.py --warps measures 1-8).
 WARPS = 4
 MAX_WARPS = 8  # csrc/dp.cu kMaxWarps
+# The split kernels' shared memory (csrc/dp_common.cuh): the card's 227
+# KB a block (kMaxSmem), lanes a row-emitting group (kGroup), boundary
+# ring entries (kBnd), and the rows a word format reads above its own
+# (Lag).
+MAX_SMEM = 227 * 1024
+GROUP = 16
+BND = 32
+LAG = {"bytes": 0, "packed": 1, "packed6": 3, "plane2": 6}
 PACKERS = {"bytes": None, "packed": pack_dir_words,
            "packed6": pack_dir_words6}
 # The C entry's format codes; 3 is the plane-2 variant (ops/plane2.py).
@@ -106,38 +131,85 @@ def fits_int16(T: int, **scoring) -> bool:
     return score_bound(T, **scoring) < -NEG16
 
 
-def takes_int16(T: int, fmt: str, interleave: int, strips: int,
-                **scoring) -> bool:
-    """Whether the gate sends this launch to the 16-bit split path: a
-    split launch (strips > 1) at interleave 1 in bytes, packed or
-    packed6 with fits_int16."""
-    return (strips > 1 and interleave == 1 and fmt in SPLIT16_FORMATS
+def runs_int16(T: int, fmt: str, interleave: int, **scoring) -> bool:
+    """Whether the 16-bit split kernel computes this launch: a format it
+    takes at that interleave (plane 2 at 1 only, as on the int32 kernel)
+    and fits_int16."""
+    return (fmt in SPLIT16_FORMATS and interleave in INTERLEAVES
+            and (fmt != "plane2" or interleave == 1)
             and fits_int16(T, **scoring))
 
 
-def strips_for(T: int, interleave: int, dp16: bool = False) -> int:
-    """Warps a tile on the card: 1 (the one-warp path) up to
-    ONE_WARP_TILE; past it on the int32 split kernel the least S whose
-    strips of the widest split width cover T, on the 16-bit one (dp16)
-    SPLIT16_STRIPS's."""
+def takes_int16(T: int, fmt: str, interleave: int, strips: int,
+                **scoring) -> bool:
+    """Whether the gate sends this launch to the 16-bit split path: a
+    split launch (strips > 1, or T past the one-warp path) that
+    runs_int16 takes, at a shape where the card measured it no slower
+    than the int32 split kernel (not in SPLIT16_SLOWER)."""
+    slower = any(lo <= T <= hi
+                 for lo, hi in SPLIT16_SLOWER.get((fmt, interleave), ()))
+    return ((strips > 1 or T > ONE_WARP_TILE[interleave]) and not slower
+            and runs_int16(T, fmt, interleave, **scoring))
+
+
+def split16_widths(fmt: str) -> tuple:
+    """The strip widths csrc/dp16.cu instantiates for fmt: C = 16, and
+    for bytes 24."""
+    return (16, 24) if fmt == "bytes" else (16,)
+
+
+def strips_for(T: int, interleave: int, dp16: bool = False,
+               fmt: str = "bytes") -> int:
+    """Warps a tile on the card: on the int32 kernels 1 (the one-warp
+    path) up to ONE_WARP_TILE, past it the least S whose strips of the
+    widest split width cover T; on the 16-bit one (dp16) SPLIT16_STRIPS's,
+    or more where no width of fmt covers T at that S."""
+    if dp16:
+        least = -(-T // (32 * split16_widths(fmt)[-1]))
+        return max(least, next(s for t, s in SPLIT16_STRIPS if T <= t))
     if T <= ONE_WARP_TILE[interleave]:
         return 1
-    if dp16:
-        return next(s for t, s in SPLIT16_STRIPS if T <= t)
     return -(-T // (32 * SPLIT_WIDTHS[interleave][-1]))
 
 
+def _round16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def split_smem(kernel: str, fmt: str, interleave: int, strips: int,
+               width: int, T: int) -> int:
+    """Bytes of shared memory a block of a split kernel takes: csrc/dp.cu
+    split_smem (SPLIT) or csrc/dp16.cu split16_smem (SPLIT16), with
+    dp_common.cuh's RingOf (16-aligned rings of GROUP + 1 + LAG rows, the
+    16-bit kernel's one row more, and a zero row, of GROUP * width + 8
+    bytes; two groups a warp)."""
+    extra = 1 if kernel == SPLIT16 else 0
+    rows = GROUP + 1 + extra + LAG[fmt]
+    ring = _round16((rows + 1) * (GROUP * width + 8))
+    rings = strips * (32 // GROUP) * ring
+    if kernel == SPLIT16:  # two tiles, the ref rows as pairs, Bnd16 of 32
+        return (2 * rings + _round16(4 * (T + 32))
+                + (strips + 1) * BND * 32 + 2 * strips * 12)
+    return (interleave * (rings + _round16(T + 32))
+            + strips * interleave * (BND * 16 + 12))
+
+
 def check_strips(T: int, interleave: int, strips: int, what: str,
-                 dp16: bool = False) -> int:
-    """The columns a lane for T over `strips` warps a tile: 0 for the
-    one-warp path (strips 1, T up to ONE_WARP_TILE; dp.cu picks its
-    width), else the least split width (of SPLIT16_WIDTHS on the 16-bit
-    path) whose 32 * strips lanes cover T (strips 2..MAX_WARPS).  Raises
+                 dp16: bool = False, fmt: str = "bytes") -> int:
+    """The columns a lane for T over `strips` warps a tile: on the int32
+    kernels 0 for the one-warp path (strips 1, T up to ONE_WARP_TILE;
+    dp.cu picks its width), else the least split width whose 32 * strips
+    lanes cover T (strips 2..MAX_WARPS); on the 16-bit kernel (dp16) the
+    least of split16_widths covering T over 1..MAX_WARPS warps.  Raises
     ValueError when the kernel does not take T that way."""
-    if strips == 1 and T <= ONE_WARP_TILE[interleave]:
-        return 0
-    if 2 <= strips <= MAX_WARPS:
-        for width in SPLIT16_WIDTHS if dp16 else SPLIT_WIDTHS[interleave]:
+    if dp16:
+        widths, lo = split16_widths(fmt), 1
+    else:
+        if strips == 1 and T <= ONE_WARP_TILE[interleave]:
+            return 0
+        widths, lo = SPLIT_WIDTHS[interleave], 2
+    if lo <= strips <= MAX_WARPS:
+        for width in widths:
             if 32 * width * strips >= T:
                 return width
     raise ValueError(f"{what}: tile size {T} does not run over {strips} "
@@ -169,22 +241,72 @@ def align_tiles_plain(ref: torch.Tensor, query: torch.Tensor,
     return out
 
 
+class Plan(collections.namedtuple("Plan", "kernel strips width")):
+    """What run_kernel launches: kernel ONE_WARP, SPLIT or SPLIT16, warps
+    a tile (1 on the one-warp path) and columns a lane (0 on the one-warp
+    path: dp.cu picks it)."""
+
+
+def plan(T: int, fmt: str, interleave: int, *, strips: int | None = None,
+         dp16: bool | None = None, width: int | None = None,
+         what: str = "plan", **scoring) -> Plan:
+    """The launch run_kernel makes for these arguments.  By default the
+    one-warp kernel up to ONE_WARP_TILE, past it the 16-bit split kernel
+    where the gate (takes_int16) passes, else the int32 split kernel, at
+    strips_for's warps a tile.  The lab and the tests force `strips`
+    (1 the one-warp path, unless dp16), `dp16` (False the int32 kernels;
+    True the 16-bit one wherever runs_int16 holds, at any T its strips
+    cover) and, on a split kernel, `width` (one it instantiates whose
+    strips cover T, not only the least); a forced 16-bit launch outside
+    runs_int16, or a split launch whose block passes the card's shared
+    memory (split_smem > MAX_SMEM), raises ValueError."""
+    gate = takes_int16(T, fmt, interleave,
+                       strips or strips_for(T, interleave), **scoring)
+    if dp16 is None:
+        dp16 = gate and strips != 1
+    if dp16 and not runs_int16(T, fmt, interleave, **scoring):
+        raise ValueError(f"{what}: the 16-bit split kernel does not take "
+                         f"T={T}, {fmt}, interleave {interleave} at scoring "
+                         f"{scoring}")
+    if not dp16:
+        strips = strips or strips_for(T, interleave)
+        least = check_strips(T, interleave, strips, what)
+        widths = SPLIT_WIDTHS[interleave]
+        kernel = ONE_WARP if least == 0 else SPLIT
+    else:
+        strips = strips or strips_for(T, interleave, True, fmt)
+        least = check_strips(T, interleave, strips, what, True, fmt)
+        widths = split16_widths(fmt)
+        kernel = SPLIT16
+    if width is None:
+        width = least
+    elif width != least and (kernel == ONE_WARP or width not in widths
+                             or width < least):
+        raise ValueError(f"{what}: width {width} is not one the {kernel} "
+                         f"kernel takes for T={T} over {strips} warps")
+    if kernel != ONE_WARP and split_smem(kernel, fmt, interleave, strips,
+                                         width, T) > MAX_SMEM:
+        raise ValueError(f"{what}: the {kernel} kernel at T={T} over "
+                         f"{strips} warps of width {width} needs more than "
+                         f"the card's {MAX_SMEM} bytes of shared memory a "
+                         f"block")
+    return Plan(kernel, strips, width)
+
+
 def run_kernel(ref: torch.Tensor, query: torch.Tensor,
                ref_len: torch.Tensor, query_len: torch.Tensor, *,
                match: int, mismatch: int, gap_open: int, gap_extend: int,
                fmt: str, interleave: int, what: str,
                warps: int = WARPS, strips: int | None = None,
-               dp16: bool | None = None) -> dict:
-    """Launch csrc/dp.cu on CUDA tensors (the caller counts the launch):
-    the one-warp path with `warps` warps a block, or the split path with
-    one block of `strips` warps a tile, on the 16-bit split kernel
-    (csrc/dp16.cu) where `dp16`.  `dp16` defaults to the gate
-    (takes_int16) and `strips` to strips_for(T, interleave, dp16); the
-    lab and the tests force them (strips 1, or 2 and more at any T the
-    width allows; dp16 False for the int32 split kernel under a scoring
-    the gate passes, True only where the gate would pass it at that many
-    strips).  Returns dict(dir [B, T, T+1] uint8 for "bytes" or int32
-    otherwise, dir2 for "plane2", and the four [B] int32 stats)."""
+               dp16: bool | None = None, width: int | None = None) -> tuple:
+    """Launch the tile DP on CUDA tensors as plan() picks it: the
+    one-warp kernel with `warps` warps a block (csrc/dp.cu), the int32
+    split kernel (csrc/dp.cu) or the 16-bit one (csrc/dp16.cu), one
+    block of strips warps a tile (a pair of tiles on the 16-bit one).
+    Returns (dict(dir [B, T, T+1] uint8 for "bytes" or int32 otherwise,
+    dir2 for "plane2", and the four [B] int32 stats), the kernel it
+    launched: ONE_WARP, SPLIT or SPLIT16); the caller counts the
+    launch."""
     if not 1 <= warps <= MAX_WARPS:
         raise ValueError(f"{what}: {warps} warps a block, not in "
                          f"1..{MAX_WARPS}")
@@ -193,17 +315,8 @@ def run_kernel(ref: torch.Tensor, query: torch.Tensor,
     check_geometry(B, T, interleave, what)
     scoring = dict(match=match, mismatch=mismatch, gap_open=gap_open,
                    gap_extend=gap_extend)
-    gate = takes_int16(T, fmt, interleave,
-                       strips or strips_for(T, interleave), **scoring)
-    if dp16 is None:
-        dp16 = gate
-    if strips is None:
-        strips = strips_for(T, interleave, dp16)
-    if dp16 and not gate:
-        raise ValueError(f"{what}: the 16-bit split kernel does not take "
-                         f"T={T}, {fmt}, interleave {interleave}, {strips} "
-                         f"warps a tile at scoring {scoring}")
-    width = check_strips(T, interleave, strips, what, dp16)
+    p = plan(T, fmt, interleave, strips=strips, dp16=dp16, width=width,
+             what=what, **scoring)
     u8, i32 = torch.uint8, torch.int32
     args = [_build.arg(ref, "ref", u8, (B, T), dev),
             _build.arg(query, "query", u8, (B, T), dev),
@@ -216,18 +329,18 @@ def run_kernel(ref: torch.Tensor, query: torch.Tensor,
         out["dir2"] = torch.empty(shape, dtype=i32, device=dev)
     for k in _STATS:
         out[k] = torch.empty(B, dtype=i32, device=dev)
-    if B and dp16:
+    if B and p.kernel == SPLIT16:
         _build.launch(
             "dtt_align_tiles16", dev, *args, B, T, match, mismatch,
-            gap_open, gap_extend, FORMAT_CODES[fmt], strips, width,
-            out["dir"], *(out[k] for k in _STATS))
+            gap_open, gap_extend, FORMAT_CODES[fmt], interleave, p.strips,
+            p.width, out["dir"], out.get("dir2"), *(out[k] for k in _STATS))
     elif B:
         _build.launch(
             "dtt_align_tiles", dev, *args, B, T, match, mismatch,
             gap_open, gap_extend, FORMAT_CODES[fmt], interleave, warps,
-            strips, width, out["dir"], out.get("dir2"),
+            p.strips, p.width, out["dir"], out.get("dir2"),
             *(out[k] for k in _STATS))
-    return out
+    return out, p.kernel
 
 
 def align_tiles(ref: torch.Tensor, query: torch.Tensor,
@@ -249,10 +362,10 @@ def align_tiles(ref: torch.Tensor, query: torch.Tensor,
                        on_card=False)
         return align_tiles_plain(ref, query, ref_len, query_len,
                                  dir_format=dir_format, **kw)
-    out = run_kernel(ref, query, ref_len, query_len, fmt=dir_format,
-                     interleave=interleave, what="align_tiles", **kw)
+    out, kernel = run_kernel(ref, query, ref_len, query_len, fmt=dir_format,
+                             interleave=interleave, what="align_tiles", **kw)
     if ref.shape[0]:
-        count = kernel_counter(ref.shape[1], dir_format, interleave, **kw)
+        count = COUNTERS[kernel]
         count.launches += 1
         count.variant_launches[(dir_format, interleave)] += 1
     if dir_format != "bytes":
@@ -261,15 +374,11 @@ def align_tiles(ref: torch.Tensor, query: torch.Tensor,
 
 
 def kernel_counter(T: int, fmt: str, interleave: int, **scoring):
-    """The launch counter of the kernel align_tiles launches for these
-    arguments: align_tiles (the one-warp kernel), align_tiles.split (the
-    int32 split kernel) or align_tiles.split16 (the 16-bit one)."""
-    strips = strips_for(T, interleave)
-    if strips == 1:
-        return align_tiles
-    if takes_int16(T, fmt, interleave, strips, **scoring):
-        return align_tiles.split16
-    return align_tiles.split
+    """The counter of the kernel align_tiles launches for these arguments
+    (plan's choice): align_tiles (the one-warp kernel),
+    align_tiles.split (the int32 split kernel) or align_tiles.split16
+    (the 16-bit one)."""
+    return COUNTERS[plan(T, fmt, interleave, **scoring).kernel]
 
 
 # Launches of the one-warp kernel, in all and by (dir_format,
@@ -281,3 +390,5 @@ align_tiles.split = types.SimpleNamespace(
     launches=0, variant_launches=collections.Counter())
 align_tiles.split16 = types.SimpleNamespace(
     launches=0, variant_launches=collections.Counter())
+COUNTERS = {ONE_WARP: align_tiles, SPLIT: align_tiles.split,
+            SPLIT16: align_tiles.split16}

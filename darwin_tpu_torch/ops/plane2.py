@@ -3,7 +3,9 @@
 The port of tools/plane2_probe.py's kernel (the pallas_call `plane2` at
 line 209, kernel body kernel2 at :146-196), which prices a walker that
 would read deeper diagonal cells from a second int32 plane.  The kernel
-is the plane-2 variant of csrc/dp.cu, and emits in one pass
+is the plane-2 variant of the tile DP (ops/dp.py picks it: csrc/dp.cu's
+one-warp or int32 split kernel, or csrc/dp16.cu's 16-bit split kernel
+past T = 1023 where its gate passes), and emits in one pass
 
 * dir_words: the packed6 words (ops/pack.py::pack_dir_words6),
 * dir2_words: P[r, c] = D[r-4, c-2] | D[r-5, c-2] << 5 | D[r-6, c-3] << 10
@@ -22,7 +24,7 @@ import types
 
 import torch
 
-from darwin_tpu_torch.ops.dp import run_kernel, strips_for
+from darwin_tpu_torch.ops.dp import ONE_WARP, SPLIT, SPLIT16, run_kernel
 from darwin_tpu_torch.ops.pack import pack_dir_words6, plane2_words
 from darwin_tpu_torch.ops.reference_dp import align_tiles_torch
 
@@ -48,17 +50,18 @@ def plane2(ref: torch.Tensor, query: torch.Tensor, ref_len: torch.Tensor,
               gap_extend=gap_extend)
     if ref.device.type == "cpu":
         return plane2_torch(ref, query, ref_len, query_len, **kw)
-    out = run_kernel(ref, query, ref_len, query_len, fmt="plane2",
-                     interleave=1, what="plane2", **kw)
+    out, kernel = run_kernel(ref, query, ref_len, query_len, fmt="plane2",
+                             interleave=1, what="plane2", **kw)
     if ref.shape[0]:
-        count = plane2 if strips_for(ref.shape[1], 1) == 1 else plane2.split
-        count.launches += 1
+        COUNTERS[kernel].launches += 1
     out["dir_words"] = out.pop("dir")
     out["dir2_words"] = out.pop("dir2")
     return out
 
 
-# Launches of the one-warp kernel; plane2.split counts the split
-# kernel's.
+# Launches of the one-warp kernel; plane2.split counts the int32 split
+# kernel's, plane2.split16 the 16-bit split kernel's.
 plane2.launches = 0
 plane2.split = types.SimpleNamespace(launches=0)
+plane2.split16 = types.SimpleNamespace(launches=0)
+COUNTERS = {ONE_WARP: plane2, SPLIT: plane2.split, SPLIT16: plane2.split16}

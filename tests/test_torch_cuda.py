@@ -162,76 +162,88 @@ def test_dp_kernel_edge_geometries_match_plain(cuda, T):
 
 @pytest.mark.parametrize("T", [320, 1023])
 def test_forced_split_equals_the_one_warp_path(cuda, T):
-    """The split path forced (run_kernel's strips) over 2, 3, 4 and 8
-    warps a tile, where their strips cover T, in every format and
-    interleave and plane 2 on the int32 split kernel, and in every format
-    at interleave 1 on the 16-bit one, gives the one-warp path's
-    outputs."""
+    """The split path forced (run_kernel's strips) over 1 (the 16-bit
+    kernel only), 2, 3, 4 and 8 warps a tile, where their strips cover T,
+    in every format and interleave and plane 2 on the int32 split kernel
+    and on the 16-bit one, gives the one-warp path's outputs."""
     ref, query, rlen, qlen = _edge_tiles(T + 7, 36, T, cuda)
     kw = dict(match=2, mismatch=-3, gap_open=-4, gap_extend=-2)
     runs = 0
     for fmt in (*dp.PACKERS, "plane2"):
         want = dp.run_kernel(ref, query, rlen, qlen, fmt=fmt, interleave=1,
-                             what="test", strips=1, **kw)
-        kinds = [(il, False) for il in ((1,) if fmt == "plane2"
-                                        else dp.INTERLEAVES)]
-        kinds += [] if fmt == "plane2" else [(1, True)]
-        for il, dp16 in kinds:
-            widths = dp.SPLIT16_WIDTHS if dp16 else dp.SPLIT_WIDTHS[il]
-            for strips in (2, 3, 4, 8):
-                if T > 32 * widths[-1] * strips:
-                    continue
-                got = dp.run_kernel(ref, query, rlen, qlen, fmt=fmt,
-                                    interleave=il, what="test",
-                                    strips=strips, dp16=dp16, **kw)
-                runs += 1
-                for key in want:
-                    assert torch.equal(got[key], want[key]), (fmt, il,
-                                                              strips, dp16,
-                                                              key)
-    assert runs >= 40
+                             what="test", strips=1, **kw)[0]
+        for il in dp.INTERLEAVES:
+            for dp16 in chip_smoke._split_kinds(T, fmt, il, kw):
+                for strips in (1, 2, 3, 4, 8):
+                    try:
+                        p = dp.plan(T, fmt, il, strips=strips, dp16=dp16,
+                                    **kw)
+                    except ValueError:
+                        continue
+                    if p.kernel == dp.ONE_WARP:
+                        continue
+                    got, kernel = dp.run_kernel(
+                        ref, query, rlen, qlen, fmt=fmt, interleave=il,
+                        what="test", strips=strips, dp16=dp16, **kw)
+                    assert kernel == p.kernel
+                    runs += 1
+                    for key in want:
+                        assert torch.equal(got[key], want[key]), (
+                            fmt, il, strips, dp16, key)
+    assert runs >= 60
 
 
 def test_split_path_counts_its_launches(cuda):
     """Past the one-warp limit align_tiles and plane2 launch the split
-    path and count it apart from the one-warp kernel's counters:
-    align_tiles on align_tiles.split16 (the 16-bit kernel) where the
-    gate passes the scoring, on align_tiles.split (the int32 kernel)
-    where it does not, plane2 on plane2.split; at T = 1023 neither."""
+    path and count it apart from the one-warp kernel's counters: on
+    align_tiles.split16 / plane2.split16 (the 16-bit kernel) where the
+    gate passes the scoring and the shape, on align_tiles.split /
+    plane2.split (the int32 kernel) where it does not (a scoring outside
+    the gate; the shapes of SPLIT16_SLOWER); at T = 1023 neither."""
     at = dp.align_tiles
     outside = dict(match=40, mismatch=-30, gap_open=-64, gap_extend=-20)
-    for T, split in ((1023, 0), (1024, 1)):
+    kw = dict(match=1, mismatch=-1, gap_open=-1, gap_extend=-1)
+    for T, split in ((1023, 0), (1024, 1), (2048, 1)):
         ref, query, rlen, qlen = _edge_tiles(T, 8, T, cuda)
-        kw = dict(match=1, mismatch=-1, gap_open=-1, gap_extend=-1)
-        for scoring, on16 in ((kw, 1), (outside, 0)):
-            n = (at.launches, at.variant_launches[("packed6", 1)],
-                 at.split.launches,
-                 at.split.variant_launches[("packed6", 1)],
-                 at.split16.launches,
-                 at.split16.variant_launches[("packed6", 1)])
-            dp.align_tiles(ref, query, rlen, qlen, dir_format="packed6",
-                           **scoring)
-            s16, s32 = split * on16, split * (1 - on16)
-            assert (at.launches, at.variant_launches[("packed6", 1)],
-                    at.split.launches,
-                    at.split.variant_launches[("packed6", 1)],
-                    at.split16.launches,
-                    at.split16.variant_launches[("packed6", 1)]) == (
-                n[0] + 1 - split, n[1] + 1 - split, n[2] + s32,
-                n[3] + s32, n[4] + s16, n[5] + s16)
-        n = (plane2.plane2.launches, plane2.plane2.split.launches)
-        plane2.plane2(ref, query, rlen, qlen, **kw)
-        assert (plane2.plane2.launches, plane2.plane2.split.launches) == (
-            n[0] + 1 - split, n[1] + split)
+        for scoring in (kw, outside):
+            for fmt in ("bytes", "packed6"):
+                on16 = int(dp.plan(T, fmt, 1, **scoring).kernel == dp.SPLIT16)
+                slower = any(lo <= T <= hi for lo, hi in
+                             dp.SPLIT16_SLOWER.get((fmt, 1), ()))
+                assert on16 == int(split and scoring is kw and not slower)
+                n = (at.launches, at.variant_launches[(fmt, 1)],
+                     at.split.launches, at.split.variant_launches[(fmt, 1)],
+                     at.split16.launches,
+                     at.split16.variant_launches[(fmt, 1)])
+                dp.align_tiles(ref, query, rlen, qlen, dir_format=fmt,
+                               **scoring)
+                s16, s32 = split * on16, split * (1 - on16)
+                assert (at.launches, at.variant_launches[(fmt, 1)],
+                        at.split.launches,
+                        at.split.variant_launches[(fmt, 1)],
+                        at.split16.launches,
+                        at.split16.variant_launches[(fmt, 1)]) == (
+                    n[0] + 1 - split, n[1] + 1 - split, n[2] + s32,
+                    n[3] + s32, n[4] + s16, n[5] + s16)
+            on16 = int(split and dp.plan(T, "plane2", 1, **scoring).kernel
+                       == dp.SPLIT16)
+            n = (plane2.plane2.launches, plane2.plane2.split.launches,
+                 plane2.plane2.split16.launches)
+            plane2.plane2(ref, query, rlen, qlen, **scoring)
+            assert (plane2.plane2.launches, plane2.plane2.split.launches,
+                    plane2.plane2.split16.launches) == (
+                n[0] + 1 - split, n[1] + split * (1 - on16),
+                n[2] + on16)
 
 
 @pytest.mark.parametrize("T", [1024, 1025, 1536, 2047, dp.MAX_TILE])
 def test_dp16_kernel_matches_plain(cuda, T):
-    """The 16-bit split kernel (the gate's choice at the default scoring
-    and at (2, -3, -4, -2)) bit-exact against the plain version on edge
-    tiles in bytes, packed and packed6, on an odd batch (35: the last
-    block's second tile idles) and an even one, and the int32 split
-    kernel, forced on the same inputs, equal to both."""
+    """The 16-bit split kernel (forced, and the gate's launch, counted on
+    the kernel plan picks, at the default scoring and at (2, -3, -4, -2))
+    bit-exact against the plain version on edge tiles in bytes, packed
+    and packed6, on an odd batch (35: the last block's second tile
+    idles) and an even one, and the int32 split kernel, forced on the
+    same inputs, equal to both."""
     ref, query, rlen, qlen = _edge_tiles(T + 1, 36, T, cuda)
     for sc in ((1, -1, -1, -1), (2, -3, -4, -2)):
         kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"), sc))
@@ -243,14 +255,25 @@ def test_dp16_kernel_matches_plain(cuda, T):
             want[key] = want.pop("dir") if packer is None else packer(
                 want.pop("dir"))
             for B in (35, 36):
-                n16 = dp.align_tiles.split16.launches
+                counter = dp.COUNTERS[dp.plan(T, fmt, 1, **kw).kernel]
+                n = counter.launches
                 got = dp.align_tiles(ref[:B], query[:B], rlen[:B], qlen[:B],
                                      dir_format=fmt, **kw)
-                assert dp.align_tiles.split16.launches == n16 + 1
+                assert counter.launches == n + 1
                 for k in want:
                     assert torch.equal(got[k], want[k][:B]), (sc, fmt, B, k)
-            got = dp.run_kernel(ref, query, rlen, qlen, fmt=fmt,
-                                interleave=1, what="test", dp16=False, **kw)
+                got, kernel = dp.run_kernel(
+                    ref[:B], query[:B], rlen[:B], qlen[:B], fmt=fmt,
+                    interleave=1, what="test", dp16=True, **kw)
+                assert kernel == dp.SPLIT16
+                got[key] = got.pop("dir")
+                for k in want:
+                    assert torch.equal(got[k], want[k][:B]), (sc, fmt, B,
+                                                              "16-bit", k)
+            got, kernel = dp.run_kernel(ref, query, rlen, qlen, fmt=fmt,
+                                        interleave=1, what="test",
+                                        dp16=False, **kw)
+            assert kernel == dp.SPLIT
             got[key] = got.pop("dir")
             for k in want:
                 assert torch.equal(got[k], want[k]), (sc, fmt, "int32", k)
@@ -287,9 +310,9 @@ def test_dp_kernel_warps_a_block_give_the_same_result(cuda, warps):
     kw = dict(match=1, mismatch=-1, gap_open=-1, gap_extend=-1)
     for fmt, il in (("bytes", 1), ("packed6", 2), ("plane2", 1)):
         want = dp.run_kernel(ref, query, rlen, qlen, fmt=fmt, interleave=il,
-                             what="test", **kw)
+                             what="test", **kw)[0]
         got = dp.run_kernel(ref, query, rlen, qlen, fmt=fmt, interleave=il,
-                            what="test", warps=warps, **kw)
+                            what="test", warps=warps, **kw)[0]
         for key in want:
             assert torch.equal(got[key], want[key]), (fmt, il, key)
 

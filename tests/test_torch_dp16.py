@@ -18,11 +18,14 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from darwin_tpu.ops import pallas_dp
-from darwin_tpu_torch.ops import dp
+from darwin_tpu_torch import _build
+from darwin_tpu_torch.ops import dp, plane2
 
 DEFAULT = dict(match=1, mismatch=-1, gap_open=-1, gap_extend=-1)
+OUTSIDE16 = dict(match=40, mismatch=-30, gap_open=-64, gap_extend=-20)
 KEYS = ("match", "mismatch", "gap_open", "gap_extend")
 
 
@@ -106,23 +109,132 @@ def test_gate_at_its_edges(T, sc, ok):
     (2047, 4, 16), (2048, 4, 16)])
 def test_dispatch_inside_the_gate(T, strips, width):
     """At the default scoring every split tile size goes to the 16-bit
-    kernel in each format at interleave 1 (counted on
-    align_tiles.split16), at the warps a tile and columns a lane
-    strips_for and check_strips pick for it (two warps up to 1536, four
-    past it); interleaved and plane 2 launches stay on the int32 split
-    kernel."""
+    kernel in each format and plane 2 at interleave 1 and in each format
+    at 2 and 4 (counted on align_tiles.split16), bytes at the warps a
+    tile and columns a lane strips_for and check_strips pick for it (two
+    warps up to 1536, four past it), the same at every interleave (one
+    kernel, a pair of tiles a lane); SPLIT16_SLOWER is where the gate
+    keeps a shape on the int32 kernel instead."""
     assert dp.strips_for(T, 1, dp16=True) == strips
     assert dp.check_strips(T, 1, strips, "test", dp16=True) == width
     for fmt in dp.SPLIT16_FORMATS:
-        assert dp.takes_int16(T, fmt, 1, dp.strips_for(T, 1), **DEFAULT)
-        assert dp.kernel_counter(T, fmt, 1, **DEFAULT) is \
-            dp.align_tiles.split16
-    assert not dp.takes_int16(T, "plane2", 1, strips, **DEFAULT)
-    for il in (2, 4):
-        assert not dp.takes_int16(T, "bytes", il, dp.strips_for(T, il),
-                                  **DEFAULT)
-        assert dp.kernel_counter(T, "bytes", il, **DEFAULT) is \
-            dp.align_tiles.split
+        for il in (1,) if fmt == "plane2" else dp.INTERLEAVES:
+            slower = any(lo <= T <= hi for lo, hi in
+                         dp.SPLIT16_SLOWER.get((fmt, il), ()))
+            assert dp.takes_int16(T, fmt, il, dp.strips_for(T, il),
+                                  **DEFAULT) is not slower
+            p = dp.plan(T, fmt, il, **DEFAULT)
+            assert p.kernel == (dp.SPLIT if slower else dp.SPLIT16)
+            if fmt != "plane2":
+                assert dp.kernel_counter(T, fmt, il, **DEFAULT) is (
+                    dp.align_tiles.split if slower
+                    else dp.align_tiles.split16)
+            if p.kernel == dp.SPLIT16:
+                assert p == dp.plan(T, fmt, 1, dp16=True, **DEFAULT)
+    assert not dp.runs_int16(T, "plane2", 2, **DEFAULT)
+
+
+@pytest.mark.parametrize("T,sc,ok", [
+    (2048, (9, -9, -9, -9), True), (2048, (10, -1, -1, -1), False),
+    (1997, (10, -1, -1, -1), True), (1998, (10, -1, -1, -1), False),
+    (385, (51, -1, -1, -1), True), (385, (52, -1, -1, -1), False),
+    (512, (4, -1, 4, 1), True), (2048, (5, -1, 5, 1), False)])
+def test_gate_at_its_edges_interleaved_and_plane2(T, sc, ok):
+    """At interleave 2 and 4 and for plane 2 the gate is fits_int16 at
+    its edges, as at interleave 1: inside it the 16-bit kernel (where
+    SPLIT16_SLOWER does not keep the int32 one), one step past it the
+    int32 split kernel; plane 2 only
+    past the one-warp sizes of interleave 1."""
+    kw = _scoring(sc)
+    assert dp.fits_int16(T, **kw) is ok
+    for fmt, il in (("bytes", 2), ("packed6", 4), ("packed", 4),
+                    ("plane2", 1)):
+        split = T > dp.ONE_WARP_TILE[il]
+        slower = any(lo <= T <= hi for lo, hi in
+                     dp.SPLIT16_SLOWER.get((fmt, il), ()))
+        p = dp.plan(T, fmt, il, **kw)
+        assert dp.runs_int16(T, fmt, il, **kw) is ok
+        assert dp.takes_int16(T, fmt, il, dp.strips_for(T, il), **kw) is (
+            ok and split and not slower)
+        assert p.kernel == (dp.ONE_WARP if not split else
+                            dp.SPLIT16 if ok and not slower else dp.SPLIT)
+
+
+def test_forced_16bit_outside_the_gate_raises():
+    """Forcing the 16-bit kernel (dp16=True) raises outside runs_int16: a
+    scoring past the gate, plane 2 interleaved; dp16=False never reaches
+    it; a forced width must be one the kernel instantiates."""
+    for T in (385, 1024, 2048):
+        for fmt, il in (("bytes", 1), ("packed6", 2), ("bytes", 4)):
+            with pytest.raises(ValueError, match="16-bit"):
+                dp.plan(T, fmt, il, dp16=True, **OUTSIDE16)
+            assert dp.plan(T, fmt, il, dp16=False, **OUTSIDE16).kernel in (
+                dp.ONE_WARP, dp.SPLIT)
+    with pytest.raises(ValueError, match="16-bit"):
+        dp.plan(1024, "plane2", 2, dp16=True, **DEFAULT)
+    with pytest.raises(ValueError, match="width"):
+        dp.plan(1024, "bytes", 1, dp16=True, width=8, **DEFAULT)
+    with pytest.raises(ValueError, match="width"):
+        dp.plan(1024, "packed6", 1, dp16=True, width=24, **DEFAULT)
+    assert dp.plan(1024, "bytes", 1, dp16=True, width=24,
+                   **DEFAULT) == (dp.SPLIT16, 2, 24)
+
+
+@pytest.fixture
+def meta_launches(monkeypatch):
+    """run_kernel on meta tensors: the device check passes them and
+    _build.launch records (entry, arguments) instead of calling the
+    library, so the dispatch and the counting run as on the card."""
+    calls = []
+    monkeypatch.setattr(_build, "require_cuda", lambda t, what: t.device)
+    monkeypatch.setattr(_build, "launch",
+                        lambda entry, dev, *args: calls.append((entry,
+                                                                args)))
+    return calls
+
+
+@pytest.mark.parametrize("T", [385, 512, 1023, 1024, 2048])
+@pytest.mark.parametrize("sc", [(1, -1, -1, -1), (9, -9, -9, -9),
+                                (10, -1, -1, -1), (40, -30, -64, -20)])
+def test_counter_names_the_kernel_launched(meta_launches, T, sc):
+    """Over (T, format, interleave, scoring): align_tiles and plane2
+    count each launch on the counter of the kernel run_kernel reports,
+    which is the C entry it called (dtt_align_tiles16: the 16-bit split
+    kernel; dtt_align_tiles over one warp a tile: the one-warp kernel,
+    over more: the int32 split kernel) and plan's choice: never another
+    counter."""
+    kw = _scoring(sc)
+    B = 8
+    args = ([torch.empty((B, T), dtype=torch.uint8, device="meta")] * 2
+            + [torch.empty(B, dtype=torch.int32, device="meta")] * 2)
+    seen = set()
+    for fmt in (*dp.PACKERS, "plane2"):
+        for il in (1,) if fmt == "plane2" else dp.INTERLEAVES:
+            counters = plane2.COUNTERS if fmt == "plane2" else dp.COUNTERS
+            before = {k: c.launches for k, c in counters.items()}
+            meta_launches.clear()
+            if fmt == "plane2":
+                plane2.plane2(*args, **kw)
+            else:
+                n = dp.align_tiles.split16.variant_launches[(fmt, il)]
+                dp.align_tiles(*args, dir_format=fmt, interleave=il, **kw)
+            ((entry, a),) = meta_launches
+            kernel = (dp.SPLIT16 if entry == "dtt_align_tiles16" else
+                      dp.ONE_WARP if a[13] == 1 else dp.SPLIT)
+            moved = {k for k, c in counters.items()
+                     if c.launches != before[k]}
+            assert moved == {kernel}, (fmt, il)
+            assert counters[kernel].launches == before[kernel] + 1
+            assert kernel == dp.plan(T, fmt, il, **kw).kernel, (fmt, il)
+            if fmt != "plane2":
+                assert dp.kernel_counter(T, fmt, il, **kw) is \
+                    counters[kernel]
+                assert dp.align_tiles.split16.variant_launches[
+                    (fmt, il)] == n + (kernel == dp.SPLIT16)
+            seen.add(kernel)
+    inside = dp.fits_int16(T, **kw)
+    assert (dp.SPLIT16 in seen) is inside
+    assert (dp.ONE_WARP in seen) is (T <= dp.ONE_WARP_TILE[1])
 
 
 @pytest.mark.parametrize("T", [1024, 1025, 1536, 2047, 2048])
@@ -224,10 +336,71 @@ def test_sass_row_body_counts_a_synthetic_listing():
 
 def test_split_sweep_runs_on_the_cpu(capsys):
     """The lab's split sweep on the CPU runs each config's plain version
-    once (the card times both kernels at each warps a tile)."""
+    once, at every interleave it is asked for and in plane 2 (the card
+    times both kernels at each warps a tile, width and emitter)."""
     from darwin_tpu_torch.lab import split_sweep
 
     assert split_sweep.main(["--device", "cpu", "--tiles", "24",
-                             "--batches", "4", "--strips", "2"]) == 0
+                             "--batches", "4", "--strips", "2",
+                             "--formats", "bytes,plane2",
+                             "--interleave", "1,2,4"]) == 0
     out = capsys.readouterr().out
-    assert "B=4 T=24 bytes plain" in out and "2/2 runs exact" in out
+    for line in ("B=4 T=24 bytes il=1 plain", "B=4 T=24 bytes il=4 plain",
+                 "B=4 T=24 plane2 il=1 plain", "4/4 runs exact"):
+        assert line in out
+    assert "plane2 il=2" not in out
+
+
+def test_split_sweep_times_every_instantiated_launch():
+    """The launches the sweep times on the card at T = 1024: the int32
+    kernel at each S from 2 and each width covering T, the 16-bit one at
+    each S from 1 and each width it instantiates (24 in bytes alone) whose
+    shared memory fits a block (not C = 24 over eight warps), every one of
+    them a launch plan accepts."""
+    from darwin_tpu_torch.lab import split_sweep
+
+    got = split_sweep.variants(1024, "packed6", 1, (1, 2, 3, 4))
+    assert ("int32", False, 2, 16) in got and ("int32", False, 3, 12) in got
+    assert all(not (k == "int32" and S == 1) for k, _, S, _ in got)
+    assert {(S, C) for k, _, S, C in got if k == "int16"} == {
+        (2, 16), (3, 16), (4, 16)}
+    assert ("int16", True, 2, 24) in split_sweep.variants(
+        1024, "bytes", 1, (2,))
+    il4 = split_sweep.variants(1024, "bytes", 4, (2, 4, 8))
+    assert [(k, S, C) for k, _, S, C in il4 if k != "int32"] == [
+        ("int16", 2, 16), ("int16", 2, 24), ("int16", 4, 16),
+        ("int16", 4, 24), ("int16", 8, 16)]
+    p2 = split_sweep.variants(1024, "plane2", 1, (2, 4))
+    assert [(k, S, C) for k, _, S, C in p2 if k == "int16"] == [
+        ("int16", 2, 16), ("int16", 4, 16)]
+    for fmt, il, rows in (("packed6", 1, got), ("bytes", 4, il4),
+                          ("plane2", 1, p2)):
+        for _, dp16, S, C in rows:
+            assert dp.plan(1024, fmt, il, strips=S, dp16=dp16, width=C,
+                           **DEFAULT).width == C
+
+
+def test_split_smem_matches_the_kernels_budgets():
+    """split_smem follows the kernels' formulas: the int32 kernel at four
+    tiles a block in packed6 at T = 2048 over eight warps of C = 8 takes
+    208,384 bytes (csrc/dp.cu split_smem), the 16-bit one in bytes at C =
+    24 over eight warps passes the card's 227 KB, so plan refuses it, and
+    over four warps it fits."""
+    assert dp.split_smem(dp.SPLIT, "packed6", 4, 8, 8, 2048) == 208384
+    assert dp.split_smem(dp.SPLIT16, "bytes", 1, 8, 24, 1024) > dp.MAX_SMEM
+    with pytest.raises(ValueError, match="shared memory"):
+        dp.plan(1024, "bytes", 1, dp16=True, strips=8, width=24, **DEFAULT)
+    assert dp.plan(1024, "bytes", 1, dp16=True, strips=4, width=24,
+                   **DEFAULT) == dp.Plan(dp.SPLIT16, 4, 24)
+
+
+@pytest.mark.parametrize("sc", [(1, -1, -1, -1), (40, -30, -64, -20)])
+def test_every_default_plan_fits_shared_memory(sc):
+    """Every launch the gate makes by default, at every tile size up to
+    MAX_TILE in every format and interleave, fits a block's shared memory
+    (plan raises otherwise)."""
+    kw = _scoring(sc)
+    for T in range(1, dp.MAX_TILE + 1):
+        for fmt in dp.SPLIT16_FORMATS:
+            for il in (1,) if fmt == "plane2" else dp.INTERLEAVES:
+                dp.plan(T, fmt, il, **kw)

@@ -28,10 +28,20 @@ def test_every_dp_variant_and_main_kernel_is_listed():
     assert set(chip_smoke.DP_VARIANTS.values()) <= names
     assert set(chip_smoke.SPLIT_VARIANTS.values()) <= names
     assert set(chip_smoke.SPLIT16_VARIANTS.values()) <= names
-    for name in chip_smoke.SPLIT16_VARIANTS.values():
-        assert chip_smoke.KERNELS[name][1] == "darwin_tpu/ops/pallas_dp.py:523"
-    for kernels in chip_smoke.SPLIT_ECOLI_RUNS.values():
-        assert set(kernels) <= names
+    # The 16-bit split kernel at every interleave, and its plane-2 form:
+    # interleave 1 replaces the one-stream pallas_call, 2 and 4 the stream
+    # kernel's, plane 2 the probe's.
+    for (fmt, il), name in chip_smoke.SPLIT16_VARIANTS.items():
+        assert chip_smoke.KERNELS[name][:2] == (
+            "darwin_tpu_torch/csrc/dp16.cu",
+            "darwin_tpu/ops/pallas_dp.py:" + ("523" if il == 1 else "493"))
+    assert {"align_tiles[bytes,il=2,split16]",
+            "align_tiles[packed6,il=4,split16]"} <= names
+    for name in (chip_smoke.PLANE2_SPLIT16, chip_smoke.PLANE2_SPLIT):
+        assert chip_smoke.KERNELS[name][1] == "tools/plane2_probe.py:209"
+    for tag in chip_smoke.SPLIT_ECOLI_RUNS:
+        for T in chip_smoke.SPLIT_ECOLI:
+            assert set(chip_smoke.split_ecoli_kernels(tag, T)) <= names
     assert {"traceback", "traceback_packed", "traceback_packed6",
             "fetch_tiles", "local_score_batch", "plane2", "scanshift_shfl",
             "scanshift_smem", "dsoft_device", "dsoft_shard_scan",

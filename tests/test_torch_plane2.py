@@ -60,6 +60,21 @@ def test_emit_sinks_match_probe(probe):
     assert got["packed6+plane2"][1] == calls[1][2]
 
 
+def test_emit_runs_at_a_split_tile_size(capsys):
+    """The emit probe at T = 1025, past the one-warp DP (on the card the
+    split kernels, here the plain version): its sinks are the tool's sink
+    definitions on the plain plane-2 output of the same inputs."""
+    Ts, Bs = 1025, 2
+    got = lab.probe_emit(Ts, torch.device("cpu"), Bs, 1, reps=1)
+    refs, queries = (torch.from_numpy(x[0]) for x in
+                     related_batches(1, Bs, Ts))
+    lens = torch.full((Bs,), Ts, dtype=torch.int32)
+    out = plane2.plane2_torch(refs, queries, lens, lens, **SCORING)
+    assert got["packed6 base"][1] == lab.sum32(lab.base_sink(out))
+    assert got["packed6+plane2"][1] == lab.sum32(lab.plane2_sink(out))
+    assert "T=1025" in capsys.readouterr().out
+
+
 def test_plane2_planes_match_probe_kernel(probe, monkeypatch):
     """Both planes and the stats of the probe's kernel2, step by step,
     against the port: the second plane's definition is confirmed on the

@@ -1,11 +1,12 @@
 """Instructions a DP cell of the split kernels, read from their SASS.
 
 Disassembles the port's kernel library (``cuobjdump -sass``) and, for
-each split-path instantiation of csrc/dp.cu named on the command line
-(default: the int32 split kernel and the 16-bit one at C = 16 in bytes
-and packed6), finds the row body: the longest straight-line block (no
-branch, barrier, warp sync or exit between its ends) that holds the
-cell recurrence's DPX instructions.  It prints the block's
+each split-path instantiation of csrc/dp.cu and csrc/dp16.cu named on
+the command line (default: the int32 split kernel and the 16-bit one at
+C = 16 in bytes and packed6, and the 16-bit one in plane 2), finds the
+row body: the longest straight-line block (no branch, barrier, warp
+sync or exit between its ends) that holds the cell recurrence's DPX
+instructions.  It prints the block's
 instructions, the cells it computes (C a lane-row for the int32 kernel,
 2C for the 16-bit one: a cell of each tile), their quotient, the
 opcodes most used, and the kernel's registers and spills from the
@@ -30,9 +31,9 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-FORMATS = {"bytes": 0, "packed": 1, "packed6": 2}
+FORMATS = {"bytes": 0, "packed": 1, "packed6": 2, "plane2": 3}
 DEFAULT = ("split:16:bytes", "split:16:packed6", "split16:16:bytes",
-           "split16:16:packed6")
+           "split16:16:packed6", "split16:16:plane2")
 # Opcodes that end a straight-line block.
 CONTROL = re.compile(r"^(BRA|BRX|JMP|JMX|CALL|RET|EXIT|BSSY|BSYNC|WARPSYNC"
                      r"|BAR|BPT|NANOSLEEP|YIELD)\b")
