@@ -22,10 +22,10 @@ tensors:
 
 Where the JAX engine is one lax.while_loop, this one is a Python loop
 that launches the same steps eagerly.  Its only host syncs are the
-stop check, once per iteration (one read of calls_done, next_ci and
-the active slot count together), and the final download.  The JAX
-engine's compile prewarm and bank-size buckets exist for XLA compiles
-and are not carried over.
+stop check, once per iteration (one read of calls_done, next_ci, the
+active slot count and the record count together), and the final
+download.  The JAX engine's compile prewarm and bank-size buckets exist
+for XLA compiles and are not carried over.
 
 The two-tier drain is the JAX engine's: the per-call state is one
 [N, 16] int32 matrix in its CSTATE column layout (fresh_state), which
@@ -43,10 +43,22 @@ engine's drain_enabled: (True, True) its auto, (True, False) its
 ShardedGactEngine runs one DeviceGactEngine a mesh entry (banks
 replicated on each), the calls placed by balance_calls, the entries'
 loops run in turn (parallel/collectives.on_each).
+
+A run's host time is kept beside last_iters, in last_spans
+(darwin_tpu_torch.spans keys; run_device_merged adds them to its
+metrics): engine_prepare_s (the call arrays, the drain gate's
+simulation and the start state; the second tier's state download),
+engine_enqueue_s (the loops' host time outside the stop check's wait:
+the per-call tables' upload, the launches, the drain's state export),
+engine_wait_s (blocked in the stop check), engine_records_s (the record
+table's download and its OverlapRecords) and engine_slot_iters (slots
+times iterations, both tiers).  The loop's two are timers only, never
+profiler ranges (spans.py says why).
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -61,6 +73,7 @@ from darwin_tpu_torch.ops.dp import align_tiles, check_tile_size
 from darwin_tpu_torch.ops.tile_fetch import fetch_tile_pair
 from darwin_tpu_torch.ops.traceback import WALKERS
 from darwin_tpu_torch.parallel.collectives import on_each
+from darwin_tpu_torch.spans import merge, span
 from darwin_tpu_torch.utils import bucket_steps
 
 I32 = torch.int32
@@ -134,16 +147,18 @@ _INT_COLS = {"rpos", "qpos", "rbpos", "qbpos", "score", "nmat", "ncol"}
 
 
 class LoopOut(NamedTuple):
-    """What one slot loop leaves: the record table and its count (on
-    the device), the iterations and active slot-iterations it ran,
-    calls_done (host ints), and the final [N, 16] state matrix on the
-    device where the drain stopped the loop early (else None)."""
+    """What one slot loop leaves: the record table (on the device),
+    its record count, the iterations and active slot-iterations it ran,
+    calls_done (host ints), the final [N, 16] state matrix on the
+    device where the drain stopped the loop early (else None), and its
+    spans (engine_enqueue_s, engine_wait_s, engine_slot_iters)."""
     records: torch.Tensor
-    nrec: torch.Tensor
+    nrec: int
     iters: int
     act_sum: int
     calls_done: int
     state: torch.Tensor | None
+    spans: dict
 
 
 def fresh_state(ref_pos, query_pos) -> np.ndarray:
@@ -239,6 +254,7 @@ class DeviceGactEngine:
         self.last_iters = 0
         self.last_active_sum = 0
         self.last_drain_redispatches = 0
+        self.last_spans: dict = {}
         # The gate's (tail, total) of the last run, None where it was
         # not evaluated.
         self.last_drain_gate = None
@@ -267,17 +283,18 @@ class DeviceGactEngine:
         N = len(calls)
         if N == 0:
             return None
-        rid = calls.ref_id.astype(np.int64)
-        qid = calls.query_id.astype(np.int64)
-        bid = qid if bank_ids is None else np.asarray(bank_ids,
-                                                     dtype=np.int64)
-        comp = np.broadcast_to(np.asarray(complement, dtype=np.int64),
-                               (N,))
-        meta = (rid, qid, bid, comp)
-        B = self.slots(N)
-        return meta, self._loop(meta, fresh_state(calls.ref_pos,
-                                                  calls.query_pos),
-                                self.drain_threshold(bid, B))
+        spans: dict = {}
+        with span(spans, "engine_prepare"):
+            rid = calls.ref_id.astype(np.int64)
+            qid = calls.query_id.astype(np.int64)
+            bid = qid if bank_ids is None else np.asarray(bank_ids,
+                                                         dtype=np.int64)
+            comp = np.broadcast_to(np.asarray(complement, dtype=np.int64),
+                                   (N,))
+            meta = (rid, qid, bid, comp)
+            cstate = fresh_state(calls.ref_pos, calls.query_pos)
+            drain = self.drain_threshold(bid, self.slots(N))
+        return meta, self._loop(meta, cstate, drain), spans
 
     def drain_threshold(self, bid: np.ndarray, B: int) -> int:
         """The first tier's drain: the loop stops once every call is
@@ -300,34 +317,45 @@ class DeviceGactEngine:
         drain stopped the loop early, resume the unfinished calls
         (done == 0, in index order) from the exported state in a loop
         of slots(n_undone) slots that runs to completion; its records
-        follow the first tier's."""
+        follow the first tier's.  Sets last_iters, last_active_sum,
+        last_drain_redispatches and last_spans to the run's."""
+        self.last_iters = self.last_active_sum = 0
         self.last_drain_redispatches = 0
+        self.last_spans = {}
         if handle is None:
             return []
-        meta, out = handle
-        recs = self._records(out)
-        self.last_iters, self.last_active_sum = out.iters, out.act_sum
+        meta, out, self.last_spans = handle
+        recs = self._tally(out)
         if out.calls_done < len(meta[0]):
-            state = out.state.cpu().numpy()
-            idx = np.flatnonzero(state[:, DONE] == 0)
-            out = self._loop(tuple(m[idx] for m in meta), state[idx], 0)
-            recs += self._records(out)
-            self.last_iters += out.iters
-            self.last_active_sum += out.act_sum
+            with span(self.last_spans, "engine_prepare"):
+                state = out.state.cpu().numpy()
+                idx = np.flatnonzero(state[:, DONE] == 0)
+            recs += self._tally(self._loop(tuple(m[idx] for m in meta),
+                                           state[idx], 0))
             self.last_drain_redispatches = 1
         return recs
+
+    def _tally(self, out: LoopOut) -> list[OverlapRecord]:
+        """A loop's records; its counts and spans added to the run's."""
+        self.last_iters += out.iters
+        self.last_active_sum += out.act_sum
+        merge(self.last_spans, out.spans)
+        with span(self.last_spans, "engine_records"):
+            return self._records(out)
 
     @staticmethod
     def _records(out: LoopOut) -> list[OverlapRecord]:
         return [OverlapRecord(*(int(x) for x in row[:7]), bool(row[7]),
                               int(row[8]), int(row[9]))
-                for row in out.records[:int(out.nrec)].cpu().numpy()]
+                for row in out.records[:out.nrec].cpu().numpy()]
 
     def _loop(self, meta, cstate: np.ndarray, drain: int) -> LoopOut:
         """The slot loop over the calls of meta (rid, qid, bid, comp),
         started from cstate ([N, 16], CSTATE_COLS); stops when every
         call is done or, with drain > 0, once every call is issued and
         fewer than drain slots are active."""
+        t_start = time.perf_counter()
+        wait = 0.0
         rid, qid, bid, comp = meta
         dev = self.device
         N = len(rid)
@@ -373,7 +401,8 @@ class DeviceGactEngine:
         iters = 0
         # The stop check's host copies: calls done, next call to issue,
         # slots active after the refill (darwin_tpu's loop condition).
-        n_done, n_next, n_active, n_act_sum = 0, min(B, N), min(B, N), 0
+        n_done, n_next, n_active, n_act_sum, n_rec = (0, min(B, N),
+                                                      min(B, N), 0, 0)
 
         def at(mask, ci):
             return torch.where(mask, ci, DUMP)
@@ -518,12 +547,16 @@ class DeviceGactEngine:
             iters += 1
             active = act2.sum()
             act_sum = act_sum + active
-            n_done, n_next, n_active, n_act_sum = torch.stack(
-                [calls_done, next_ci, active, act_sum]).tolist()
+            stop = torch.stack([calls_done, next_ci, active, act_sum, nrec])
+            t = time.perf_counter()
+            n_done, n_next, n_active, n_act_sum, n_rec = stop.tolist()
+            wait += time.perf_counter() - t
         state = None
         if n_done < N:
             state = torch.stack([c[:N].to(I32) for c in cols], dim=1)
-        return LoopOut(records, nrec, iters, n_act_sum, n_done, state)
+        return LoopOut(records, n_rec, iters, n_act_sum, n_done, state, {
+            "engine_enqueue_s": time.perf_counter() - t_start - wait,
+            "engine_wait_s": wait, "engine_slot_iters": B * iters})
 
 
 def balance_calls(costs: np.ndarray, nd: int) -> list[np.ndarray]:
@@ -583,6 +616,7 @@ class ShardedGactEngine:
         self.last_iters = 0
         self.last_active_sum = 0
         self.last_drain_redispatches = 0
+        self.last_spans: dict = {}
 
     def run(self, calls: GactCalls, complement) -> list[OverlapRecord]:
         return self.finish(self.run_async(calls, complement))
@@ -611,14 +645,16 @@ class ShardedGactEngine:
 
     def finish(self, handle) -> list[OverlapRecord]:
         """The records of a run_async handle, mesh entry by mesh entry;
-        last_iters and last_active_sum are the entries' sums."""
+        last_iters, last_active_sum and last_spans are the entries'
+        sums."""
+        self.last_iters = self.last_active_sum = 0
+        self.last_spans = {}
         if handle is None:
             return []
         out = []
-        self.last_iters = self.last_active_sum = 0
         for eng, h in zip(self.engines, handle):
-            eng.last_iters = eng.last_active_sum = 0
             out += eng.finish(h)
             self.last_iters += eng.last_iters
             self.last_active_sum += eng.last_active_sum
+            merge(self.last_spans, eng.last_spans)
         return out

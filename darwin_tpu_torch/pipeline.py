@@ -21,7 +21,6 @@ sharded over the mesh (dsoft/sharded_table.py).
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -40,6 +39,7 @@ from darwin_tpu_torch.golden.gact import format_record
 from darwin_tpu_torch.index.genome import Genome
 from darwin_tpu_torch.index.seed_table import SeedTable
 from darwin_tpu_torch.io.fasta import FastaRecord, revcomp
+from darwin_tpu_torch.spans import count, merge, span
 
 
 @dataclasses.dataclass
@@ -156,16 +156,13 @@ def collect_calls_device(table: SeedTable, genome: Genome, queries: SeqBank,
               max_candidates=params.max_candidates, tup_max=tup_max,
               cand_max=cand_max, index=index)
     Q, lens = pad_reads(queries, ids)
-    t0 = time.perf_counter()
-    if mesh is None:
-        device = torch.device(device)
-        th, tpos, tl_steps = _index_on(table, index, device)
-    else:
-        th, tpos, tl_steps = zip(*(_index_on(table, index, d)
-                                   for d in mesh.devices))
-    if metrics is not None:
-        metrics["dsoft_index_s"] = (metrics.get("dsoft_index_s", 0.0)
-                                    + time.perf_counter() - t0)
+    with span(metrics, "dsoft_index", ranged=False):
+        if mesh is None:
+            device = torch.device(device)
+            th, tpos, tl_steps = _index_on(table, index, device)
+        else:
+            th, tpos, tl_steps = zip(*(_index_on(table, index, d)
+                                       for d in mesh.devices))
     if mesh is None:
         out = dsoft_device_batch(
             torch.from_numpy(Q).to(device), torch.from_numpy(lens).to(device),
@@ -186,9 +183,7 @@ def _decode_calls(table, genome, queries, params, ids, out,
     read takes the exact host D-SOFT and is counted in
     metrics["dsoft_overflow_reads"]."""
     hits, offs, counts, over = (x[:len(ids)].cpu().numpy() for x in out)
-    if metrics is not None:
-        metrics["dsoft_overflow_reads"] = (
-            metrics.get("dsoft_overflow_reads", 0) + int(over.sum()))
+    count(metrics, "dsoft_overflow_reads", int(over.sum()))
     h_all, o_all, q_all = [], [], []
     for r in np.flatnonzero(over | (counts > 0)):
         k = ids[r]
@@ -324,9 +319,11 @@ def run_device_merged(genome: Genome, table: SeedTable,
 
     Returns (records, [n_fwd_candidates, n_rev_candidates]).  With
     metrics, adds seed_s, align_s, engine_iters, engine_active_sum
-    (slot-iterations with a call in flight) and drain_redispatches (the
-    engine's second tiers) to it, and with the device D-SOFT
-    dsoft_overflow_reads.
+    (slot-iterations with a call in flight), drain_redispatches (the
+    engine's second tiers) and the engine's spans (its last_spans:
+    engine_prepare_s, engine_enqueue_s, engine_wait_s and
+    engine_records_s inside align_s, engine_slot_iters) to it, and with
+    the device D-SOFT dsoft_overflow_reads.
     """
     if prebuilt is not None:
         dev, merged, num_reads = prebuilt
@@ -340,24 +337,19 @@ def run_device_merged(genome: Genome, table: SeedTable,
     else:
         ids = np.asarray(list(read_ids), dtype=np.int64)
         merged_ids = np.concatenate([ids, ids + num_reads])
-    t0 = time.perf_counter()
-    calls_m = _seed(table, genome, merged, params, merged_ids, dsoft,
-                    num_threads, dev.device, metrics)
-    t1 = time.perf_counter()
-    comp = (calls_m.query_id >= num_reads).astype(np.int32)
-    counts = [int((comp == 0).sum()), int((comp == 1).sum())]
-    calls = GactCalls(calls_m.ref_id, calls_m.query_id % num_reads,
-                      calls_m.ref_pos, calls_m.query_pos)
-    dev.last_iters = dev.last_active_sum = dev.last_drain_redispatches = 0
-    recs = dev.finish(dev.run_async(calls, comp, calls_m.query_id))
-    if metrics is not None:
-        metrics["seed_s"] = metrics.get("seed_s", 0.0) + t1 - t0
-        metrics["align_s"] = (metrics.get("align_s", 0.0)
-                              + time.perf_counter() - t1)
-        for key, n in (("engine_iters", dev.last_iters),
-                       ("engine_active_sum", dev.last_active_sum),
-                       ("drain_redispatches", dev.last_drain_redispatches)):
-            metrics[key] = metrics.get(key, 0) + n
+    with span(metrics, "seed", ranged=dsoft == "host"):
+        calls_m = _seed(table, genome, merged, params, merged_ids, dsoft,
+                        num_threads, dev.device, metrics)
+    with span(metrics, "align", ranged=False):
+        comp = (calls_m.query_id >= num_reads).astype(np.int32)
+        counts = [int((comp == 0).sum()), int((comp == 1).sum())]
+        calls = GactCalls(calls_m.ref_id, calls_m.query_id % num_reads,
+                          calls_m.ref_pos, calls_m.query_pos)
+        recs = dev.finish(dev.run_async(calls, comp, calls_m.query_id))
+    merge(metrics, {"engine_iters": dev.last_iters,
+                    "engine_active_sum": dev.last_active_sum,
+                    "drain_redispatches": dev.last_drain_redispatches,
+                    **dev.last_spans})
     return recs, counts
 
 
@@ -402,23 +394,19 @@ def run_host(genome: Genome, table: SeedTable, fwd_bank: SeqBank,
                      params.gap_extend)
     recs, counts = [], []
     for comp, bank in ((False, fwd_bank), (True, rev_bank)):
-        t0 = time.perf_counter()
-        calls = _seed(table, genome, bank, params, read_ids, dsoft,
-                      num_threads, aligner.device, metrics)
-        t1 = time.perf_counter()
+        with span(metrics, "seed", ranged=dsoft == "host"):
+            calls = _seed(table, genome, bank, params, read_ids, dsoft,
+                          num_threads, aligner.device, metrics)
         counts.append(len(calls))
         iters = aligner.calls
-        recs.extend(run_gact_batch(
-            genome, bank, calls, tile_size=params.tile_size,
-            first_tile_score_threshold=params.first_tile_score_threshold,
-            sp=sp, complement=comp, same_file=same_file, aligner=aligner,
-            batch_size=batch_size, compute_score=compute_score))
-        if metrics is not None:
-            metrics["seed_s"] = metrics.get("seed_s", 0.0) + t1 - t0
-            metrics["align_s"] = (metrics.get("align_s", 0.0)
-                                  + time.perf_counter() - t1)
-            metrics["engine_iters"] = (metrics.get("engine_iters", 0)
-                                       + aligner.calls - iters)
+        with span(metrics, "align", ranged=False):
+            recs.extend(run_gact_batch(
+                genome, bank, calls, tile_size=params.tile_size,
+                first_tile_score_threshold=params.first_tile_score_threshold,
+                sp=sp, complement=comp, same_file=same_file,
+                aligner=aligner, batch_size=batch_size,
+                compute_score=compute_score))
+        count(metrics, "engine_iters", aligner.calls - iters)
     return recs, counts
 
 
@@ -450,37 +438,34 @@ def run_pipeline(ref_records: list[FastaRecord],
 
     The engine (or the host engine's aligner) is built before the seed
     table, so that a tile size the device cannot take fails first.  With
-    metrics, adds darwin_tpu.pipeline.run_pipeline's genome_banks_s,
-    engine_build_s, table_s and format_s to what the engine adds."""
+    metrics, adds darwin_tpu.pipeline.run_pipeline's genome_banks_s
+    (genome_s and read_banks_s inside it), engine_build_s, table_s and
+    format_s to what the engine adds."""
     if engine not in ("device", "host"):
         raise ValueError(f"engine {engine!r}: device or host")
-    t0 = time.perf_counter()
-    genome = Genome(ref_records, params.bin_size)
-    fwd_bank, rev_bank = read_banks(read_records)
-    t1 = time.perf_counter()
+    with span(metrics, "genome_banks"):
+        with span(metrics, "genome"):
+            genome = Genome(ref_records, params.bin_size)
+        with span(metrics, "read_banks"):
+            fwd_bank, rev_bank = read_banks(read_records)
     kw = dict(same_file=same_file, batch_size=batch_size,
               compute_score=compute_score, dsoft=dsoft, metrics=metrics)
-    if engine == "device":
-        built = dict(prebuilt=make_merged_engine(
-            genome, fwd_bank, rev_bank, params, same_file=same_file,
-            batch_size=batch_size, compute_score=compute_score,
-            device=device))
-    else:
-        built = dict(aligner=make_aligner(params, device))
-    t2 = time.perf_counter()
-    if table is None:
-        table = SeedTable.build(genome.concat, params.seed_size,
-                                params.seed_occurence_multiple,
-                                params.bin_size, params.window_size)
-    t3 = time.perf_counter()
-    if metrics is not None:
-        metrics.update(genome_banks_s=t1 - t0, engine_build_s=t2 - t1,
-                       table_s=t3 - t2)
+    with span(metrics, "engine_build", ranged=False):
+        if engine == "device":
+            built = dict(prebuilt=make_merged_engine(
+                genome, fwd_bank, rev_bank, params, same_file=same_file,
+                batch_size=batch_size, compute_score=compute_score,
+                device=device))
+        else:
+            built = dict(aligner=make_aligner(params, device))
+    with span(metrics, "table"):
+        if table is None:
+            table = SeedTable.build(genome.concat, params.seed_size,
+                                    params.seed_occurence_multiple,
+                                    params.bin_size, params.window_size)
     run = run_device_merged if engine == "device" else run_host
     recs, counts = run(genome, table, fwd_bank, rev_bank, params, **built,
                        **kw)
-    t4 = time.perf_counter()
-    records = format_records(genome, read_records, recs)
-    if metrics is not None:
-        metrics["format_s"] = time.perf_counter() - t4
+    with span(metrics, "format"):
+        records = format_records(genome, read_records, recs)
     return PipelineResult(records, counts[0], counts[1])

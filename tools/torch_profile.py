@@ -20,19 +20,27 @@ files once to warm up, then keeps the best of --reps runs, each with
 metrics=: it prints reads/s, records, candidates and the phase split.
 The phases summed are the disjoint ones of PHASES (genome_banks_s,
 engine_build_s, table_s, seed_s, align_s, format_s); "other" is the
-wall less their sum.  The metrics' counts (engine_iters, ...) are
-printed apart, and dsoft_index_s lies inside seed_s, so neither is
-summed.  The engine is --engine's (default device; profile.py takes the
+wall less their sum.  Under each phase the program's spans inside it
+(SPANS: genome_s and read_banks_s; dsoft_index_s; engine_prepare_s,
+engine_enqueue_s, engine_wait_s and engine_records_s) are printed
+indented, with the phase's rest; they are not summed again.  The
+metrics' counts (engine_iters, engine_slot_iters, ...) are printed
+apart.  The engine is --engine's (default device; profile.py takes the
 device engine on a TPU and the host engine elsewhere).
 
 With --trace-dir the timed steps or runs go under torch.profiler (the
 counterpart of jax.profiler.trace), whose Chrome trace is written to
-DIR/trace.json (chrome://tracing or Perfetto).  On a card it then
-prints the device's busy and idle share of the window (the timed steps,
-or the runs' align_s and wall), the device time by kernel and the
-kernel launches a step or an engine iteration (device_summary, which
-tools/torch_profile_ecoli.py uses too).  A CPU run traces host events
-only and reports no device share.
+DIR/trace.json (chrome://tracing or Perfetto).  The program's host
+stages are ranges named darwin.<span> in it (darwin_tpu_torch.spans),
+on the clock of the device's events, so each idle stretch of the device
+lies against the stage under it.  On a card it then prints the device's
+busy and idle share of the window (the timed steps, or the runs'
+align_s and wall; busy is the union of the device events' intervals,
+device-side annotations of darwin.* ranges left out), the device time
+by kernel and the kernel launches a step or an engine iteration
+(device_summary, which tools/torch_profile_ecoli.py and
+tools/torch_engine_prof.py use too).  A CPU run traces host events only
+and reports no device share.
 
 Without a card and without --device cpu it exits 2.
 """
@@ -52,10 +60,16 @@ import darwin_tpu_torch  # noqa: F401,E402  (THP madvise guard)
 import torch  # noqa: E402
 
 from darwin_tpu_torch.lab import add_device_arg, resolve_device  # noqa: E402
+from darwin_tpu_torch.spans import PREFIX  # noqa: E402
 
 # run_pipeline's disjoint phases, in the order they run.
 PHASES = ("genome_banks_s", "engine_build_s", "table_s", "seed_s",
           "align_s", "format_s")
+# The program's spans inside a phase.
+SPANS = {"genome_banks_s": ("genome_s", "read_banks_s"),
+         "seed_s": ("dsoft_index_s",),
+         "align_s": ("engine_prepare_s", "engine_enqueue_s",
+                     "engine_wait_s", "engine_records_s")}
 KERNEL_ET = 200
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
 TRACE_FILE = "trace.json"
@@ -81,22 +95,41 @@ def tracing(trace_dir, device: torch.device):
     print(f"trace written to {path / TRACE_FILE}", file=sys.stderr)
 
 
+def union_us(intervals) -> float:
+    """Microseconds covered by the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
 def device_summary(prof, window_s: float, iters: int) -> dict:
     """The device's time in a profiled window of window_s seconds over
-    iters steps or engine iterations: busy_s (the device events' time
-    summed), busy (its share of window_s), launches (the kernel-launch
-    calls), launches_per_iter and kernels, [(name, seconds, count)] most
-    device time first."""
+    iters steps or engine iterations: busy_s (the union of the device
+    events' intervals, so that work overlapping on two streams counts
+    once), busy (its share of window_s), launches (the kernel-launch
+    calls), launches_per_iter and kernels, [(name, seconds summed,
+    count)] most device time first.  The device-side annotations of the
+    program's darwin.* ranges are not device work and are left out."""
     busy = defaultdict(float)
     count = defaultdict(int)
+    spans = []
     launches = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.name.startswith(PREFIX):
+                continue
             busy[e.name] += e.time_range.elapsed_us()
             count[e.name] += 1
+            spans.append((e.time_range.start, e.time_range.end))
         elif e.name in LAUNCH_CALLS:
             launches += 1
-    total = sum(busy.values()) / 1e6
+    total = union_us(spans) / 1e6
     return dict(busy_s=total, busy=total / window_s, launches=launches,
                 launches_per_iter=launches / max(1, iters),
                 kernels=[(k, v / 1e6, count[k]) for k, v in
@@ -198,9 +231,9 @@ def profile_pipeline(device: torch.device, reference: str, reads: str,
     split = "  ".join(f"{k[:-2]} {v:.4f}" for k, v in phases.items())
     print(f"phases (best of {len(runs)}, s): {split}  other "
           f"{dt - accounted:.4f}")
+    print("\n".join(span_lines(m)))
     counts = {k: v for k, v in m.items() if not k.endswith("_s")}
-    print(f"counts: {counts}; dsoft_index_s (inside seed_s) "
-          f"{m.get('dsoft_index_s', 0.0):.4f}", flush=True)
+    print(f"counts: {counts}", flush=True)
     summary = None
     if prof:
         iters = sum(r[1].get("engine_iters", 0) for r in runs)
@@ -213,6 +246,20 @@ def profile_pipeline(device: torch.device, reference: str, reads: str,
                   f"the runs' wall ({wall:.6f} s)", flush=True)
     return dict(wall=dt, records=res.records, candidates=cands, metrics=m,
                 phases_s=accounted, summary=summary)
+
+
+def span_lines(m: dict) -> list[str]:
+    """Each phase of m that holds spans, then its spans indented and
+    the phase's rest."""
+    out = []
+    for phase, spans in SPANS.items():
+        inner = {k: m[k] for k in spans if k in m}
+        if phase not in m or not inner:
+            continue
+        out.append(f"  {phase[:-2]} {m[phase]:.4f} s:")
+        out += [f"    {k[:-2]} {v:.4f}" for k, v in inner.items()]
+        out.append(f"    rest {m[phase] - sum(inner.values()):.4f}")
+    return out
 
 
 def main(argv=None) -> int:
