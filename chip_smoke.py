@@ -35,7 +35,14 @@ Phases; any failure ends the run with a nonzero exit code:
    shared-memory tuple budget; where no read overflowed, also equal to
    dsoft_scalar), timed at the E.coli shape under the default index
    mode (with the read-strands' tuple counts: max, p99, mean) and at ten
-   times its read-strands (R = 9200);
+   times its read-strands (R = 9200); the seed table's two kernels
+   (csrc/seed_table.cu: minimizer scan, hash sort) against their plain
+   versions and the native build (SeedTable.build off the card) on a
+   random 5 Mb genome, the E.coli slice's and table_edge_genomes at
+   TABLE_EDGE_KW, and timed at the benchmark's job size (48.52 Mbp)
+   beside their bounds, the plain versions and torch.sort, with the
+   whole device build (table_arrays: upload, scan, sort, download)
+   beside the native build, the results equal;
 3. fixtures: darwin_tpu_torch.pipeline.run_pipeline on every
    tests/data fixture that has an out.darwin (the reference binary's
    output), under the device engine, the host-stepped engine and the
@@ -92,8 +99,9 @@ Phases; any failure ends the run with a nonzero exit code:
    on dsoft_cases and the E.coli read-strands, once and ten times over,
    the table-sharded kernels on SHARDED_CASES and the E.coli
    read-strands, shard_scan at each L % 4 and shard_count on
-   SHARD_COUNT_CASES, and the split DP at SPLIT_CHECKED, every
-   instantiation and a partial last strip) run in another child
+   SHARD_COUNT_CASES, the split DP at SPLIT_CHECKED, every
+   instantiation and a partial last strip, and the seed table's kernels
+   on table_edge_genomes and a random 5 Mb genome) run in another child
    (``--checked``), which must exit 0 with every output equal to the
    normal library's;
 8. the golden soak: tests/test_fuzz_pipeline.py's pinned instances
@@ -146,7 +154,8 @@ Phases; any failure ends the run with a nonzero exit code:
    multi-chromosome dataset of tests/data/guided_shape (4 pieces of a
    4.6 Mb genome, 4600 x 10 kb reads at 12% error, seed 42:
    GUIDED_SHAPE_FLAGS) rebuilt by torch_scale_test's generator, its two
-   digests checked, then run through the device engine (bytes walker)
+   digests checked, its genome's seed table from the kernels held to the
+   plain versions and the native build (table_check), then run through the device engine (bytes walker)
    with the host D-SOFT and with the device D-SOFT, each record set
    equal to jax_cpu.darwin (darwin_tpu's own CPU output), with its
    sensitivity, specificity and reads/s; resident serving on the E.coli
@@ -349,6 +358,8 @@ DP16_SRC = "darwin_tpu_torch/csrc/dp16.cu"
 WALK_SRC = "darwin_tpu_torch/csrc/traceback_words.cu"
 SHARDED_SRC = "darwin_tpu_torch/csrc/dsoft_sharded.cu"
 SHARDED_REPLACES = "darwin_tpu/dsoft/sharded_table.py:265"
+TABLE_SRC = "darwin_tpu_torch/csrc/seed_table.cu"
+TABLE_REPLACES = "darwin_tpu/index/seed_table.py:42"
 KERNELS = {
     "align_tiles": (DP_SRC, "darwin_tpu/ops/pallas_dp.py:523",
                     "pallas_call"),
@@ -392,6 +403,10 @@ KERNELS = {
                          "_dsoft_table_sharded_local"),
     "dsoft_shard_count": (SHARDED_SRC, SHARDED_REPLACES,
                           "_dsoft_table_sharded_local"),
+    # The seed table's build: the JAX package built it on the host
+    # (SeedTable.build), with no TPU kernel; the port's two kernels.
+    "seed_minimizers": (TABLE_SRC, TABLE_REPLACES, "build"),
+    "seed_sort": (TABLE_SRC, TABLE_REPLACES, "build"),
 }
 # The main path's kernels, whose device time (device_ms) is taken too;
 # the span fetch also in its one-set form, ONE_SET.
@@ -404,13 +419,14 @@ KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms"}
 # The kernels each phase 4 run must launch.
+SEED_TABLE = ("seed_minimizers", "seed_sort")
 ECOLI_RUNS = {
-    "cli bytes": ("align_tiles", "fetch_tiles", "traceback"),
+    "cli bytes": ("align_tiles", "fetch_tiles", "traceback", *SEED_TABLE),
     "packed": ("align_tiles", "fetch_tiles", "traceback_packed"),
     "packed6": ("align_tiles", "fetch_tiles", "traceback_packed6"),
-    "cli host --paf-out": ("align_tiles", "traceback_packed6"),
+    "cli host --paf-out": ("align_tiles", "traceback_packed6", *SEED_TABLE),
     "cli bytes --dsoft device": ("dsoft_device", "align_tiles",
-                                 "fetch_tiles", "traceback"),
+                                 "fetch_tiles", "traceback", *SEED_TABLE),
 }
 # The E.coli-shaped slice's reads (phase 4) and the device D-SOFT's
 # budgets there (collect_calls_device's defaults).
@@ -1315,6 +1331,173 @@ def _same(got, want) -> bool:
 
     return all(g.shape == w.shape and torch.equal(g, w)
                for g, w in zip(got, want))
+
+
+# The seed table's kernels (phase 2): table_check's genomes (guided_shape's
+# in phase 11), TABLE_EDGE_KW's k and w on table_edge_genomes, and the
+# timed size: ecoli10x_self.lognormal's job, 48.52 Mbp of reads after
+# errors (PERF.md section 4).
+TABLE_CHECK_BASES = 5_000_000
+TABLE_TIMED_BASES = 48_520_000
+TABLE_EDGE_KW = ((15, 14), (15, 1), (12, 3), (5, 2), (4, 1))
+# int32 operations a scanned position (csrc/seed_table.cu): hash32's 23,
+# the seed's extraction 4, the window minimum's w - 1 (3 at w = 4) and
+# the change and emit tests' 4.
+SCAN_OPS = 34
+
+
+def table_edge_genomes() -> list:
+    """[(name, uint8 bases)]: lengths at a tile's edges and past the
+    native scan's single-thread threshold, a run of one base over three
+    scan tiles, a gap of N over two, lowercase and N mixed in."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    mixed = np.frombuffer(b"ACGTacgtN", dtype=np.uint8)
+    out = [(f"random {n}", acgt[rng.integers(0, 4, n)])
+           for n in (0, 20, 4111, 8207, 65573)]
+    run = acgt[rng.integers(0, 4, 60000)]
+    run[5000:5000 + 3 * 4096] = ord("A")
+    gap = acgt[rng.integers(0, 4, 60000)]
+    gap[20000:30000] = ord("N")
+    return out + [("homopolymer", run), ("N gap", gap),
+                  ("acgtN", mixed[rng.integers(0, 9, 30000)])]
+
+
+def table_genome(kind: str):
+    """The bases of "random 5 Mb" or "ecoli_shape" (the E.coli slice's
+    reads as the de novo pipeline's genome)."""
+    import numpy as np
+
+    from darwin_tpu_torch.config import Params
+    from darwin_tpu_torch.index.genome import Genome
+    from darwin_tpu_torch.io.fasta import FastaRecord
+
+    if kind == "random 5 Mb":
+        acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+        return acgt[np.random.default_rng(5).integers(0, 4,
+                                                      TABLE_CHECK_BASES)]
+    recs = [FastaRecord([n], s) for n, s in ecoli_reads()]
+    return Genome(recs, Params().bin_size).concat
+
+
+def table_check(g, k: int, w: int, dev) -> int:
+    """The seed table's kernels on bases g against their plain versions
+    on the card and the native build, bit for bit, and SeedTable.build
+    on the card against the native build; returns the key count."""
+    import numpy as np
+    import torch
+
+    from darwin_tpu_torch.index import table_device as td
+    from darwin_tpu_torch.index.seed_table import SeedTable
+
+    want = SeedTable.build(g, k, 1, 64, w)
+    b = torch.from_numpy(np.ascontiguousarray(g)).to(dev)
+    scan = [t.cpu().numpy() for t in td.minimizer_keys(b, k, w)]
+    plain = td.minimizer_keys_torch(b, k, w)
+    if not all(np.array_equal(x, y.cpu().numpy())
+               for x, y in zip(scan, plain)):
+        raise AssertionError(f"minimizer_keys differs from its plain "
+                             f"version (k={k}, w={w}, {len(g)} bases)")
+    got = [t.cpu().numpy() for t in td.sort_keys(
+        *(torch.from_numpy(x).to(dev) for x in scan), k)]
+    for x, y in zip(got, td.sort_keys_torch(*plain, k)):
+        if not np.array_equal(x, y.cpu().numpy()):
+            raise AssertionError(f"sort_keys differs from its plain version "
+                                 f"(k={k}, w={w}, {len(g)} bases)")
+    card = SeedTable.build(g, k, 1, 64, w, device=dev)
+    for x, y in zip((*got, card.hashes, card.pos), (want.hashes,
+                                                    want.pos) * 2):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"the device table differs from the native "
+                                 f"build (k={k}, w={w}, {len(g)} bases)")
+    return len(want.pos)
+
+
+def _sort_ms(h0, p0, k: int, reps: int) -> float:
+    """Median time of sort_keys on copies of (h0, p0), the copies outside
+    the timed stretch (the kernel sorts in its inputs' buffers)."""
+    import torch
+
+    from darwin_tpu_torch.index import table_device as td
+
+    h, p = torch.empty_like(h0), torch.empty_like(p0)
+    times = []
+    for _ in range(reps + 1):
+        h.copy_(h0)
+        p.copy_(p0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        td.sort_keys(h, p, k)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def phase_seed_table(dev) -> dict:
+    """Phase 2's seed-table part; returns the kernels line's numbers of
+    seed_minimizers and seed_sort."""
+    import numpy as np
+    import torch
+
+    from darwin_tpu_torch.config import Params
+    from darwin_tpu_torch.index import table_device as td
+    from darwin_tpu_torch.index.seed_table import SeedTable
+
+    params = Params()
+    k, w = params.seed_size, params.window_size
+    for kind in ("random 5 Mb", "ecoli_shape"):
+        t0 = time.perf_counter()
+        n = table_check(table_genome(kind), k, w, dev)
+        log(f"  seed table, {kind}: {n} keys equal to the plain versions' "
+            f"and the native build's ({time.perf_counter() - t0:.1f} s)")
+    for name, g in table_edge_genomes():
+        for ek, ew in ((k, w), *TABLE_EDGE_KW):
+            table_check(g, ek, ew, dev)
+    log(f"  seed table, {len(table_edge_genomes())} edge genomes x "
+        f"{len(TABLE_EDGE_KW) + 1} (k, w): exact")
+
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    g = acgt[np.random.default_rng(20).integers(0, 4, TABLE_TIMED_BASES)]
+    t0 = time.perf_counter()
+    want = SeedTable.build(g, k, 1, 64, w)
+    host_s = time.perf_counter() - t0
+    b = torch.from_numpy(g).to(dev)
+    h0, p0 = td.minimizer_keys(b, k, w)
+    n_keys = h0.shape[0]
+    lo, hi = td.scan_range(len(g), k, w)
+    scan = dict(max_abs_err=0, library_ms=None,
+                ms=median_ms(lambda: td.minimizer_keys(b, k, w), 10),
+                plain_ms=median_ms(lambda: td.minimizer_keys_torch(b, k, w),
+                                   3),
+                **bound(len(g) + 8 * n_keys, SCAN_OPS * (hi - lo)))
+    sort = dict(max_abs_err=0, ms=_sort_ms(h0, p0, k, 10),
+                plain_ms=median_ms(lambda: td.sort_keys_torch(h0, p0, k), 3),
+                library_ms=median_ms(lambda: p0.view(torch.int32)[torch.sort(
+                    h0.view(torch.int32), stable=True).indices], 10),
+                **bound(16 * n_keys, 0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    arrays = td.table_arrays(g, k, w, dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base_mem
+    whole_ms = median_ms(lambda: td.table_arrays(g, k, w, dev), 5)
+    if not (np.array_equal(arrays[0], want.hashes)
+            and np.array_equal(arrays[1], want.pos)):
+        raise AssertionError(f"the device table of {len(g)} bases differs "
+                             f"from the native build")
+    for name, r in (("seed_minimizers", scan), ("seed_sort", sort)):
+        log(f"  {name} at {len(g)} bases ({n_keys} keys): kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    log(f"  table_arrays (upload, scan, sort, pinned download) "
+        f"{whole_ms:.4f} ms, {peak} bytes at its peak, against the native "
+        f"build's {host_s * 1e3:.1f} ms on the host; equal")
+    return {"seed_minimizers": scan, "seed_sort": sort}
 
 
 def phase_dsoft(dev) -> tuple:
@@ -2797,12 +2980,13 @@ def checked_digests(dev, small: bool = False) -> dict:
     at SPLIT_CHECKED's second and fourth sizes also interleaved and
     forced), each walker at ET = T - 120 on its output, both kernels
     forced at T = 320, and the 16-bit kernel at interleave 2 and 4 at
-    SPLIT_IL_TILES' first two sizes.
+    SPLIT_IL_TILES' first two sizes; the seed table's two kernels on
+    table_edge_genomes and the random 5 Mb genome.
     small: B = 36, the tile size 64 and
     one scoring, one large-ET walk, the scans at C = 33 and 1024 beside
     the probe's shape, the D-SOFT cases under the two-level index only,
     the table-sharded cases under the dense index only, no E.coli
-    batch and the split DP at SPLIT_CHECKED[0] only.
+    batch, the split DP at SPLIT_CHECKED[0] only and no 5 Mb genome.
     On the checked library each case's name goes to stderr before it
     runs, so that a trap names it."""
     import numpy as np
@@ -3019,6 +3203,16 @@ def checked_digests(dev, small: bool = False) -> dict:
     for name in SHARD_COUNT_CASES:
         args, kw = shard_count_case_args(name, dev)
         run(f"shard_count {name}", lambda: shard_count(*args, **kw))
+    # The seed table's kernels, scan then sort, on table_edge_genomes and
+    # the random 5 Mb genome at the default k and w.
+    from darwin_tpu_torch.index import table_device as td
+
+    genomes = table_edge_genomes() + (
+        [] if small else [("random 5 Mb", table_genome("random 5 Mb"))])
+    for name, g in genomes:
+        b = torch.from_numpy(np.ascontiguousarray(g)).to(dev)
+        run(f"seed table {name}",
+            lambda: td.sort_keys(*td.minimizer_keys(b, 14, 4), 14))
     return res
 
 
@@ -3477,7 +3671,8 @@ def phase_scale(dev, counters: dict, ecoli_want: str) -> dict:
     import torch
 
     from darwin_tpu_torch.config import Params
-    from darwin_tpu_torch.io.fasta import FastaRecord
+    from darwin_tpu_torch.index.genome import Genome
+    from darwin_tpu_torch.io.fasta import FastaRecord, parse_fasta
 
     st = _tool("torch_scale_test")
     rs = _tool("torch_resident_serve")
@@ -3501,6 +3696,14 @@ def phase_scale(dev, counters: dict, ecoli_want: str) -> dict:
         if got != guided_shape_digests():
             raise AssertionError(f"guided_shape digests {got} != "
                                  f"{guided_shape_digests()}")
+        t0 = time.perf_counter()
+        prm = Params()
+        n = table_check(Genome(parse_fasta(Path(td) / "genome.fasta"),
+                               prm.bin_size).concat,
+                        prm.seed_size, prm.window_size, dev)
+        log(f"  guided_shape's seed table: {n} keys from the kernels equal "
+            f"to the plain versions' and the native build's "
+            f"({time.perf_counter() - t0:.1f} s)")
         for dsoft in ("host", "device"):
             args = st.parse_args([*GUIDED_SHAPE_FLAGS, "--dsoft", dsoft,
                                   "--warm", "0", "--workdir", td])
@@ -3542,7 +3745,8 @@ def phase_scale(dev, counters: dict, ecoli_want: str) -> dict:
     params = Params()
     args = bc.parse_args(list(BIGCOORD_FLAGS))
     t0 = time.perf_counter()
-    b = bc.build(args, params, log=lambda s: log("  bigcoord: " + s))
+    b = bc.build(args, params, log=lambda s: log("  bigcoord: " + s),
+                 device=dev)
     log(f"  bigcoord build: {time.perf_counter() - t0:.1f} s")
     if not b["big"]:
         raise AssertionError(f"{BIGCOORD_FLAGS}: not past 2^31")
@@ -4349,6 +4553,7 @@ def run_phases(dev, golden_pool) -> tuple:
 
     log("[2/13] kernels against their plain versions (tolerance 0)")
     kres = phase_kernels(dev)
+    kres.update(phase_seed_table(dev))
     kres["dsoft_device"], plain_overflow = phase_dsoft(dev)
     golden = golden_soak_start(golden_pool)
     log("[3/13] fixtures against the reference binary's out.darwin, both "

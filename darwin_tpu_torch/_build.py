@@ -71,6 +71,11 @@ _SIGNATURES = {
     # cand_max, the card's SMs, scratch, the four outputs.
     "dtt_shard_count": [_P, _P, _P, _I, _L, *[_I] * 6, _P, _P, _P, _P, _P,
                         _P],
+    # bases, n, k, w, meta (then out_hash, out_pos for the emit).
+    "dtt_seed_count": [_P, _L, _I, _I, _P, _P],
+    "dtt_seed_emit": [_P, _L, _I, _I, _P, _P, _P, _P],
+    # hash, pos, hash2, pos2, n, bits, scratch.
+    "dtt_radix_sort": [_P, _P, _P, _P, _L, _I, _P, _P],
 }
 # Host-only entries (no stream, nothing launched): argtypes, restype.
 _HOST_ENTRIES = {"dtt_dsoft_scratch_bytes": ([_I, _I, _I, _I], _L),

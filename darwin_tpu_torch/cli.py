@@ -240,7 +240,8 @@ def main(argv: list[str] | None = None) -> int:
         if dist.process_index() == 0 and not Path(args.seed_table).exists():
             table = SeedTable.build(genome.concat, params.seed_size,
                                     params.seed_occurence_multiple,
-                                    params.bin_size, params.window_size)
+                                    params.bin_size, params.window_size,
+                                    device=device)
             table.save(args.seed_table)
         dist.barrier("seed-table")
         if table is None:
@@ -253,7 +254,8 @@ def main(argv: list[str] | None = None) -> int:
     else:
         table = SeedTable.build(genome.concat, params.seed_size,
                                 params.seed_occurence_multiple,
-                                params.bin_size, params.window_size)
+                                params.bin_size, params.window_size,
+                                device=device)
         if args.seed_table:
             table.save(args.seed_table)
         print(f"Seed table built: {len(table.pos)} minimizers")

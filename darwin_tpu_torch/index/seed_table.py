@@ -11,7 +11,9 @@ SeedPosTable (reference seed_pos_table.cpp:46-98):
 * The sort order (hash, then position) matches the reference's uint64
   sort of (hash << 32) | pos.
 
-The table is persistable (the reference rebuilds it every run).
+The table is persistable (the reference rebuilds it every run).  On a
+CUDA device it is built there (index/table_device.py: csrc/seed_table.cu's
+scan and sort).
 """
 
 from __future__ import annotations
@@ -19,9 +21,11 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from darwin_tpu_torch import native
 from darwin_tpu_torch.coding import ref_minimizers, seq_to_bytes
+from darwin_tpu_torch.index import table_device
 
 _FORMAT_VERSION = 1
 
@@ -41,10 +45,14 @@ class SeedTable:
     @classmethod
     def build(cls, ref_seq: str | np.ndarray, kmer_size: int,
               seed_occurence_multiple: int, bin_size: int,
-              window_size: int) -> "SeedTable":
-        """Sorted (hash << 32) | pos minimizer keys, from the native
-        library's parallel scan and sort or from NumPy without it, minus
-        the keys at padding positions >= ref_size."""
+              window_size: int, device: torch.device | str | None = None
+              ) -> "SeedTable":
+        """Sorted (hash << 32) | pos minimizer keys, minus the keys at
+        padding positions >= ref_size.
+
+        On a CUDA device the kernels of table_device build them there;
+        with no device, or the CPU, the native library's parallel scan
+        and sort, or NumPy without it."""
         if not 3 < kmer_size <= 15:
             raise ValueError(f"seed size {kmer_size}: need 3 < k <= 15 "
                              f"(seed_pos_table.cpp:48)")
@@ -54,8 +62,14 @@ class SeedTable:
         ref_size = len(ref_seq)
         kmer_max_occurence = seed_occurence_multiple * (
             1 + (ref_size >> (2 * kmer_size)))
+        kw = dict(kmer_size=kmer_size, window_size=window_size,
+                  bin_size=bin_size, ref_size=ref_size,
+                  kmer_max_occurence=kmer_max_occurence)
+        b = seq_to_bytes(ref_seq) if isinstance(ref_seq, str) else ref_seq
+        if device is not None and torch.device(device).type == "cuda":
+            return cls(*table_device.table_arrays(b, kmer_size, window_size,
+                                                  device), **kw)
         if native.available():
-            b = seq_to_bytes(ref_seq) if isinstance(ref_seq, str) else ref_seq
             keys = native.build_table_keys(b, kmer_size, window_size)
         else:
             keys = np.sort(ref_minimizers(ref_seq, kmer_size, window_size))
@@ -68,10 +82,7 @@ class SeedTable:
         keys = keys[(keys & np.uint64(0xFFFFFFFF)) < ref_size]
         return cls(
             (keys >> np.uint64(32)).astype(np.uint32),
-            (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32),
-            kmer_size=kmer_size, window_size=window_size,
-            bin_size=bin_size, ref_size=ref_size,
-            kmer_max_occurence=kmer_max_occurence)
+            (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32), **kw)
 
     def lookup(self, h: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Vectorized (start, end) pos-table ranges for hash values."""

@@ -44,9 +44,11 @@ def resolve_device(name: str) -> torch.device:
 def launch_counters() -> dict:
     """{name: wrapper} of the main paths' kernel wrappers, each of which
     counts its launches on its .launches: the DP, the three walkers, the
-    span fetch and the device D-SOFT's three kernels."""
+    span fetch, the device D-SOFT's three kernels and the seed table's
+    two."""
     from ..dsoft import sharded_table as st
     from ..dsoft.device import dsoft_device_batch
+    from ..index import table_device as td
     from ..ops import traceback as tb
     from ..ops.dp import align_tiles
     from ..ops.tile_fetch import fetch_tiles
@@ -56,7 +58,9 @@ def launch_counters() -> dict:
             "traceback_packed6": tb.traceback_packed6,
             "fetch_tiles": fetch_tiles, "dsoft_device": dsoft_device_batch,
             "dsoft_shard_scan": st.shard_scan,
-            "dsoft_shard_count": st.shard_count}
+            "dsoft_shard_count": st.shard_count,
+            "seed_minimizers": td.minimizer_keys,
+            "seed_sort": td.sort_keys}
 
 
 def related_batches(V: int, B: int, T: int):

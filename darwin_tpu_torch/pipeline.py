@@ -440,7 +440,9 @@ def run_pipeline(ref_records: list[FastaRecord],
     table, so that a tile size the device cannot take fails first.  With
     metrics, adds darwin_tpu.pipeline.run_pipeline's genome_banks_s
     (genome_s and read_banks_s inside it), engine_build_s, table_s and
-    format_s to what the engine adds."""
+    format_s to what the engine adds, and table_device: 1 where this call
+    built the seed table on the card (SeedTable.build on a CUDA device),
+    else 0."""
     if engine not in ("device", "host"):
         raise ValueError(f"engine {engine!r}: device or host")
     with span(metrics, "genome_banks"):
@@ -458,11 +460,17 @@ def run_pipeline(ref_records: list[FastaRecord],
                 device=device))
         else:
             built = dict(aligner=make_aligner(params, device))
-    with span(metrics, "table"):
+    # On the card the table is built there (a timer: a profiler range
+    # would cover its kernels).
+    on_card = torch.device(device).type == "cuda"
+    built_on_card = table is None and on_card
+    with span(metrics, "table", ranged=not on_card):
         if table is None:
             table = SeedTable.build(genome.concat, params.seed_size,
                                     params.seed_occurence_multiple,
-                                    params.bin_size, params.window_size)
+                                    params.bin_size, params.window_size,
+                                    device=device)
+    count(metrics, "table_device", int(built_on_card))
     run = run_device_merged if engine == "device" else run_host
     recs, counts = run(genome, table, fwd_bank, rev_bank, params, **built,
                        **kw)

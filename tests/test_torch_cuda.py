@@ -1075,3 +1075,58 @@ def test_bench_step_matches_plain(cuda, T, et):
     for v in range(2):
         assert int(bench.one_step(b, v, et)) == int(
             bench.one_step(b, v, et, plain=True))
+
+
+@pytest.mark.parametrize("kind", ["random 5 Mb", "ecoli_shape",
+                                  "guided_shape"])
+def test_seed_table_kernels_match_plain_and_native(cuda, kind, tmp_path):
+    """The seed table's kernels (csrc/seed_table.cu) on a random 5 Mb
+    genome and on the genomes of tests/data/ecoli_shape and guided_shape
+    at the default k and w: scan and sort equal their plain versions and
+    the native build bit for bit, and each wrapper counts one launch."""
+    from darwin_tpu_torch.index import table_device as td
+
+    if kind == "guided_shape":
+        st = chip_smoke._tool("torch_scale_test")
+        st.make_dataset(st.parse_args([*chip_smoke.GUIDED_SHAPE_FLAGS,
+                                       "--workdir", str(tmp_path)]),
+                        tmp_path)
+        g = Genome(parse_fasta(tmp_path / "genome.fasta"),
+                   Params().bin_size).concat
+    else:
+        g = chip_smoke.table_genome(kind)
+    params = Params()
+    n0, s0 = td.minimizer_keys.launches, td.sort_keys.launches
+    n = chip_smoke.table_check(g, params.seed_size, params.window_size, cuda)
+    assert n > len(g) // 4
+    # table_check launches each twice: alone, then in table_arrays.
+    assert (td.minimizer_keys.launches, td.sort_keys.launches) == (
+        n0 + 2, s0 + 2)
+
+
+@pytest.mark.parametrize("k,w", [(14, 4), *chip_smoke.TABLE_EDGE_KW])
+def test_seed_table_kernels_at_the_edges(cuda, k, w):
+    """Every edge genome (tile edges, the single-thread threshold, runs
+    of one base and of N over several tiles, lowercase) at k, w."""
+    for _, g in chip_smoke.table_edge_genomes():
+        chip_smoke.table_check(g, k, w, cuda)
+
+
+def test_run_pipeline_builds_the_seed_table_on_the_card(cuda):
+    """run_pipeline on the E.coli slice builds its table with the
+    kernels (table_device 1, each wrapper launched once) and gives the
+    oracle's records."""
+    from darwin_tpu_torch.index import table_device as td
+    from darwin_tpu_torch.io.fasta import FastaRecord
+
+    reads = [FastaRecord([n], s) for n, s in chip_smoke.ecoli_reads()]
+    want = (REPO / "tests" / "data" / "ecoli_shape" /
+            "jax_cpu.darwin").read_text().splitlines()
+    n0, s0 = td.minimizer_keys.launches, td.sort_keys.launches
+    m = {}
+    res = run_pipeline(reads, reads, Params(), True, batch_size=512,
+                       device=cuda, metrics=m)
+    assert sorted(set(res.records)) == want
+    assert m["table_device"] == 1
+    assert (td.minimizer_keys.launches, td.sort_keys.launches) == (
+        n0 + 1, s0 + 1)

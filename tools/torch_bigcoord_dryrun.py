@@ -66,10 +66,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def build(args, params, log=print) -> dict:
-    """The pieces, genome, seed table and reads of a dry run, the
-    original's asserts on the coordinates checked.  Returns {pieces,
-    genome, table, reads (ASCII uint8 arrays), origins, big}."""
+def build(args, params, log=print, device=None) -> dict:
+    """The pieces, genome, seed table (built on device where it is a
+    CUDA device: SeedTable.build) and reads of a dry run, the original's
+    asserts on the coordinates checked.  Returns {pieces, genome, table,
+    reads (ASCII uint8 arrays), origins, big}."""
     from darwin_tpu_torch.index.genome import Genome
     from darwin_tpu_torch.index.seed_table import SeedTable
     from darwin_tpu_torch.io.fasta import FastaRecord
@@ -105,7 +106,7 @@ def build(args, params, log=print) -> dict:
     t0 = time.perf_counter()
     table = SeedTable.build(genome.concat, params.seed_size,
                             params.seed_occurence_multiple, params.bin_size,
-                            params.window_size)
+                            params.window_size, device=device)
     max_pos = int(table.pos.max())
     if big and not max_pos > 2**31:
         raise AssertionError("the table's positions stayed below 2^31")
@@ -195,7 +196,7 @@ def run(args, params) -> int:
 
     device = resolve_device(args.device)
     print(host_memory_line(), flush=True)
-    b = build(args, params, log=lambda s: print(s, flush=True))
+    b = build(args, params, log=lambda s: print(s, flush=True), device=device)
     remap(b, params, engine=args.engine, dsoft=args.dsoft, batch=args.batch,
           device=device, log=lambda s: print(s, flush=True))
     print(memory_line(device), flush=True)

@@ -80,7 +80,7 @@ def serve(ref_records, read_records, params, *, same_file: bool, reps: int,
     genome = Genome(ref_records, params.bin_size)
     table = SeedTable.build(genome.concat, params.seed_size,
                             params.seed_occurence_multiple, params.bin_size,
-                            params.window_size)
+                            params.window_size, device=device)
     t1 = time.perf_counter()
     log(f"resident table build: {t1 - t0:.3f} s ({len(table.pos)} entries)")
     fwd, rev = read_banks(read_records)
