@@ -5,9 +5,11 @@ scores, put in the program's place, has to come out as not correct.
 
 For each seed it makes the cell's inputs as a run does, takes the first
 input's sample, and compares the control's records of the sample with
-the reference's, as a run compares the program's.  It prints one line a
-seed and, last, one JSON object with the mismatches of every seed.  Not
-part of a benchmark run: it reads the control's side of the limit.
+the reference's, as a run compares the program's: for a self job the
+reads against themselves (same_file), for a map job against the cell's
+reference pieces.  It prints one line a seed and, last, one JSON object
+with the mismatches of every seed.  Not part of a benchmark run: it
+reads the control's side of the limit.
 """
 
 from __future__ import annotations
@@ -25,18 +27,22 @@ from benchmark.reference.overlap import reference_records  # noqa: E402
 
 
 def control_mismatches(name: str, seed: int, device: str,
-                       scale: dict | None = None) -> dict:
+                       scale: dict | None = None, *, spec: dict | None = None,
+                       here: Path = harness.HERE) -> dict:
     """harness.check's numbers with the control's records in place of
     the program's, on the first input of the cell's pool."""
-    c = harness.load_cell(name, harness.load_spec())
+    c = harness.load_cell(name, spec or harness.load_spec(), here)
     cfg, traffic = c["config"], c["traffic"]
-    pool = harness.make_data(cfg, traffic, seed, scale)
+    pieces, pool = harness.make_data(cfg, traffic, seed, scale)
     inputs = pool[0]
     ids = harness.sample_reads(inputs, traffic["check"], seed, 0)
     reads = inputs.pairs()
-    control = reference_records(reads, reads, cfg["params"], same_file=True,
-                                read_ids=ids, device=device, saturate=True)
-    return harness.check(cfg, traffic, pool, [(0, control)], seed, device)
+    same = harness.job_kind(cfg) == "self"
+    control = reference_records(reads if same else pieces, reads,
+                                cfg["params"], same_file=same, read_ids=ids,
+                                device=device, saturate=True)
+    return harness.check(cfg, traffic, pieces, pool, [(0, control)], seed,
+                         device)
 
 
 def main(argv=None) -> int:

@@ -2,14 +2,25 @@
 
 Everything that belongs to one cell is data found by name: the cell's
 entry in BENCHMARK.json names its configuration (configs/<config>.json:
-the deployment, its params.cfg values, engine and slots) and its traffic
-(workloads/<cell>.json: the length law, the accuracy law and error mix,
-the pool of distinct inputs and the sample the check compares).  Each
-per-layer metric is a reader in metrics/<metric>.py.
+the deployment, its job kind, params.cfg values, engine, D-SOFT and
+slots) and its traffic (workloads/<cell>.json: the length law, the
+accuracy law and error mix, the pool of distinct inputs and the sample
+the check compares).  Each per-layer metric is a reader in
+metrics/<metric>.py.
 
-A job is a whole read set through pipeline.run_pipeline (genome and
-banks, engine, seed table, D-SOFT, GACT, records), the reads against
-themselves, as a de novo overlap runs.
+The configuration's "job" names one of two job kinds:
+
+* "self" (the default): a job is a whole read set through
+  pipeline.run_pipeline (genome and banks, engine, seed table, D-SOFT,
+  GACT, records), the reads against themselves, as a de novo overlap
+  runs;
+* "map": a job is one batch of reads against a reference that stays
+  resident, as the CLI's --chunk-reads loop runs a chunk.  The reference
+  is "reference": {"pieces": [<bp>, ...]}; set-up builds its genome and
+  its seed table on the device (and the host engine's aligner), and the
+  job takes the batch's banks, run_device_merged (or run_host) with
+  same_file False and an engine built for the batch, and the records'
+  formatting.
 
 Jobs run back to back in a closed loop over a pool of inputs made from
 the seed; the job in flight when the window ends is finished and counted.
@@ -58,6 +69,14 @@ def rng(seed: int, *stream: int) -> np.random.Generator:
     return np.random.default_rng([seed & SEED_MASK, *stream])
 
 
+def job_kind(cfg: dict) -> str:
+    """The configuration's job kind: "self" unless it names "map"."""
+    kind = cfg.get("job", "self")
+    if kind not in ("self", "map"):
+        raise ValueError(f"job {kind!r}: self or map")
+    return kind
+
+
 class Inputs:
     """One job's input: read names, ASCII bases (flat) and lengths."""
 
@@ -85,20 +104,49 @@ class Inputs:
 
 
 def make_data(cfg: dict, traffic: dict, seed: int, scale: dict | None = None):
-    """The [Inputs] pool from the seed: read sets of one genome.  scale
-    overrides the genome length and length law (CPU rehearsals only)."""
+    """(pieces, pool) from the seed.  pool is the [Inputs] of
+    traffic["pool"] jobs.  The self job: read sets of one genome, and
+    pieces None (the reads are the reference).  The map job: pieces
+    [(name, ASCII bases)] of one reference, piece p named chr<p> and
+    made from its own stream, and batches of reads drawn across the
+    pieces in proportion to their lengths, a read of piece p named
+    c<p>R<i>_<start>_<len>[_c].  scale overrides the genome length and
+    length law (CPU rehearsals only)."""
     scale = scale or {}
-    glen = scale.get("genome_length", cfg["genome_length"])
-    g = readgen.genome(glen, rng(seed, 0))
     law = {**traffic["lengths"], **scale.get("lengths", {})}
-    lengths = readgen.read_lengths(law, glen)
+    if job_kind(cfg) == "self":
+        glen = scale.get("genome_length", cfg["genome_length"])
+        g = readgen.genome(glen, rng(seed, 0))
+        lengths = readgen.read_lengths(law, glen)
+        pool = []
+        for j in range(traffic["pool"]):
+            names, flat, lens = readgen.reads(
+                g, lengths, rng(seed, 1, j), traffic["accuracy"],
+                traffic["ratio"], traffic["rc_fraction"])
+            pool.append(Inputs(names, flat, lens))
+        return None, pool
+    sizes = cfg["reference"]["pieces"]
+    codes = [readgen.genome(n, rng(seed, 0, p)) for p, n in enumerate(sizes)]
+    lengths = readgen.read_lengths(law, sum(sizes))
+    if lengths.max() > min(sizes):
+        raise ValueError(f"a read of {lengths.max()} bp is longer than a "
+                         f"piece of {min(sizes)} bp")
+    counts = readgen.shares(len(lengths), sizes)
+    ends = np.cumsum(counts)
     pool = []
     for j in range(traffic["pool"]):
-        names, flat, lens = readgen.reads(
-            g, lengths, rng(seed, 1, j), traffic["accuracy"],
-            traffic["ratio"], traffic["rc_fraction"])
-        pool.append(Inputs(names, flat, lens))
-    return pool
+        order = rng(seed, 1, j).permutation(lengths)
+        parts = [readgen.reads(g, order[e - c:e], rng(seed, 1, j, p),
+                               traffic["accuracy"], traffic["ratio"],
+                               traffic["rc_fraction"])
+                 for p, (g, c, e) in enumerate(zip(codes, counts, ends))]
+        pool.append(Inputs(
+            [f"c{p}{n}" for p, (names, _, _) in enumerate(parts)
+             for n in names],
+            np.concatenate([flat for _, flat, _ in parts]),
+            np.concatenate([lens for _, _, lens in parts])))
+    pieces = [(f"chr{p}", readgen.BASES[g]) for p, g in enumerate(codes)]
+    return pieces, pool
 
 
 def sample_reads(inputs: Inputs, check: dict, seed: int, j: int) -> list[int]:
@@ -119,39 +167,72 @@ def query_of(line: str) -> str:
 
 class Program:
     """The system under test: darwin_tpu_torch's pipeline, set up for one
-    cell."""
+    cell.  For the map job, set-up builds what the CLI builds before its
+    chunk loop from the reference pieces: the genome, the seed table on
+    the device and, for the host engine, the aligner."""
 
-    def __init__(self, cfg: dict, device: str):
+    def __init__(self, cfg: dict, device: str, pieces: list | None = None):
         from darwin_tpu_torch import pipeline
         from darwin_tpu_torch.config import Params
         from darwin_tpu_torch.io.fasta import FastaRecord
+        from darwin_tpu_torch.spans import span
 
-        self.pipeline = pipeline
+        self.pipeline, self.span = pipeline, span
         self.FastaRecord = FastaRecord
         self.cfg, self.device = cfg, device
-        self.params = Params(**cfg["params"])
+        self.params = p = Params(**cfg["params"])
+        self.kind = job_kind(cfg)
+        if self.kind == "map":
+            if cfg["engine"] not in ("device", "host"):
+                raise ValueError(f"engine {cfg['engine']!r}: device or host")
+            self.genome = pipeline.Genome(
+                [FastaRecord([n], s.tobytes().decode("ascii"))
+                 for n, s in pieces], p.bin_size)
+            self.aligner = (pipeline.make_aligner(p, device)
+                            if cfg["engine"] == "host" else None)
+            self.table = pipeline.SeedTable.build(
+                self.genome.concat, p.seed_size, p.seed_occurence_multiple,
+                p.bin_size, p.window_size, device=device)
 
     def job(self, inputs: Inputs, metrics: dict) -> list[str]:
         cfg, reads = self.cfg, inputs.records
-        res = self.pipeline.run_pipeline(
-            reads, reads, self.params, True, batch_size=cfg["batch_size"],
-            engine=cfg["engine"], dsoft=cfg["dsoft"], device=self.device,
-            metrics=metrics)
-        return res.records
+        if self.kind == "self":
+            return self.pipeline.run_pipeline(
+                reads, reads, self.params, True,
+                batch_size=cfg["batch_size"], engine=cfg["engine"],
+                dsoft=cfg["dsoft"], device=self.device,
+                metrics=metrics).records
+        pl = self.pipeline
+        with self.span(metrics, "read_banks"):
+            fwd, rev = pl.read_banks(reads)
+        kw = dict(same_file=False, batch_size=cfg["batch_size"],
+                  dsoft=cfg["dsoft"], metrics=metrics)
+        if cfg["engine"] == "device":
+            recs, _ = pl.run_device_merged(self.genome, self.table, fwd, rev,
+                                           self.params, device=self.device,
+                                           **kw)
+        else:
+            recs, _ = pl.run_host(self.genome, self.table, fwd, rev,
+                                  self.params, aligner=self.aligner, **kw)
+        with self.span(metrics, "format"):
+            return pl.format_records(self.genome, reads, recs)
 
 
-def check(cfg, traffic, pool, done, seed, device) -> dict:
+def check(cfg, traffic, pieces, pool, done, seed, device) -> dict:
     """Compare the window's records with the plain reference's on the
     sample of every input the window ran (done: [(pool index,
     records)]), as multisets; the samples of all inputs go through the
-    reference together."""
+    reference together: for the self job each against its own reads,
+    for the map job all against the one reference pieces, whose index
+    the reference builds once."""
     used = sorted({j for j, _ in done})
     samples, names = [], {}
     for j in used:
         ids = sample_reads(pool[j], traffic["check"], seed, j)
         names[j] = {pool[j].names[i] for i in ids}
         reads = pool[j].pairs()
-        samples.append(Sample(reads, reads, ids, True))
+        samples.append(Sample(reads, reads, ids, True) if pieces is None
+                       else Sample(pieces, reads, ids, False))
     stats = {}
     wants = dict(zip(used, map(collections.Counter, records_of_samples(
         samples, cfg["params"], device, stats=stats))))
@@ -318,9 +399,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     if device == "cuda" and not native.available():
         raise SystemExit("the port's native host library did not build")
     t_imports = time.perf_counter()
-    pool = make_data(cfg, traffic, seed, scale)
+    pieces, pool = make_data(cfg, traffic, seed, scale)
     t_data = time.perf_counter()
-    prog = Program(cfg, device)
+    prog = Program(cfg, device, pieces)
     for inputs in pool:
         inputs.prepare(prog)
     t_prog = time.perf_counter()
@@ -407,7 +488,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     if device == "cuda":
         torch.cuda.empty_cache()
     t_ck = time.perf_counter()
-    ck = check(cfg, traffic, pool, done, seed, device)
+    ck = check(cfg, traffic, pieces, pool, done, seed, device)
     print(f"check: {time.perf_counter() - t_ck:.3f} s; reference "
           + ", ".join(f"{k} {v:.4g}" for k, v in ck["reference"].items()),
           file=log)

@@ -16,7 +16,9 @@ set:
 
 A read starts uniformly in the genome and is reverse complemented with
 probability rc_fraction.  Its name encodes its origin as
-``R<i>_<start>_<len>[_c]``.
+``R<i>_<start>_<len>[_c]``.  Over a reference of several pieces, the
+reads split over the pieces in proportion to their lengths (shares), and
+the harness names each by its piece p as ``c<p>R<i>_...``.
 
 Lengths and accuracies are the same sets for every seed: the quantiles
 of their laws at (i + 0.5) / n, for the smallest n whose lengths reach
@@ -79,6 +81,18 @@ def read_lengths(law: dict, genome_len: int) -> np.ndarray:
     while n > 1 and one(n - 1).sum() >= target:
         n -= 1
     return np.sort(one(n))
+
+
+def shares(n: int, sizes) -> np.ndarray:
+    """n reads split over pieces in proportion to their sizes: each
+    piece's whole share, the rest one each to the largest fractions
+    (ties to the first piece)."""
+    sizes = np.asarray(sizes, dtype=np.int64)
+    exact = n * sizes / sizes.sum()
+    out = np.floor(exact).astype(np.int64)
+    extra = np.argsort(out - exact, kind="stable")[:n - out.sum()]
+    out[extra] += 1
+    return out
 
 
 def accuracies(law: dict, n: int) -> np.ndarray:

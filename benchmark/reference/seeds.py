@@ -53,34 +53,55 @@ def minimizers(seq: torch.Tensor, k: int, w: int, *, reference: bool
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """(positions, hashes) of a uint8 sequence's minimizers, in scan
     order, both int64 on the sequence's device."""
+    e = torch.empty(0, dtype=I64, device=seq.device)
+    parts = list(minimizer_chunks(seq, k, w, reference=reference))
+    return (torch.cat([e] + [p for p, _ in parts]),
+            torch.cat([e] + [h for _, h in parts]))
+
+
+def minimizer_chunks(seq: torch.Tensor, k: int, w: int, *, reference: bool,
+                     chunk: int = 1 << 26):
+    """minimizers(seq, k, w) a chunk of window positions at a time:
+    yields (positions, hashes) whose concatenation is the whole scan's,
+    each chunk's arrays a few times chunk int64 in size (a 3 Gb
+    reference in one piece would need some 30 arrays of 24 GB).  A
+    window minimum's run (its value and anchor) carries from one chunk
+    into the next."""
     n = seq.numel()
     s_len = 1 + n // 16 if reference else (n + 15) // 16
     hi, lo = 16 * s_len - k - w, w - 1
     dev = seq.device
-    if hi <= lo:
-        e = torch.empty(0, dtype=I64, device=dev)
-        return e, e
-    codes = torch.zeros(max(n, hi + k), dtype=I64, device=dev)
-    codes[:n] = _twobit_lut(dev)[seq.long()]
-    kmer = torch.zeros(hi, dtype=I64, device=dev)
-    for t in range(k):
-        kmer |= codes[t:t + hi] << (2 * t)
-    del codes
-    h = wang_hash(kmer, k)
-    del kmer
-    m = h[:hi - w + 1].clone()
-    for s in range(1, w):
-        torch.minimum(m, h[s:s + hi - w + 1], out=m)
-    del h
-    p = torch.arange(lo, hi, dtype=I64, device=dev)
-    prev = torch.cat([torch.zeros(1, dtype=I64, device=dev), m[:-1]])
-    change = m != prev
-    run_id = torch.cumsum(change, 0)
-    anchors = torch.zeros(int(run_id[-1]) + 1, dtype=I64, device=dev)
-    anchors[run_id[change]] = p[change]
-    offset = p - anchors[run_id]
-    emit = change | ((offset % w == 0) & (offset > 0))
-    return p[emit], m[emit]
+    lut = _twobit_lut(dev)
+    last_m = torch.zeros(1, dtype=I64, device=dev)
+    last_anchor = torch.zeros(1, dtype=I64, device=dev)
+    # Window j ends at position lo + j and takes k-mers j .. j + w - 1,
+    # which read bases j .. j + w + k - 2 (past n: code 0).
+    for a in range(0, max(0, hi - lo), chunk):
+        b = min(a + chunk, hi - lo)
+        span = b - a + w - 1
+        codes = torch.zeros(span + k - 1, dtype=I64, device=dev)
+        got = seq[a:min(n, a + span + k - 1)]
+        codes[:got.numel()] = lut[got.long()]
+        kmer = torch.zeros(span, dtype=I64, device=dev)
+        for t in range(k):
+            kmer |= codes[t:t + span] << (2 * t)
+        del codes
+        h = wang_hash(kmer, k)
+        del kmer
+        m = h[:b - a].clone()
+        for s in range(1, w):
+            torch.minimum(m, h[s:s + b - a], out=m)
+        del h
+        p = torch.arange(lo + a, lo + b, dtype=I64, device=dev)
+        change = m != torch.cat([last_m, m[:-1]])
+        run_id = torch.cumsum(change, 0)
+        anchors = torch.zeros(int(run_id[-1]) + 1, dtype=I64, device=dev)
+        anchors[:1] = last_anchor
+        anchors[run_id[change]] = p[change]
+        offset = p - anchors[run_id]
+        emit = change | ((offset % w == 0) & (offset > 0))
+        last_m, last_anchor = m[-1:], anchors[-1:]
+        yield p[emit], m[emit]
 
 
 class Layout:
@@ -119,11 +140,12 @@ class SeedIndex:
         self.size = concat.numel()
         self.max_occ = p["seed_occurence_multiple"] * (
             1 + (self.size >> (2 * k)))
-        pos, h = minimizers(concat, k, w, reference=True)
-        keep = pos < self.size
-        want = torch.from_numpy(np.unique(wanted)).to(h.device)
-        keep &= torch.isin(h, want)
-        key = torch.sort((h[keep] << 32) | pos[keep]).values.cpu().numpy()
+        want = torch.from_numpy(np.unique(wanted)).to(concat.device)
+        keys = [torch.zeros(0, dtype=I64, device=concat.device)]
+        for pos, h in minimizer_chunks(concat, k, w, reference=True):
+            keep = (pos < self.size) & torch.isin(h, want)
+            keys.append((h[keep] << 32) | pos[keep])
+        key = torch.sort(torch.cat(keys)).values.cpu().numpy()
         self.hashes = key >> 32
         self.pos = key & 0xFFFFFFFF
 

@@ -1,30 +1,29 @@
 """The check has to come out false: for the control (the reference with
 8-bit saturating cells in the program's place) and for each fault the
 cells can have, planted underneath the timed path of a CPU run that skips
-the harness's look for a card."""
+the harness's look for a card; in every cell and in the test-only map
+cell."""
 
 import pytest
 
 from benchmark import harness
 from benchmark.control import control_mismatches
 from darwin_tpu_torch.engine import device_batch
-from _cells import SCALES, SEED
+from _cells import MAP, SEED, where
 
 SPEC = harness.load_spec()
-CELLS = [w["name"] for w in SPEC["workloads"]]
+CELLS = [w["name"] for w in SPEC["workloads"]] + [MAP]
 Engine = device_batch.DeviceGactEngine
 
 
 def run(cell):
-    cfg = harness.load_cell(cell, SPEC)["cell"]["config"]
     return harness.run_cell(cell, SEED, 0.0, False, device="cpu",
-                            scale=SCALES[cfg])
+                            **where(cell, SPEC))
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_the_control_fails(cell):
-    cfg = harness.load_cell(cell, SPEC)["cell"]["config"]
-    r = control_mismatches(cell, SEED, "cpu", SCALES[cfg])
+    r = control_mismatches(cell, SEED, "cpu", **where(cell, SPEC))
     assert r["reference_records"] >= 1 and r["record_mismatches"] > 0
 
 

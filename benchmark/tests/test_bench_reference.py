@@ -84,3 +84,29 @@ def test_the_graph_round_equals_the_eager_round():
                    eager=False)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64, 1 << 26])
+@pytest.mark.parametrize("kind", ["random", "homopolymer", "repeats"])
+def test_the_reference_scan_by_chunks_equals_the_whole_scan(kind, chunk):
+    """The seed index scans the reference a chunk at a time; a window
+    minimum's run carries across chunks (a homopolymer holds one run).
+    The whole scan is one chunk, held to out.darwin above."""
+    import numpy as np
+    import torch
+    g = np.random.default_rng(11)
+    for n in (0, 17, 31, 1000, 4099):
+        if kind == "random":
+            seq = g.choice(np.frombuffer(b"ACGTN", np.uint8), n)
+        elif kind == "homopolymer":
+            seq = np.full(n, ord("A"), np.uint8)
+        else:
+            seq = np.where(g.random(n) < 0.7, ord("A"), g.choice(
+                np.frombuffer(b"ACGT", np.uint8), n)).astype(np.uint8)
+        t = torch.from_numpy(seq)
+        for k, w in ((14, 4), (4, 1), (12, 8)):
+            p, h = seeds.minimizers(t, k, w, reference=True)
+            parts = list(seeds.minimizer_chunks(t, k, w, reference=True,
+                                                chunk=chunk))
+            assert torch.equal(torch.cat([p[:0]] + [a for a, _ in parts]), p)
+            assert torch.equal(torch.cat([h[:0]] + [b for _, b in parts]), h)

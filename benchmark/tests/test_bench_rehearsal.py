@@ -1,7 +1,7 @@
 """A rehearsal of the harness on the CPU: every cell, configuration and
-metric file is found by name, and each cell's job loop runs once at a
-tiny size on the port's plain CPU paths.  The real command refuses to run
-without a card."""
+metric file is found by name, and each cell's job loop (and the
+test-only map cell's) runs once at a tiny size on the port's plain CPU
+paths.  The real command refuses to run without a card."""
 
 import importlib
 import json
@@ -13,15 +13,11 @@ from pathlib import Path
 import pytest
 
 from benchmark import harness
-from _cells import SCALES, SEED
+from _cells import MAP, SCALES, SEED, where
 
 ROOT = Path(__file__).resolve().parents[2]
 SPEC = harness.load_spec()
 CELLS = [w["name"] for w in SPEC["workloads"]]
-
-
-def scale_of(cell):
-    return SCALES[harness.load_cell(cell, SPEC)["cell"]["config"]]
 
 
 def test_every_file_is_found_by_name():
@@ -36,16 +32,16 @@ def test_every_file_is_found_by_name():
 
 
 @pytest.mark.parametrize("trace", [0, 1])
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", CELLS + [MAP])
 def test_a_cell_runs_once_on_the_cpu(cell, trace):
-    r = harness.run_cell(cell, SEED, 0.0, bool(trace), device="cpu",
-                         scale=scale_of(cell))
+    kw = where(cell, SPEC)
+    r = harness.run_cell(cell, SEED, 0.0, bool(trace), device="cpu", **kw)
     assert r["correct"] is True and r["failed"] == 0 and r["attempted"] == 1
     assert list(r)[-1] == "checks"
     assert r["checks"]["record_mismatches"] == {"value": 0, "limit": 0}
     assert r["checks"]["reference_records"]["value"] >= 1
     if trace:
-        want = {m["name"] for m in SPEC["per_layer"]
+        want = {m["name"] for m in kw["spec"]["per_layer"]
                 if cell in m.get("workloads", [cell])}
         # On the CPU only the program's spans and counters read.
         assert set(r["metrics"]) <= want
