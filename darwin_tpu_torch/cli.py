@@ -305,8 +305,9 @@ def main(argv: list[str] | None = None) -> int:
                 _resume("chunk", chunk_id, out_file, paf_file, args.paf_out,
                         all_lines, all_paf)
                 continue
-            # Each chunk's banks differ: the device engine is built
-            # anew for each (prebuilt stays None), over the one mesh.
+            # Each chunk's read banks differ: the device engine is built
+            # for each (prebuilt stays None), over the one mesh; the
+            # genome's bank was uploaded with the first and stays.
             recs, cc = align(*read_banks(chunk))
             n_cand += sum(cc)
             lines = emit(recs, chunk, out_file, paf_file)

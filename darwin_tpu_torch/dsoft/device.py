@@ -15,7 +15,10 @@ an overflow flag where a budget truncated.
   version (darwin_tpu's _dsoft_one with its vmap written out as a
   leading [R] dimension), on CPU tensors;
 * make_twolevel_index, bucket_directory, default_index_mode and
-  pad_reads are copies of darwin_tpu's host helpers (numpy);
+  pad_reads are darwin_tpu's host helpers (numpy), with their outputs;
+  make_twolevel_index and bucket_directory build from the runs of their
+  sorted input, where darwin_tpu sorts the table again and counts every
+  bucket;
 * device_index puts a seed table's index and positions on a device in
   the layout dsoft_device_batch takes;
 * sharded_dsoft splits the reads in blocks over a mesh, the index
@@ -394,35 +397,54 @@ def device_index(hashes: np.ndarray, pos: np.ndarray, *, k: int, index: str,
     return th, tpos, 0
 
 
-# ---- host helpers: copies of darwin_tpu's -----------------------------
+# ---- host helpers: darwin_tpu's, with their outputs -----------------------
+
+def _run_starts(a: np.ndarray) -> np.ndarray:
+    """Where each run of equal values of a sorted array starts (0 first;
+    none in an empty array)."""
+    if len(a) == 0:
+        return np.zeros(0, np.int64)
+    return np.concatenate([[0], np.flatnonzero(a[1:] != a[:-1]) + 1])
+
+
+def _directory(ids: np.ndarray, first: np.ndarray, n: int,
+               NB: int) -> np.ndarray:
+    """bucket_directory from its occupied buckets: ids ascending, the
+    index of each one's first entry, n entries in all.  The ids after
+    one occupied bucket, up to the next one's, take the next one's first
+    entry: one pass over the output."""
+    gaps = np.diff(np.concatenate([[-1], ids, [NB]]))
+    return np.repeat(np.append(first, n).astype(np.int32), gaps)
+
 
 def bucket_directory(rel_b: np.ndarray, NB: int) -> np.ndarray:
     """[NB+1] int32 directory: bkt[i] = #entries with bucket id < i.
 
     Equivalent to np.searchsorted(rel_b, np.arange(NB + 1)) for sorted
-    rel_b in [0, NB), but built by bincount + cumsum — O(n + NB)
-    instead of O(NB log n)."""
-    # Cast before cumsum: a mixed-dtype `out=` sends numpy down a
-    # buffered casting loop (~100x slower at NB=4M).
-    counts = np.bincount(rel_b, minlength=NB).astype(np.int32)
-    out = np.empty(NB + 1, np.int32)
-    out[0] = 0
-    np.cumsum(counts, out=out[1:])
-    return out
+    rel_b in [0, NB), but built from rel_b's runs in O(n) work and one
+    pass over the output."""
+    first = _run_starts(rel_b)
+    return _directory(rel_b[first], first, len(rel_b), NB)
 
 
 def make_twolevel_index(hashes: np.ndarray, bucket_factor: int = 8):
     """Two-level index over ONE sorted hash array: (hd, crs, bkt, base,
     shift, steps) — the distinct hashes, their CSR starts, a bucket
     directory of bucket_factor buckets a distinct hash over the hash
-    span, and the binary-refine steps the widest bucket needs."""
+    span, and the binary-refine steps the widest bucket needs.  The
+    hashes arrive sorted, so the distinct hashes, the occupied buckets
+    and the widest one come from runs (np.unique's result without its
+    sort), in passes over the table and one over the directory."""
     n = len(hashes)
     if n == 0:
         return (np.full(1, 0xFFFFFFFF, np.uint32),
                 np.zeros(2, np.int32), np.zeros(2, np.int32),
                 np.zeros(1, np.int32), np.zeros(1, np.int32), 1)
-    vals, starts = np.unique(hashes, return_index=True)
-    crs = np.concatenate([starts, [n]]).astype(np.int32)
+    starts = _run_starts(hashes)
+    vals = hashes[starts]
+    crs = np.empty(len(starts) + 1, np.int32)
+    crs[:-1] = starts
+    crs[-1] = n
     base = int(vals[0])
     span = int(vals[-1]) - base + 1
     nd = len(vals)
@@ -430,9 +452,10 @@ def make_twolevel_index(hashes: np.ndarray, bucket_factor: int = 8):
     shift = 0
     while ((span - 1) >> shift) >= NB:
         shift += 1
-    rel_b = (vals.astype(np.int64) - base) >> shift
-    bkt = bucket_directory(rel_b, NB)
-    max_width = max(1, int(np.diff(bkt).max()))
+    rel_b = (vals - vals[0]) >> shift
+    first = _run_starts(rel_b)
+    bkt = _directory(rel_b[first], first, nd, NB)
+    max_width = int(np.diff(np.append(first, nd)).max())
     steps = max(1, int(np.ceil(np.log2(max_width + 1))))
     # base/shift ride as [1] arrays.
     return (vals.astype(np.uint32), crs, bkt,

@@ -4,7 +4,9 @@ The port of darwin_tpu/engine/device_batch.py::DeviceGactEngine.  The
 whole GACT_Batch loop (reference gact.cpp:231-560) runs over device
 tensors:
 
-* the sequence banks are uploaded once (device_banks);
+* the sequence banks are uploaded once (device_banks); the
+  genome's stays on the Genome (genome_bank), so an engine
+  built for each batch of reads uploads only the reads;
 * the slot and call tables live on the device; the per-slot state
   machine (phase swap, emission, slot refill, first-tile re-anchoring,
   termination) is masked tensor arithmetic with index_put_ updates.
@@ -73,28 +75,51 @@ from darwin_tpu_torch.ops.dp import align_tiles, check_tile_size
 from darwin_tpu_torch.ops.tile_fetch import fetch_tile_pair
 from darwin_tpu_torch.ops.traceback import WALKERS
 from darwin_tpu_torch.parallel.collectives import on_each
-from darwin_tpu_torch.spans import merge, span
+from darwin_tpu_torch.spans import count, merge, span
 from darwin_tpu_torch.utils import bucket_steps
 
 I32 = torch.int32
 I64 = torch.int64
 
 
-def device_banks(genome: Genome, seqbank: SeqBank,
-                 device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The genome's padded concatenation and the read bank's flat bytes
-    as uint8 tensors on device.  One pad byte is appended to each, so
-    an empty bank still has a byte to clip to.  Each tensor is a view of
-    the first len(flat) + 1 bytes of a storage rounded up to 16 bytes,
-    so the span fetch's aligned 16-byte reads of its last byte stay
-    inside the storage."""
-    def upload(flat, pad):
-        n = len(flat) + 1
-        a = np.full(-(-n // 16) * 16, pad, dtype=np.uint8)
-        a[:n - 1] = flat
-        return torch.from_numpy(a).to(device)[:n]
+def upload_bank(flat: np.ndarray, pad: int,
+                device: torch.device | str) -> torch.Tensor:
+    """flat's bytes and one pad byte as a uint8 tensor on device (an
+    empty bank still has a byte to clip to): a view of the first
+    len(flat) + 1 bytes of a storage rounded up to 16 bytes of pad, so
+    the span fetch's aligned 16-byte reads of its last byte stay inside
+    the storage."""
+    n = len(flat) + 1
+    a = np.full(-(-n // 16) * 16, pad, dtype=np.uint8)
+    a[:n - 1] = flat
+    return torch.from_numpy(a).to(device)[:n]
 
-    return upload(genome.concat, PAD_REF), upload(seqbank.flat, PAD_QUERY)
+
+def genome_bank(genome: Genome, device: torch.device | str,
+                metrics: dict | None = None) -> torch.Tensor:
+    """The genome's padded concatenation on device (upload_bank with
+    PAD_REF), uploaded once a (genome, device) and kept on the genome
+    (genome._device_bank), so that engines built for one batch of reads
+    after another against one reference upload only their read bank.
+    With metrics, adds 1 to genome_bank_uploads where this call
+    uploaded, else 0."""
+    cache = genome.__dict__.setdefault("_device_bank", {})
+    key = str(torch.device(device))
+    fresh = key not in cache
+    if fresh:
+        cache[key] = upload_bank(genome.concat, PAD_REF, device)
+    count(metrics, "genome_bank_uploads", int(fresh))
+    return cache[key]
+
+
+def device_banks(genome: Genome, seqbank: SeqBank, device: torch.device,
+                 metrics: dict | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The genome's bank (genome_bank: resident on the genome; metrics
+    as there) and the read bank's flat bytes (upload_bank with
+    PAD_QUERY) as uint8 tensors on device."""
+    return (genome_bank(genome, device, metrics),
+            upload_bank(seqbank.flat, PAD_QUERY, device))
 
 
 def _score_ops(opsT: torch.Tensor, mbitsT: torch.Tensor,
@@ -212,7 +237,8 @@ def gate_engages(tail: int, total: int) -> bool:
 
 class DeviceGactEngine:
     """GACT engine whose slot loop runs on one device, with
-    device-resident sequence banks."""
+    device-resident sequence banks (the genome's kept on the genome
+    across engines: genome_bank; metrics as there)."""
 
     def __init__(self, genome: Genome, queries: SeqBank, *,
                  tile_size: int, early_terminate: int,
@@ -221,7 +247,8 @@ class DeviceGactEngine:
                  same_file: bool, batch_size: int = 256,
                  compute_score: bool = True,
                  device: torch.device | str, tb_format: str = "bytes",
-                 drain: bool = True, drain_gate: bool = True):
+                 drain: bool = True, drain_gate: bool = True,
+                 metrics: dict | None = None):
         if tb_format not in WALKERS:
             raise ValueError(f"tb_format {tb_format!r} not in "
                              f"{tuple(WALKERS)}")
@@ -248,7 +275,7 @@ class DeviceGactEngine:
         self.drain = drain
         self.drain_gate = drain_gate
         self._gbank, self._qbank = device_banks(genome, queries,
-                                                self.device)
+                                                self.device, metrics)
         self._g_start_all = (genome.chr_id_to_start_bin.astype(np.int64)
                              * genome.bin_size)
         self.last_iters = 0

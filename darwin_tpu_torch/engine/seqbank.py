@@ -20,6 +20,18 @@ class SeqBank:
         self.flat = (np.concatenate(seqs) if seqs
                      else np.empty(0, dtype=np.uint8))
 
+    @classmethod
+    def from_flat(cls, flat: np.ndarray, lengths: np.ndarray) -> "SeqBank":
+        """Bank over flat uint8 bytes holding sequences of lengths back
+        to back (no per-sequence arrays)."""
+        out = cls([])
+        out.lengths = np.asarray(lengths, dtype=np.int64)
+        out.starts = np.zeros(len(out.lengths), dtype=np.int64)
+        if len(out.lengths):
+            np.cumsum(out.lengths[:-1], out=out.starts[1:])
+        out.flat = flat
+        return out
+
     def gather(self, seq_id: np.ndarray, idx: np.ndarray) -> np.ndarray:
         """chars[...] = seq[seq_id][idx]; indices clipped to the flat
         array (callers mask out-of-range columns)."""

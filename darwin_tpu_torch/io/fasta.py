@@ -19,6 +19,8 @@ import dataclasses
 from pathlib import Path
 from typing import Iterable
 
+import numpy as np
+
 SEQLINE_WRAP_LEN = 70  # reference fasta.h:19
 
 
@@ -127,7 +129,9 @@ def write_fasta(path: str | Path, records: Iterable[tuple[str, str]],
                 f.write(seq[i:i + wrap] + "\n")
 
 
-_COMP = str.maketrans("acgtACGTnN", "tgcaTGCAnN")
+_NT = "acgtACGTnN"
+_COMP = str.maketrans(_NT, "tgcaTGCAnN")
+_COMP_BYTES = bytes.maketrans(_NT.encode(), b"tgcaTGCAnN")
 
 
 def revcomp(seq: str) -> str:
@@ -135,7 +139,24 @@ def revcomp(seq: str) -> str:
 
     The reference aborts on characters outside acgtACGTnN; this raises.
     """
-    bad = set(seq) - set("acgtACGTnN")
+    bad = set(seq) - set(_NT)
     if bad:
         raise ValueError(f"Bad Nt char: {sorted(bad)[0]}")
     return seq.translate(_COMP)[::-1]
+
+
+def revcomp_flat(flat: bytes | bytearray, lengths: np.ndarray) -> np.ndarray:
+    """revcomp of every sequence of a batch in one pass: flat holds the
+    sequences' ASCII bytes back to back (lengths), and the result their
+    reverse complements back to back in the same order, as uint8.  The
+    same bytes as revcomp a sequence at a time, and revcomp's ValueError
+    for the first sequence that holds a character outside acgtACGTnN."""
+    if flat.translate(None, _NT.encode()):
+        ends = np.cumsum(lengths)
+        for s, e in zip((ends - lengths).tolist(), ends.tolist()):
+            revcomp(flat[s:e].decode("ascii"))
+    # The whole batch reversed holds the sequences' reverse complements
+    # in reverse order: put them back in order.
+    rev = np.frombuffer(flat.translate(_COMP_BYTES), np.uint8)[::-1]
+    parts = np.split(rev, np.cumsum(lengths[::-1])[:-1])
+    return np.concatenate(parts[::-1])

@@ -26,7 +26,6 @@ import numpy as np
 import torch
 
 from darwin_tpu_torch import native
-from darwin_tpu_torch.coding import seq_to_bytes
 from darwin_tpu_torch.config import Params
 from darwin_tpu_torch.dsoft import dsoft
 from darwin_tpu_torch.engine.aligner import TorchTileAligner
@@ -38,7 +37,7 @@ from darwin_tpu_torch.engine.seqbank import SeqBank
 from darwin_tpu_torch.golden.gact import format_record
 from darwin_tpu_torch.index.genome import Genome
 from darwin_tpu_torch.index.seed_table import SeedTable
-from darwin_tpu_torch.io.fasta import FastaRecord, revcomp
+from darwin_tpu_torch.io.fasta import FastaRecord, revcomp_flat
 from darwin_tpu_torch.spans import count, merge, span
 
 
@@ -281,12 +280,16 @@ def make_merged_engine(genome: Genome, fwd_bank: SeqBank,
                        same_file: bool, batch_size: int,
                        compute_score: bool = True,
                        device: torch.device | str = "cuda",
-                       tb_format: str = "bytes", mesh=None):
+                       tb_format: str = "bytes", mesh=None,
+                       metrics: dict | None = None):
     """Build the merged-bank engine once (bank upload included) so
     callers iterating over read ranges reuse it via run_device_merged's
     ``prebuilt`` argument: a DeviceGactEngine on device, or with mesh
-    (parallel/mesh.Mesh) a ShardedGactEngine over it.  Returns (engine,
-    merged bank, read count)."""
+    (parallel/mesh.Mesh) a ShardedGactEngine over it.  The genome's bank
+    is uploaded with the first engine built against the genome and stays
+    on it (device_batch.genome_bank); with metrics, genome_bank_uploads
+    counts the uploads this build made.  Returns (engine, merged bank,
+    read count)."""
     num_reads = len(fwd_bank.lengths)
     merged = SeqBank.concat(fwd_bank, rev_bank)
     kw = dict(tile_size=params.tile_size,
@@ -295,7 +298,8 @@ def make_merged_engine(genome: Genome, fwd_bank: SeqBank,
               match=params.match, mismatch=params.mismatch,
               gap_open=params.gap_open, gap_extend=params.gap_extend,
               same_file=same_file, batch_size=batch_size,
-              compute_score=compute_score, tb_format=tb_format)
+              compute_score=compute_score, tb_format=tb_format,
+              metrics=metrics)
     if mesh is not None:
         return ShardedGactEngine(genome, merged, mesh=mesh, **kw), merged, \
             num_reads
@@ -322,16 +326,18 @@ def run_device_merged(genome: Genome, table: SeedTable,
     (slot-iterations with a call in flight), drain_redispatches (the
     engine's second tiers) and the engine's spans (its last_spans:
     engine_prepare_s, engine_enqueue_s, engine_wait_s and
-    engine_records_s inside align_s, engine_slot_iters) to it, and with
-    the device D-SOFT dsoft_overflow_reads.
+    engine_records_s inside align_s, engine_slot_iters) to it, with
+    the device D-SOFT dsoft_overflow_reads, and where it builds the
+    engine (prebuilt None) engine_build_s and genome_bank_uploads.
     """
     if prebuilt is not None:
         dev, merged, num_reads = prebuilt
     else:
-        dev, merged, num_reads = make_merged_engine(
-            genome, fwd_bank, rev_bank, params, same_file=same_file,
-            batch_size=batch_size, compute_score=compute_score,
-            device=device, mesh=mesh)
+        with span(metrics, "engine_build", ranged=False):
+            dev, merged, num_reads = make_merged_engine(
+                genome, fwd_bank, rev_bank, params, same_file=same_file,
+                batch_size=batch_size, compute_score=compute_score,
+                device=device, mesh=mesh, metrics=metrics)
     if read_ids is None:
         merged_ids = None
     else:
@@ -411,9 +417,14 @@ def run_host(genome: Genome, table: SeedTable, fwd_bank: SeqBank,
 
 
 def read_banks(read_records: list[FastaRecord]) -> tuple[SeqBank, SeqBank]:
-    """Forward and reverse-complement read banks."""
-    return (SeqBank([seq_to_bytes(r.seq) for r in read_records]),
-            SeqBank([seq_to_bytes(revcomp(r.seq)) for r in read_records]))
+    """Forward and reverse-complement read banks, each built over the
+    batch's bytes at once (io/fasta.revcomp_flat): the bytes of a bank
+    a read at a time, and its errors."""
+    lengths = np.fromiter((len(r.seq) for r in read_records), np.int64,
+                          len(read_records))
+    flat = bytearray().join([r.seq.encode("ascii") for r in read_records])
+    return (SeqBank.from_flat(np.frombuffer(flat, np.uint8), lengths),
+            SeqBank.from_flat(revcomp_flat(flat, lengths), lengths))
 
 
 def format_records(genome: Genome, read_records: list[FastaRecord],
@@ -440,9 +451,10 @@ def run_pipeline(ref_records: list[FastaRecord],
     table, so that a tile size the device cannot take fails first.  With
     metrics, adds darwin_tpu.pipeline.run_pipeline's genome_banks_s
     (genome_s and read_banks_s inside it), engine_build_s, table_s and
-    format_s to what the engine adds, and table_device: 1 where this call
+    format_s to what the engine adds, table_device: 1 where this call
     built the seed table on the card (SeedTable.build on a CUDA device),
-    else 0."""
+    else 0, and on the device engine genome_bank_uploads (1: its genome
+    is new)."""
     if engine not in ("device", "host"):
         raise ValueError(f"engine {engine!r}: device or host")
     with span(metrics, "genome_banks"):
@@ -457,7 +469,7 @@ def run_pipeline(ref_records: list[FastaRecord],
             built = dict(prebuilt=make_merged_engine(
                 genome, fwd_bank, rev_bank, params, same_file=same_file,
                 batch_size=batch_size, compute_score=compute_score,
-                device=device))
+                device=device, metrics=metrics))
         else:
             built = dict(aligner=make_aligner(params, device))
     # On the card the table is built there (a timer: a profiler range

@@ -1130,3 +1130,45 @@ def test_run_pipeline_builds_the_seed_table_on_the_card(cuda):
     assert m["table_device"] == 1
     assert (td.minimizer_keys.launches, td.sort_keys.launches) == (
         n0 + 1, s0 + 1)
+
+
+def test_resident_genome_bank_gives_a_fresh_uploads_records(cuda, tmp_path):
+    """guided_shape's reads in two batches through run_device_merged
+    with the device D-SOFT against one Genome, as the CLI's chunk loop
+    runs them: the genome's bank is uploaded with the first batch's
+    engine and kept (genome_bank_uploads 1, then 0); each batch's
+    records equal those of an engine over a fresh upload (a new
+    Genome), and the batches' together the oracle's."""
+    from darwin_tpu_torch.pipeline import (format_records, read_banks,
+                                           run_device_merged)
+
+    st = chip_smoke._tool("torch_scale_test")
+    st.make_dataset(st.parse_args([*chip_smoke.GUIDED_SHAPE_FLAGS,
+                                   "--workdir", str(tmp_path)]), tmp_path)
+    want = (REPO / "tests" / "data" / "guided_shape" /
+            "jax_cpu.darwin").read_text().splitlines()
+    params = Params()
+    ref = parse_fasta(tmp_path / "genome.fasta")
+    reads = parse_fasta(tmp_path / "reads.fasta")
+    genome = Genome(ref, params.bin_size)
+    table = SeedTable.build(genome.concat, params.seed_size,
+                            params.seed_occurence_multiple, params.bin_size,
+                            params.window_size, device=cuda)
+    kw = dict(same_file=False, batch_size=4096, dsoft="device", device=cuda)
+    half = len(reads) // 2
+    uploads, lines = [], []
+    for batch in (reads[:half], reads[half:]):
+        got = {}
+        for g in (genome, Genome(ref, params.bin_size)):
+            m = {}
+            recs, _ = run_device_merged(g, table, *read_banks(batch), params,
+                                        metrics=m, **kw)
+            got[g is genome] = sorted(format_records(g, batch, recs))
+            if g is genome:
+                uploads.append(m["genome_bank_uploads"])
+            else:
+                assert m["genome_bank_uploads"] == 1
+        assert got[True] == got[False] and got[True]
+        lines += got[True]
+    assert uploads == [1, 0]
+    assert sorted(set(lines)) == want
