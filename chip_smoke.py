@@ -42,7 +42,11 @@ Phases; any failure ends the run with a nonzero exit code:
    TABLE_EDGE_KW, and timed at the benchmark's job size (48.52 Mbp)
    beside their bounds, the plain versions and torch.sort, with the
    whole device build (table_arrays: upload, scan, sort, download)
-   beside the native build, the results equal;
+   beside the native build, the results equal; the slot loop's two
+   kernels (csrc/slot_loop.cu: slot_prepare, slot_post) on
+   slot_loop_case at SLOT_CASES under each flag and scoring, then timed
+   at SLOT_TIMED (B = 16,384) beside their plain versions and bounds
+   (phase_slot_loop);
 3. fixtures: darwin_tpu_torch.pipeline.run_pipeline on every
    tests/data fixture that has an out.darwin (the reference binary's
    output), under the device engine, the host-stepped engine and the
@@ -61,7 +65,9 @@ Phases; any failure ends the run with a nonzero exit code:
    CPU), the host stages must have run the port's native library
    (host_native), not their NumPy fallbacks, every kernel a run uses
    must have launched in it, the device engine's runs must launch the
-   span fetch once an engine iteration, and the --dsoft device run's
+   span fetch and the slot loop's two kernels once an engine iteration
+   (engine_fused_iters equal to engine_iters), and the --dsoft device
+   run's
    dsoft_overflow_reads must be the plain version's count (phase 2).
    Then each run's seed_s, and the records' sensitivity and specificity
    (eval/sensitivity.py, the read names' coordinates as the truth);
@@ -101,7 +107,8 @@ Phases; any failure ends the run with a nonzero exit code:
    read-strands, shard_scan at each L % 4 and shard_count on
    SHARD_COUNT_CASES, the split DP at SPLIT_CHECKED, every
    instantiation and a partial last strip, and the seed table's kernels
-   on table_edge_genomes and a random 5 Mb genome) run in another child
+   on table_edge_genomes and a random 5 Mb genome, the slot loop's
+   kernels at SLOT_CASES) run in another child
    (``--checked``), which must exit 0 with every output equal to the
    normal library's;
 8. the golden soak: tests/test_fuzz_pipeline.py's pinned instances
@@ -251,6 +258,11 @@ size MESH as a JSON [tup_max, cand_max, a2a_cap], so that the child
 derives none) and prints the digests as its last line, or (--trap)
 checked_trap, an out-of-bounds launch that must end it.
 
+    python3 chip_smoke.py --slot-loop
+
+only builds the kernels, runs phase_slot_loop and the slot loop's
+kernels on the checked library in a child (slot_loop_only).
+
     python3 chip_smoke.py --index-modes
 
 only times the E.coli slice's D-SOFT on its merged bank, the native host
@@ -371,6 +383,11 @@ KERNELS = {
                           "traceback_packed6_jax"),
     "fetch_tiles": ("darwin_tpu_torch/csrc/tile_fetch.cu",
                     "darwin_tpu/ops/tile_fetch.py:161", "pallas_call"),
+    # The slot loop's bookkeeping: together the engine's while_loop body
+    # less its fetch, DP and walker, so they share its line.
+    **{name: ("darwin_tpu_torch/csrc/slot_loop.cu",
+              "darwin_tpu/engine/device_batch.py:240", "body")
+       for name in ("slot_prepare", "slot_post")},
     "dsoft_device": ("darwin_tpu_torch/csrc/dsoft.cu",
                      "darwin_tpu/dsoft/device.py:341", "dsoft_device_batch"),
     "local_score_batch": ("darwin_tpu_torch/csrc/swscore.cu",
@@ -420,13 +437,18 @@ KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
                "library_ms"}
 # The kernels each phase 4 run must launch.
 SEED_TABLE = ("seed_minimizers", "seed_sort")
+SLOT_LOOP = ("slot_prepare", "slot_post")
 ECOLI_RUNS = {
-    "cli bytes": ("align_tiles", "fetch_tiles", "traceback", *SEED_TABLE),
-    "packed": ("align_tiles", "fetch_tiles", "traceback_packed"),
-    "packed6": ("align_tiles", "fetch_tiles", "traceback_packed6"),
+    "cli bytes": ("align_tiles", "fetch_tiles", "traceback", *SLOT_LOOP,
+                  *SEED_TABLE),
+    "packed": ("align_tiles", "fetch_tiles", "traceback_packed",
+               *SLOT_LOOP),
+    "packed6": ("align_tiles", "fetch_tiles", "traceback_packed6",
+                *SLOT_LOOP),
     "cli host --paf-out": ("align_tiles", "traceback_packed6", *SEED_TABLE),
     "cli bytes --dsoft device": ("dsoft_device", "align_tiles",
-                                 "fetch_tiles", "traceback", *SEED_TABLE),
+                                 "fetch_tiles", "traceback", *SLOT_LOOP,
+                                 *SEED_TABLE),
 }
 # The E.coli-shaped slice's reads (phase 4) and the device D-SOFT's
 # budgets there (collect_calls_device's defaults).
@@ -774,6 +796,140 @@ def walk_case_batch(rng, T: int, B: int):
 
     parts = [walk_cases(rng, T) for _ in range(-(-B // WALK_CASES))]
     return tuple(np.concatenate(x)[:B] for x in zip(*parts))
+
+
+def slot_loop_case(seed: int, N: int, B: int, W: int, T: int = 320,
+                   ET: int = 200, active: float | None = None) -> dict:
+    """One engine iteration's buffers for csrc/slot_loop.cu, as numpy
+    (ops/slot_loop.py's layouts): N calls, B slots, an op stream W wide.
+    A consistent state: calls below next_ci are issued, each in flight
+    in one slot (that share of the slots where active is given, else a
+    share at random; the rest done, their records in the table), the
+    others
+    fresh (positions 0 among them); in-flight calls in either phase with
+    positions on and past their piece's or read's ends, term, first and
+    the junction flags set at random, some rid == qid.  The DP's and
+    walker's outputs around them: scores on both sides of the threshold
+    of 4, op streams with holes (values 0-3, MATCH_BIT on matches) and
+    zero tails, steps of 0.  Imports nothing that needs a card."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    i32 = np.int32
+    calls = np.zeros((N + 1, 8), np.int64)
+    g_len = rng.integers(1, 6 * T, N)
+    q_len = rng.integers(1, 6 * T, N)
+    calls[:N, 0] = rng.integers(0, 2 ** 33, N)
+    calls[:N, 1] = rng.integers(0, 2 ** 32, N)
+    calls[:N, 2], calls[:N, 3] = g_len, q_len
+    calls[:N, 4] = rng.integers(0, 8, N)
+    calls[:N, 5] = rng.integers(0, 8, N)
+    calls[:N, 6] = rng.integers(0, 2, N)
+    cs = np.zeros((N + 1, 16), i32)
+    pick = rng.integers(0, 4, (N, 2))
+    for k, lim in ((0, g_len), (1, q_len)):
+        cs[:N, k] = np.select([pick[:, k] == 0, pick[:, k] == 1,
+                               pick[:, k] == 2],
+                              [0, lim, lim + rng.integers(-2, 3, N)],
+                              rng.integers(0, lim + 1))
+    cs[:N, 2] = cs[:N, 0] + rng.integers(-T, T, N)
+    cs[:N, 3] = cs[:N, 1] + rng.integers(-T, T, N)
+    for col, p in ((4, 0.5), (5, 0.5), (6, 0.3), (7, 0.15), (12, 0.5),
+                   (13, 0.5), (14, 0.5), (15, 0.5)):
+        cs[:N, col] = rng.random(N) < p
+    cs[:N, 9] = rng.integers(-40, 60, N)
+    cs[:N, 10] = rng.integers(0, 500, N)
+    cs[:N, 11] = rng.integers(0, 600, N)
+    next_ci = int(rng.integers(min(B, N) // 2, N + 1))
+    n_in = (int(active * min(B, next_ci)) if active is not None
+            else int(rng.integers(0, min(B, next_ci) + 1)))
+    inflight = rng.permutation(next_ci)[:n_in]
+    done = np.ones(next_ci, bool)
+    done[inflight] = False
+    cs[:next_ci, 8] = done
+    # Fresh calls: their anchors, first tile, reverse phase.
+    cs[next_ci:N, 2], cs[next_ci:N, 3] = cs[next_ci:N, 0], cs[next_ci:N, 1]
+    cs[next_ci:N, 4:9] = (1, 1, 0, 0, 0)
+    cs[next_ci:N, 9:] = 0
+    assign = np.full(B, -1, i32)
+    assign[rng.permutation(B)[:len(inflight)]] = inflight
+    nrec = int(rng.integers(0, next_ci - len(inflight) + 1))
+    records = np.full((N + 1, 10), -1, i32)
+    records[:nrec] = rng.integers(0, 1000, (nrec, 10))
+    ctl = np.array([int(done.sum()), next_ci, len(inflight),
+                    int(rng.integers(0, 10 ** 6)), nrec, 0, 0, 0], np.int64)
+    # The tile's results.
+    lens = rng.integers(0, T + 1, (2, B)).astype(i32)
+    dp = {k: rng.integers(-20, 30, B).astype(i32)
+          for k in ("max_score", "pos_score")}
+    dp["max_i"] = rng.integers(0, lens[0] + 1).astype(i32)
+    dp["max_j"] = rng.integers(0, lens[1] + 1).astype(i32)
+    ops = rng.integers(0, 4, (B, W))
+    ops[rng.random((B, W)) < 0.2] = 0
+    ops[np.arange(W)[None, :] >= rng.integers(0, W + 1, B)[:, None]] = 0
+    raw = (ops + 16 * ((ops == 3) & (rng.random((B, W)) < 0.7))).astype(
+        np.uint8)
+    steps = rng.integers(0, ET + 1, (2, B))
+    steps[rng.random((2, B)) < 0.1] = 0
+    return dict(cs=cs, calls=calls, assign=assign, ctl=ctl, records=records,
+                lens=lens, raw=raw, i_steps=steps[0].astype(i32),
+                j_steps=steps[1].astype(i32), **dp)
+
+
+# The engine loop's workload for the fused loop against the PyTorch one
+# (tests/test_torch_slot_loop.py on the CPU, tests/test_torch_cuda.py on
+# the card): tile size, early terminate, first-tile threshold.
+SLOT_LOOP_T, SLOT_LOOP_ET, SLOT_LOOP_THRESHOLD = 16, 8, 4
+
+
+def slot_loop_workload(seed: int, n_calls: int) -> tuple:
+    """(genome, read bank, meta, cstate) for DeviceGactEngine._loop: three
+    random pieces (2-5 kb), 24 reads cut from them with 10% of bases
+    redrawn (every eighth 1200 bases, the rest 60-400), and n_calls
+    anchors on the reads' true diagonals, except every seventh at a
+    random reference position (most fail the first tile's threshold),
+    every eleventh at query position 0, every thirteenth at reference
+    position 0 and every seventeenth at its read's and piece's ends;
+    the reads' ids 0-2 double as piece ids, so some calls have rid ==
+    qid.  meta is (rid, qid, bank id, comp) with comp at random, cstate
+    fresh_state's.  Imports nothing that needs a card."""
+    import numpy as np
+
+    from darwin_tpu_torch.engine.device_batch import fresh_state
+    from darwin_tpu_torch.engine.seqbank import SeqBank
+    from darwin_tpu_torch.index.genome import Genome
+    from darwin_tpu_torch.io.fasta import FastaRecord
+
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    pieces = [acgt[rng.integers(0, 4, n)] for n in (3000, 5000, 2000)]
+    genome = Genome([FastaRecord([f"p{i}"], p.tobytes().decode())
+                     for i, p in enumerate(pieces)], 64)
+    reads, origin = [], []
+    for i in range(24):
+        p = i % 3
+        L = 1200 if i % 8 == 0 else int(rng.integers(60, 400))
+        s = int(rng.integers(0, len(pieces[p]) - L))
+        r = pieces[p][s:s + L].copy()
+        mut = rng.random(L) < 0.1
+        r[mut] = acgt[rng.integers(0, 4, int(mut.sum()))]
+        reads.append(r)
+        origin.append((p, s))
+    qid = rng.integers(0, len(reads), n_calls)
+    rid = np.array([origin[q][0] for q in qid])
+    qlen = np.array([len(reads[q]) for q in qid])
+    glen = np.array([len(pieces[p]) for p in rid])
+    qpos = rng.integers(0, qlen)
+    rpos = np.array([origin[q][1] for q in qid]) + qpos
+    k = np.arange(n_calls)
+    rpos = np.where(k % 7 == 3, rng.integers(0, glen), rpos)
+    qpos = np.where(k % 11 == 5, 0, qpos)
+    rpos = np.where(k % 13 == 6, 0, rpos)
+    qpos = np.where(k % 17 == 8, qlen, qpos)
+    rpos = np.where(k % 17 == 8, glen, rpos)
+    meta = (rid.astype(np.int64), qid.astype(np.int64), qid.astype(np.int64),
+            rng.integers(0, 2, n_calls).astype(np.int64))
+    return genome, SeqBank(reads), meta, fresh_state(rpos, qpos)
 
 
 # The walkers' JSON names by dir format.
@@ -1437,6 +1593,216 @@ def _sort_ms(h0, p0, k: int, reps: int) -> float:
     return statistics.median(times[1:])
 
 
+# slot_loop_case's (N, B, W) for the slot loop's kernels against their
+# plain versions: the op stream 2*ET-1 = 399 wide (bytes, packed) or
+# packed6's 800 at ET = 200; the last three at the engine's 16,384 slots
+# and at 33,000 (slot_prepare's block in three passes).  SLOT_TIMED is
+# the chr1 cell's shape, where phase 2 times them: 16,384 slots, the
+# byte walker's stream, 56% of the slots in flight (the cell's
+# slot_occupancy_pct in the benchmark).
+SLOT_CASES = ((50, 64, 399), (3000, 256, 800), (20000, 16384, 399),
+              (60000, 16384, 800), (70000, 33000, 399))
+SLOT_TIMED = (60000, 16384, 399)
+SLOT_TIMED_ACTIVE = 0.56
+SLOT_SCORINGS = (DEFAULT_SCORING, dict(match=2, mismatch=-3, gap_open=-4,
+                                       gap_extend=-2),
+                 dict(match=2, mismatch=1, gap_open=-3, gap_extend=-1))
+SLOT_THRESHOLD = 4
+
+
+def _slot_buffers(case: dict, dev) -> dict:
+    """Device copies of slot_loop_case's buffers, with slot_prepare's
+    outputs (offs, out_lens, flags) zeroed."""
+    import numpy as np
+    import torch
+
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in case.items()}
+    B = t["assign"].shape[0]
+    t["offs"] = torch.zeros((2, B), dtype=torch.int64, device=dev)
+    t["out_lens"] = torch.zeros((2, B), dtype=torch.int32, device=dev)
+    t["flags"] = torch.zeros((2, B), dtype=torch.bool, device=dev)
+    return t
+
+
+def _slot_prepare(t: dict, fn, same_file: bool, score: bool) -> tuple:
+    """fn (slot_prepare or its plain version) on t; returns what it
+    writes."""
+    fn(t["cs"], t["calls"], t["assign"], t["ctl"], t["records"], t["offs"],
+       t["out_lens"], t["flags"], T=T_MAIN, gap_diff=-1 + 2 * score,
+       same_file=same_file, compute_score=score)
+    return tuple(t[k] for k in ("cs", "assign", "ctl", "records", "offs",
+                                "out_lens", "flags"))
+
+
+def _slot_post(t: dict, fn, score: bool, sc: dict):
+    """fn (slot_post or its plain version) on t; returns the state."""
+    out = {k: t[k] for k in ("max_i", "max_j", "max_score", "pos_score")}
+    fn(t["cs"], t["assign"], t["lens"], out, t["raw"], t["i_steps"],
+       t["j_steps"], threshold=SLOT_THRESHOLD, compute_score=score, **sc)
+    return t["cs"]
+
+
+def slot_loop_digests(dev, small: bool = False) -> dict:
+    """{case: digest} of the slot loop's two kernels (the library
+    _build.CHECKED selects) on slot_loop_case at SLOT_CASES (small: the
+    first two), slot_prepare under each same_file and compute_score,
+    slot_post under each compute_score and SLOT_SCORINGS."""
+    from darwin_tpu_torch import _build
+    from darwin_tpu_torch.ops.slot_loop import slot_post, slot_prepare
+
+    res = {}
+    for i, (N, B, W) in enumerate(SLOT_CASES[:2] if small else SLOT_CASES):
+        case = slot_loop_case(70 + i, N, B, W)
+        runs = [(f"slot_prepare N={N} B={B} same_file={f} score={c}",
+                 lambda f=f, c=c: _slot_prepare(_slot_buffers(case, dev),
+                                                slot_prepare, f, c))
+                for f in (False, True) for c in (False, True)]
+        runs += [(f"slot_post N={N} B={B} W={W} score={c} scoring={j}",
+                  lambda c=c, sc=sc: _slot_post(_slot_buffers(case, dev),
+                                                slot_post, c, sc))
+                 for c in (False, True) for j, sc in enumerate(SLOT_SCORINGS)]
+        for name, fn in runs:
+            if _build.CHECKED:  # a trap ends the run: name its case first
+                print(f"checked: {name}", file=sys.stderr, flush=True)
+            res[name] = _digest(fn())
+    return res
+
+
+def _restored_ms(fn, t: dict, saved: dict, reps: int,
+                 hide_host: bool = False) -> float:
+    """Median time (CUDA events) of fn() over reps runs, t's tensors
+    restored from saved before each, outside the events; the host's
+    launch path included, or with hide_host behind a 1 ms device sleep
+    enqueued first, so that the events hold the device's work alone."""
+    import torch
+
+    times = []
+    for _ in range(reps + 1):
+        for k, v in saved.items():
+            t[k].copy_(v)
+        if hide_host:
+            torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def phase_slot_loop(dev) -> dict:
+    """Phase 2's slot-loop part: slot_prepare and slot_post (csrc/
+    slot_loop.cu) against their plain versions, every output at
+    tolerance 0, on SLOT_CASES under each flag and scoring; then both
+    timed at SLOT_TIMED (CUDA events, state restored between runs)
+    beside the plain versions and their bounds: the bytes of the slots'
+    state and call rows, the rows written, the fetch's arguments and the
+    records written (slot_prepare), the active slots' state rows, the op
+    stream and the tile's results (slot_post).  Returns the kernels
+    line's numbers of both."""
+    import torch
+
+    from darwin_tpu_torch.ops import slot_loop as sl
+
+    n = 0
+    for i, (N, B, W) in enumerate(SLOT_CASES):
+        case = slot_loop_case(70 + i, N, B, W)
+        for f in (False, True):
+            for c in (False, True):
+                got = _slot_prepare(_slot_buffers(case, dev),
+                                    sl.slot_prepare, f, c)
+                want = _slot_prepare(_slot_buffers(case, dev),
+                                     sl.slot_prepare_torch, f, c)
+                bad = [k for k, a, b in zip(
+                    ("cs", "assign", "ctl", "records", "offs", "lens",
+                     "flags"), got, want) if not torch.equal(a, b)]
+                if bad:
+                    raise AssertionError(f"slot_prepare N={N} B={B} "
+                                         f"same_file={f} score={c}: {bad} "
+                                         f"differ from the plain version")
+                n += 1
+        for c in (False, True):
+            for sc in SLOT_SCORINGS:
+                got = _slot_post(_slot_buffers(case, dev), sl.slot_post, c,
+                                 sc)
+                want = _slot_post(_slot_buffers(case, dev),
+                                  sl.slot_post_torch, c, sc)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"slot_post N={N} B={B} W={W} "
+                                         f"score={c} {sc}: the state "
+                                         f"differs from the plain version")
+                n += 1
+    log(f"  slot_prepare, slot_post: {n} cases at {len(SLOT_CASES)} shapes "
+        f"equal to the plain versions")
+
+    N, B, W = SLOT_TIMED
+    case = slot_loop_case(90, N, B, W, active=SLOT_TIMED_ACTIVE)
+    t = _slot_buffers(case, dev)
+    saved = {k: v.clone() for k, v in t.items()}
+    before = saved["cs"].clone()
+    after = _slot_prepare(_slot_buffers(case, dev), sl.slot_prepare_torch,
+                          True, True)
+    active = int((saved["assign"] >= 0).sum())
+    written = int((after[0] != before).any(dim=1).sum())
+    kept = int(after[2][4] - saved["ctl"][4])
+    res = {}
+    for name, kernel, plain, nbytes in (
+            ("slot_prepare",
+             lambda: _slot_prepare(t, sl.slot_prepare, True, True),
+             lambda: _slot_prepare(t, sl.slot_prepare_torch, True, True),
+             8 * B + 128 * active + 64 * written + 26 * B + 40 * kept),
+            ("slot_post",
+             lambda: _slot_post(t, sl.slot_post, True, DEFAULT_SCORING),
+             lambda: _slot_post(t, sl.slot_post_torch, True,
+                                DEFAULT_SCORING),
+             (128 + W) * active + 36 * B)):
+        res[name] = dict(max_abs_err=0, library_ms=None,
+                         ms=_restored_ms(kernel, t, saved, 20),
+                         device_ms=_restored_ms(kernel, t, saved, 20, True),
+                         plain_ms=_restored_ms(plain, t, saved, 5),
+                         **bound(nbytes, 0))
+        r = res[name]
+        log(f"  {name} at N = {N}, B = {B}, W = {W} ({active} slots "
+            f"active, {written} rows written, {kept} records): kernel "
+            f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: {nbytes} bytes)")
+    return res
+
+
+def slot_loop_only(dev) -> dict:
+    """chip_smoke.py --slot-loop: both libraries built, phase_slot_loop,
+    then slot_loop_digests on the checked library in a child, equal to
+    this process's on the normal one.  Returns the kernels line's
+    numbers and the cases the child ran."""
+    from darwin_tpu_torch import _build
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        checked = pool.submit(_build.build, True)
+        report = _build.build()
+        checked.result()
+    for line in _registers(report):
+        if "slot" in line:
+            log("  " + line)
+    res = phase_slot_loop(dev)
+    want = slot_loop_digests(dev)
+    r = _checked_child("--slot-loop")
+    if r.returncode != 0:
+        raise AssertionError(f"the checked library's run exited "
+                             f"{r.returncode}:\n{r.stderr[-3000:]}")
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    if got != want:
+        differ = sorted(k for k in want.keys() | got.keys()
+                        if got.get(k) != want.get(k))
+        raise AssertionError(f"checked library's outputs differ: {differ}")
+    log(f"  checked library: {len(got)} slot-loop cases, outputs equal to "
+        f"the normal library's")
+    return {"kernels": res, "checked_cases": len(got)}
+
+
 def phase_seed_table(dev) -> dict:
     """Phase 2's seed-table part; returns the kernels line's numbers of
     seed_minimizers and seed_sort."""
@@ -2009,12 +2375,17 @@ def phase_ecoli(dev, counters: dict, plain_overflow: int,
             idle = [k for k in ECOLI_RUNS[tag] if launches[k] <= 0]
             if idle:
                 raise AssertionError(f"{tag}: {idle} not launched")
+            for k in ("fetch_tiles", *SLOT_LOOP):
+                if k in ECOLI_RUNS[tag] and launches[k] != m["engine_iters"]:
+                    raise AssertionError(
+                        f"{tag}: {k} launched {launches[k]} times in "
+                        f"{m['engine_iters']} engine iterations, not once "
+                        f"an iteration")
             if ("fetch_tiles" in ECOLI_RUNS[tag]
-                    and launches["fetch_tiles"] != m["engine_iters"]):
+                    and m["engine_fused_iters"] != m["engine_iters"]):
                 raise AssertionError(
-                    f"{tag}: fetch_tiles launched {launches['fetch_tiles']} "
-                    f"times in {m['engine_iters']} engine iterations, not "
-                    f"once an iteration")
+                    f"{tag}: engine_fused_iters {m['engine_fused_iters']} "
+                    f"of {m['engine_iters']} engine iterations")
             for k, n in launches.items():
                 total[k] += n
             seed_s[tag] = m["seed_s"]
@@ -2981,7 +3352,8 @@ def checked_digests(dev, small: bool = False) -> dict:
     forced), each walker at ET = T - 120 on its output, both kernels
     forced at T = 320, and the 16-bit kernel at interleave 2 and 4 at
     SPLIT_IL_TILES' first two sizes; the seed table's two kernels on
-    table_edge_genomes and the random 5 Mb genome.
+    table_edge_genomes and the random 5 Mb genome; the slot loop's two
+    kernels (slot_loop_digests).
     small: B = 36, the tile size 64 and
     one scoring, one large-ET walk, the scans at C = 33 and 1024 beside
     the probe's shape, the D-SOFT cases under the two-level index only,
@@ -3213,6 +3585,7 @@ def checked_digests(dev, small: bool = False) -> dict:
         b = torch.from_numpy(np.ascontiguousarray(g)).to(dev)
         run(f"seed table {name}",
             lambda: td.sort_keys(*td.minimizer_keys(b, 14, 4), 14))
+    res.update(slot_loop_digests(dev, small))
     return res
 
 
@@ -4553,6 +4926,7 @@ def run_phases(dev, golden_pool) -> tuple:
 
     log("[2/13] kernels against their plain versions (tolerance 0)")
     kres = phase_kernels(dev)
+    kres.update(phase_slot_loop(dev))
     kres.update(phase_seed_table(dev))
     kres["dsoft_device"], plain_overflow = phase_dsoft(dev)
     golden = golden_soak_start(golden_pool)
@@ -4664,6 +5038,10 @@ def main(argv=None) -> int:
     ap.add_argument("--index-modes", action="store_true",
                     help="time only collect_calls_device cold and warm "
                          "under each index mode (seed_times)")
+    ap.add_argument("--slot-loop", action="store_true",
+                    help="only the slot loop's kernels: phase_slot_loop, "
+                         "then their digests on the checked library in a "
+                         "child (with --checked: print those digests)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -4685,7 +5063,9 @@ def main(argv=None) -> int:
             checked_trap(dev)
             print(NO_TRAP, file=sys.stderr)
             return 0
-        print(json.dumps(checked_digests(dev, small=args.small)))
+        print(json.dumps(slot_loop_digests(dev, small=args.small)
+                         if args.slot_loop
+                         else checked_digests(dev, small=args.small)))
         return 0
     smi = nvidia_smi_line()
     if args.root:
@@ -4699,6 +5079,9 @@ def main(argv=None) -> int:
         return 0
     if args.index_modes:
         print(json.dumps({"device": smi, **seed_times(dev)}))
+        return 0
+    if args.slot_loop:
+        print(json.dumps({"device": smi, **slot_loop_only(dev)}))
         return 0
     log(f"[1/13] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")

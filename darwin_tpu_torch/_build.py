@@ -76,6 +76,12 @@ _SIGNATURES = {
     "dtt_seed_emit": [_P, _L, _I, _I, _P, _P, _P, _P],
     # hash, pos, hash2, pos2, n, bits, scratch.
     "dtt_radix_sort": [_P, _P, _P, _P, _L, _I, _P, _P],
+    # cs, calls, assign, ctl, records, offs, lens, flags, N, B, T,
+    # gap_diff, same_file, compute_score.
+    "dtt_slot_prepare": [*[_P] * 8, *[_I] * 6, _P],
+    # cs, assign, lens, max_i, max_j, max_score, pos_score, raw, i_steps,
+    # j_steps, B, W, threshold, the four scores, compute_score.
+    "dtt_slot_post": [*[_P] * 10, *[_I] * 8, _P],
 }
 # Host-only entries (no stream, nothing launched): argtypes, restype.
 _HOST_ENTRIES = {"dtt_dsoft_scratch_bytes": ([_I, _I, _I, _I], _L),

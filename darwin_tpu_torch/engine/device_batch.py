@@ -9,9 +9,13 @@ tensors:
   built for each batch of reads uploads only the reads;
 * the slot and call tables live on the device; the per-slot state
   machine (phase swap, emission, slot refill, first-tile re-anchoring,
-  termination) is masked tensor arithmetic with index_put_ updates.
+  termination) runs on a CUDA device as two kernels an iteration
+  (ops/slot_loop.py: slot_prepare before the span fetch, slot_post
+  after the walker; _loop_fused), elsewhere as masked tensor arithmetic
+  with index_put_ updates (_loop_torch, the kernels' plain version).
   Each in-flight call lives in exactly one slot, so updates never
-  collide; masked-off lanes all write the one dump row N;
+  collide; masked-off lanes all write (the kernels: read) the one dump
+  row N;
 * every iteration fetches one ref and one query tile per slot in one
   launch (ops/tile_fetch.py), runs the tile DP (ops/dp.py) and a walker
   (ops/traceback.py), and rescores from the dir bytes' MATCH_BIT.
@@ -53,9 +57,11 @@ simulation and the start state; the second tier's state download),
 engine_enqueue_s (the loops' host time outside the stop check's wait:
 the per-call tables' upload, the launches, the drain's state export),
 engine_wait_s (blocked in the stop check), engine_records_s (the record
-table's download and its OverlapRecords) and engine_slot_iters (slots
-times iterations, both tiers).  The loop's two are timers only, never
-profiler ranges (spans.py says why).
+table's download and its OverlapRecords), engine_slot_iters (slots
+times iterations, both tiers) and engine_fused_iters (the iterations
+the two kernels ran: all of them on a CUDA device, none elsewhere).
+The loop's two are timers only, never profiler ranges (spans.py says
+why).
 """
 
 from __future__ import annotations
@@ -72,6 +78,8 @@ from darwin_tpu_torch.engine.seqbank import SeqBank
 from darwin_tpu_torch.index.genome import Genome
 from darwin_tpu_torch.ops.common import MATCH_BIT, PAD_QUERY, PAD_REF
 from darwin_tpu_torch.ops.dp import align_tiles, check_tile_size
+from darwin_tpu_torch.ops.slot_loop import (CSTATE_COLS, _score_ops,
+                                            slot_post, slot_prepare)
 from darwin_tpu_torch.ops.tile_fetch import fetch_tile_pair
 from darwin_tpu_torch.ops.traceback import WALKERS
 from darwin_tpu_torch.parallel.collectives import on_each
@@ -122,51 +130,6 @@ def device_banks(genome: Genome, seqbank: SeqBank, device: torch.device,
             upload_bank(seqbank.flat, PAD_QUERY, device))
 
 
-def _score_ops(opsT: torch.Tensor, mbitsT: torch.Tensor,
-               prev_gap: torch.Tensor, *, match: int, mismatch: int,
-               gap_open: int, gap_extend: int):
-    """Port of darwin_tpu/engine/device_batch.py::_score_ops.
-
-    opsT: [B, S] ops (0 = none), mbitsT: [B, S] bool MATCH_BIT of each
-    MATCH op, prev_gap: [B] bool whether the call's last op so far was
-    a gap.  Zero slots are skipped when looking back for the previous
-    op (the packed6 walker leaves holes; the lookback is harmless on
-    the other walkers' dense ops).
-
-    Returns (delta score, new prev_gap, first op is a gap, any ops,
-    matched columns), each [B]."""
-    ops = opsT.to(I32)
-    valid = ops != 0
-    is_gap = (ops == 1) | (ops == 2)
-    is_m = ops == 3
-    m_contrib = mbitsT.to(I32) * (match - mismatch) + mismatch
-
-    B2, S2 = ops.shape
-    gpad = torch.cat([prev_gap[:, None].expand(B2, 3), is_gap], dim=1)
-    vpad = torch.cat([torch.ones((B2, 3), dtype=torch.bool,
-                                 device=ops.device), valid], dim=1)
-    prev_col_gap = torch.where(
-        vpad[:, 2:2 + S2], gpad[:, 2:2 + S2],
-        torch.where(vpad[:, 1:1 + S2], gpad[:, 1:1 + S2],
-                    gpad[:, 0:S2]))
-    gap_contrib = prev_col_gap.to(I32) * (gap_extend - gap_open) + gap_open
-
-    delta = (torch.where(is_m, m_contrib, gap_contrib) * valid).sum(
-        dim=1, dtype=I32)
-    n_match = (mbitsT & is_m).sum(dim=1, dtype=I32)
-    has_ops = valid.any(dim=1)
-    last_idx = torch.where(
-        has_ops, S2 - 1 - torch.argmax(valid.flip(1).to(I32), dim=1), 0)
-    last_gap = is_gap.gather(1, last_idx[:, None])[:, 0]
-    new_prev_gap = torch.where(has_ops, last_gap, prev_gap)
-    first_col_gap = is_gap[:, 0] & valid[:, 0]
-    return delta, new_prev_gap, first_col_gap, has_ops, n_match
-
-
-# The per-call state matrix's columns (the JAX engine's CSTATE layout).
-CSTATE_COLS = ("rpos", "qpos", "rbpos", "qbpos", "first", "reverse",
-               "prev_gap", "term", "done", "score", "nmat", "ncol", "hp0",
-               "hp1", "fg0", "fg1")
 DONE = CSTATE_COLS.index("done")
 _INT_COLS = {"rpos", "qpos", "rbpos", "qbpos", "score", "nmat", "ncol"}
 
@@ -176,7 +139,8 @@ class LoopOut(NamedTuple):
     its record count, the iterations and active slot-iterations it ran,
     calls_done (host ints), the final [N, 16] state matrix on the
     device where the drain stopped the loop early (else None), and its
-    spans (engine_enqueue_s, engine_wait_s, engine_slot_iters)."""
+    spans (engine_enqueue_s, engine_wait_s, engine_slot_iters,
+    engine_fused_iters)."""
     records: torch.Tensor
     nrec: int
     iters: int
@@ -380,7 +344,17 @@ class DeviceGactEngine:
         """The slot loop over the calls of meta (rid, qid, bid, comp),
         started from cstate ([N, 16], CSTATE_COLS); stops when every
         call is done or, with drain > 0, once every call is issued and
-        fewer than drain slots are active."""
+        fewer than drain slots are active.  On a CUDA device the
+        bookkeeping runs in two kernels an iteration (_loop_fused), else
+        in PyTorch (_loop_torch); both give the same LoopOut."""
+        if self.device.type == "cuda":
+            return self._loop_fused(meta, cstate, drain)
+        return self._loop_torch(meta, cstate, drain)
+
+    def _loop_torch(self, meta, cstate: np.ndarray, drain: int) -> LoopOut:
+        """_loop with its bookkeeping as masked PyTorch updates of [N+1]
+        columns: the CPU's path, and the plain version the fused loop is
+        held to."""
         t_start = time.perf_counter()
         wait = 0.0
         rid, qid, bid, comp = meta
@@ -583,7 +557,86 @@ class DeviceGactEngine:
             state = torch.stack([c[:N].to(I32) for c in cols], dim=1)
         return LoopOut(records, n_rec, iters, n_act_sum, n_done, state, {
             "engine_enqueue_s": time.perf_counter() - t_start - wait,
-            "engine_wait_s": wait, "engine_slot_iters": B * iters})
+            "engine_wait_s": wait, "engine_slot_iters": B * iters,
+            "engine_fused_iters": 0})
+
+    def _loop_fused(self, meta, cstate: np.ndarray, drain: int) -> LoopOut:
+        """_loop with its bookkeeping in ops/slot_loop.py's two kernels
+        an iteration, slot_prepare before the span fetch and slot_post
+        after the walker, over one [N+1, 16] state matrix (the exported
+        state is its first N rows) and an [N+1, 8] call table; the stop
+        check copies ctl's five values into pinned memory without
+        blocking, then synchronizes the stream once.  Each iteration's
+        rl and ql are a fresh tensor.  Counts its iterations on
+        engine_fused_iters.  On a CPU device the kernels' plain versions
+        run (the tests' path)."""
+        t_start = time.perf_counter()
+        wait = 0.0
+        rid, qid, bid, comp = meta
+        dev = self.device
+        cuda = dev.type == "cuda"
+        N = len(rid)
+        B = self.slots(N)
+        T, ET = self.T, self.ET
+        sc = self.scoring
+        key, walk = WALKERS[self.tb_format]
+
+        st = np.zeros((N + 1, 16), np.int32)
+        st[:N] = cstate
+        flag = [i for i, c in enumerate(CSTATE_COLS) if c not in _INT_COLS]
+        st[:N, flag] = st[:N, flag] != 0
+        calls = np.zeros((N + 1, 8), np.int64)
+        calls[:N, :7] = np.stack(
+            [self._g_start_all[rid], self.queries.starts[bid],
+             self.genome.piece_lengths[rid], self.queries.lengths[bid], rid,
+             qid, comp], axis=1)
+        cs = torch.from_numpy(st).to(dev)
+        calls = torch.from_numpy(calls).to(dev)
+        assign = torch.arange(B, dtype=I32).masked_fill_(
+            torch.arange(B) >= N, -1).to(dev)
+        n_done, n_next, n_active, n_act_sum, n_rec = (0, min(B, N),
+                                                      min(B, N), 0, 0)
+        ctl = torch.tensor([n_done, n_next, n_active, n_act_sum, n_rec, 0,
+                            0, 0], dtype=I64, device=dev)
+        records = torch.full((N + 1, 10), -1, dtype=I32, device=dev)
+        offs = torch.empty((2, B), dtype=I64, device=dev)
+        flags = torch.empty((2, B), dtype=torch.bool, device=dev)
+        stop = torch.empty(8, dtype=I64, pin_memory=True) if cuda else ctl
+        iters = 0
+        while n_done < N and not (n_next >= N and n_active < drain):
+            lens = torch.empty((2, B), dtype=I32, device=dev)
+            slot_prepare(cs, calls, assign, ctl, records, offs, lens, flags,
+                         T=T, gap_diff=sc["gap_extend"] - sc["gap_open"],
+                         same_file=self.same_file,
+                         compute_score=self.compute_score)
+            rl, ql = lens
+            backward, first_b = flags
+            ref_t, query_t = fetch_tile_pair(
+                self._gbank, self._qbank, offs[0], offs[1], rl, ql, backward,
+                T=T, pad_ref=PAD_REF, pad_query=PAD_QUERY)
+            out = align_tiles(ref_t, query_t, rl, ql,
+                              dir_format=self.tb_format, **sc)
+            raw, i_steps, j_steps = walk(out[key], rl, ql, first_b,
+                                         out["max_i"], out["max_j"],
+                                         early_terminate=ET)
+            slot_post(cs, assign, lens, out, raw, i_steps, j_steps,
+                      threshold=self.threshold,
+                      compute_score=self.compute_score, **sc)
+            iters += 1
+            if cuda:
+                stop.copy_(ctl, non_blocking=True)
+            t = time.perf_counter()
+            if cuda:
+                torch.cuda.current_stream(dev).synchronize()
+            n_done, n_next, n_active, n_act_sum, n_rec = stop[:5].tolist()
+            wait += time.perf_counter() - t
+        return LoopOut(records, n_rec, iters, n_act_sum, n_done,
+                       cs[:N] if n_done < N else None, {
+                           "engine_enqueue_s": (time.perf_counter() - t_start
+                                                - wait),
+                           "engine_wait_s": wait,
+                           "engine_slot_iters": B * iters,
+                           "engine_fused_iters": iters})
 
 
 def balance_calls(costs: np.ndarray, nd: int) -> list[np.ndarray]:

@@ -44,11 +44,12 @@ def resolve_device(name: str) -> torch.device:
 def launch_counters() -> dict:
     """{name: wrapper} of the main paths' kernel wrappers, each of which
     counts its launches on its .launches: the DP, the three walkers, the
-    span fetch, the device D-SOFT's three kernels and the seed table's
-    two."""
+    span fetch, the slot loop's two, the device D-SOFT's three kernels
+    and the seed table's two."""
     from ..dsoft import sharded_table as st
     from ..dsoft.device import dsoft_device_batch
     from ..index import table_device as td
+    from ..ops import slot_loop as sl
     from ..ops import traceback as tb
     from ..ops.dp import align_tiles
     from ..ops.tile_fetch import fetch_tiles
@@ -56,7 +57,8 @@ def launch_counters() -> dict:
     return {"align_tiles": align_tiles, "traceback": tb.traceback,
             "traceback_packed": tb.traceback_packed,
             "traceback_packed6": tb.traceback_packed6,
-            "fetch_tiles": fetch_tiles, "dsoft_device": dsoft_device_batch,
+            "fetch_tiles": fetch_tiles, "slot_prepare": sl.slot_prepare,
+            "slot_post": sl.slot_post, "dsoft_device": dsoft_device_batch,
             "dsoft_shard_scan": st.shard_scan,
             "dsoft_shard_count": st.shard_count,
             "seed_minimizers": td.minimizer_keys,

@@ -1065,6 +1065,64 @@ def test_drain_on_card_with_one_sync_per_iteration(cuda):
     assert eng.last_iters <= syncs <= eng.last_iters + 40, syncs
 
 
+def _slot_loop_engine(genome, bank, dev, **kw):
+    return DeviceGactEngine(
+        genome, bank, tile_size=chip_smoke.SLOT_LOOP_T,
+        early_terminate=chip_smoke.SLOT_LOOP_ET,
+        first_tile_score_threshold=chip_smoke.SLOT_LOOP_THRESHOLD, match=1,
+        mismatch=-1, gap_open=-1, gap_extend=-1, batch_size=64, device=dev,
+        **kw)
+
+
+def _same_loop_out(a, b):
+    assert (a.nrec, a.iters, a.act_sum, a.calls_done) == \
+        (b.nrec, b.iters, b.act_sum, b.calls_done)
+    assert torch.equal(a.records[:a.nrec], b.records[:b.nrec])
+    assert (a.state is None) == (b.state is None)
+    if a.state is not None:
+        assert torch.equal(a.state, b.state)
+
+
+@pytest.mark.parametrize("fmt", ["bytes", "packed", "packed6"])
+@pytest.mark.parametrize("same_file", [False, True])
+@pytest.mark.parametrize("score", [True, False])
+@pytest.mark.parametrize("n_calls,drain", [(40, 0), (300, 0), (300, 16)])
+def test_fused_slot_loop_equals_torch_loop(cuda, fmt, same_file, score,
+                                           n_calls, drain):
+    """The engine loop on the card with its bookkeeping in csrc/
+    slot_loop.cu (_loop, which takes _loop_fused there) against the
+    PyTorch loop (_loop_torch) from the same state, on
+    chip_smoke.slot_loop_workload (anchors at 0 and at a read's and a
+    piece's end, calls that fail the first tile's threshold), N below
+    and above the 64 slots: the records in order, their count,
+    iterations, active slot-iterations, calls done and the exported
+    state, each slot_loop kernel launched once an iteration.  Where the
+    drain stops the first tier, the second tier resumed from its state
+    is the same too."""
+    from darwin_tpu_torch.ops import slot_loop
+
+    genome, bank, meta, cstate = chip_smoke.slot_loop_workload(3, n_calls)
+    eng = _slot_loop_engine(genome, bank, cuda, tb_format=fmt,
+                            same_file=same_file, compute_score=score)
+    want = eng._loop_torch(meta, cstate, drain)
+    n = slot_loop.slot_prepare.launches, slot_loop.slot_post.launches
+    got = eng._loop(meta, cstate, drain)
+    _same_loop_out(got, want)
+    assert (slot_loop.slot_prepare.launches - n[0],
+            slot_loop.slot_post.launches - n[1]) == (got.iters, got.iters)
+    assert got.spans["engine_fused_iters"] == got.iters > 0
+    assert want.spans["engine_fused_iters"] == 0
+    if drain:
+        assert 0 < got.calls_done < n_calls
+        state = got.state.cpu().numpy()
+        idx = np.flatnonzero(state[:, 8] == 0)
+        rest = tuple(m[idx] for m in meta)
+        _same_loop_out(eng._loop(rest, state[idx], 0),
+                       eng._loop_torch(rest, state[idx], 0))
+    else:
+        assert got.calls_done == n_calls and got.nrec > 0
+
+
 @pytest.mark.parametrize("T,et", [(376, 256), (320, 200)])
 def test_bench_step_matches_plain(cuda, T, et):
     """darwin_tpu_torch.bench's step sink from the kernels equals the

@@ -56,6 +56,13 @@ def test_every_dp_variant_and_main_kernel_is_listed():
         chip_smoke.KERNELS["dsoft_shard_count"][1:] == (
             "darwin_tpu/dsoft/sharded_table.py:265",
             "_dsoft_table_sharded_local")
+    # The slot loop's two kernels are the engine's while_loop body less
+    # its fetch, DP and walker, so they share its line.
+    assert chip_smoke.KERNELS["slot_prepare"][1:] == \
+        chip_smoke.KERNELS["slot_post"][1:] == (
+            "darwin_tpu/engine/device_batch.py:240", "body")
+    assert set(chip_smoke.SLOT_LOOP) <= set(
+        chip_smoke.ECOLI_RUNS["cli bytes"])
     # One JAX function, one kernel: no two main kernels share a line.
     main = [chip_smoke.KERNELS[k][1] for k in
             ("traceback", "traceback_packed", "traceback_packed6",
